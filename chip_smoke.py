@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases; any failure ends the run with a non-zero exit and no result line:
+
+1. device  — the card's name and power limit (``nvidia-smi``); TF32 off.
+2. build   — compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``.
+3. kernels — each Hopper kernel against its plain PyTorch version on the
+             card, at the serving shapes, within the stated tolerances; times
+             of the kernel, the plain version and one PyTorch library call for
+             the same function (the yardstick; the port never calls it).
+4. serve   — ``ServingEngine`` serving full-width Qwen1.5-MoE-A2.7B (bf16,
+             random weights from seed 0): 8 requests, 16 new tokens each. The
+             launch counters are zeroed just before the first run and read
+             just after it: each kernel must launch once per layer per prefill.
+             A second identical run must give identical streams; a third,
+             profiled run shows where the device time goes.
+5. paths   — every serve prompt's full-width prefill, kernel path against
+             the plain path on the card, in fp32 and in bf16: router logits
+             within tolerance up to the first layer whose MoE routing
+             differs, final logits within tolerance where it never does;
+             and the bf16 kernel path no further from the fp32 logits than
+             the bf16 plain paths are.
+6. output  — a ``{"kernels": [...]}`` JSON line, then, last, the result line
+             ``{"ok": true, "device": {...}}``.
+
+Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
+and the repository's ``src/`` beside this file. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+OUT = ROOT / "chiprun_out"
+
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
+
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # atol = rtol (tests/test_kernels.py)
+MOE_W_TOL = 1e-6
+# Full-width prefill, kernel path against plain path (logits and router
+# logits have std ~0.9). In fp32 the attention sums run in another order
+# (~1e-6 relative), which 24 layers carry on. In bf16 that order decides a
+# few roundings of each layer's output by one ulp (2**-8 relative), and
+# these too are carried on.
+ROUTER_TOL = {"float32": 1e-3, "bfloat16": 0.1}       # up to the routing split
+PATH_LOGITS_TOL = {"float32": 1e-3, "bfloat16": 0.25}  # where routing never splits
+# bf16 prefill logits, each path against the fp32 model's (plain path): the
+# kernel path's rms deviation, averaged over the serve prompts, may exceed
+# the larger of the two bf16 plain paths' (one chunk; the kernel's 64 x 64
+# tiling) by at most this factor.
+BF16_PATH_RATIO = 1.5
+
+SERVE_ARCH = "qwen2_moe_a2_7b"
+SERVE_PROMPT_LENS = (17, 64, 100, 150, 200, 256, 320, 384)
+SERVE_NEW_TOKENS = 16
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one call: CUDA events around the replay of a CUDA
+    graph holding ``iters`` calls, so no host launch cost is inside (inputs
+    warm in L2)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def eager_ms(fn, iters: int = 50) -> float:
+    """Time per call as an eager caller sees it: CUDA events around
+    ``iters`` back-to-back calls (host launch cost included)."""
+    import torch
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, dtype: str):
+    """(least time in ms, "bytes" | "operations") on an H100 SXM."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    say(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"count={torch.cuda.device_count()} "
+        f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    return card
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.load()
+    say(f"[build] kernels {_build.source_hash()} ready in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc {_build.BUILD_SECONDS:.2f} s)")
+    for line in _build.PTXAS_LOG.splitlines():
+        if "registers" in line:
+            say(f"[build] {line.strip()}")
+
+
+def _flash_case(gen, B, S, Hq, Hkv, D, dtype):
+    import torch
+    mk = lambda H: torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return mk(Hq), mk(Hkv), mk(Hkv)
+
+
+def phase_kernels(card):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+
+    # -- flash attention: compare ------------------------------------------
+    flash_err = 0.0
+    shapes = [(1, S, 16, 16, 128, "qwen") for S in (17, 128, 200, 384, 512)]
+    shapes.append((1, 384, 24, 8, 128, "minitron-gqa"))
+    for B, S, Hq, Hkv, D, tag in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_case(gen, B, S, Hq, Hkv, D, dtype)
+            for causal in (True, False):
+                out = ops.flash_attention(q, k, v, causal=causal)
+                gold = ref.flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                tol = FLASH_TOL[str(dtype).replace("torch.", "")]
+                diff = (out.float() - gold.float()).abs()
+                err = diff.max().item()
+                ok = bool((diff <= tol + tol * gold.float().abs()).all())
+                say(f"[kernels] flash {tag} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
+                    f"{dtype} causal={causal}: max|err|={err:.3e} "
+                    f"(atol=rtol={tol}) {'ok' if ok else 'FAIL'}")
+                check(ok, f"flash kernel disagrees with its plain version ({tag}, S={S}, "
+                          f"{dtype}, causal={causal})")
+                if tag == "qwen" and dtype == torch.bfloat16 and causal:
+                    flash_err = max(flash_err, err)
+
+    # -- flash attention: time at the serve shapes (bf16, causal) ----------
+    flash_times = {}
+    for S in (128, 200, 384, 512):
+        q, k, v = _flash_case(gen, 1, S, 16, 16, 128, torch.bfloat16)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        kernel = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        flash_times[S] = {
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            "eager_ms": eager_ms(kernel),
+        }
+        nbytes = 4 * q.numel() * q.element_size()
+        ops_ = 4 * 16 * 128 * S * (S + 1) // 2       # two products over the causal pairs
+        flash_times[S]["bound_ms"], flash_times[S]["bound_by"] = bound(nbytes, ops_, "bfloat16")
+        say(f"[kernels] flash time S={S} bf16 causal: " + ", ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in flash_times[S].items()) + f"  [{card}]")
+    t = flash_times[384]
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:31",
+                 "launches": None, "max_abs_err": flash_err, "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                 "eager_ms": t["eager_ms"], "shape": "B=1 S=384 Hq=Hkv=16 D=128 bf16 causal"})
+
+    # -- MoE top-k: compare ------------------------------------------------
+    moe_err = 0.0
+    for T in (1, 200, 384, 1024):
+        x = torch.randn(T, 60, generator=gen, device="cuda")
+        if T > 5:
+            x[3] = 0.5                                  # every expert ties
+            x[5] = torch.tensor([1.0, 2.0, 2.0] * 20, device="cuda")
+        for norm in (False, True):
+            w, i = ops.moe_topk(x, 4, norm_topk=norm)
+            wr, ir = ref.moe_topk_ref(x, 4, norm_topk=norm)
+            torch.cuda.synchronize()
+            err = (w - wr).abs().max().item()
+            same = torch.equal(i, ir)
+            ties = T <= 5 or (i[3].tolist() == [0, 1, 2, 3] and i[5].tolist() == [1, 2, 4, 5])
+            say(f"[kernels] moe_topk T={T} E=60 k=4 norm={norm}: ids equal={same} "
+                f"tie rows lowest-index={ties} max|w err|={err:.3e} (tol {MOE_W_TOL})")
+            check(same and ties and err <= MOE_W_TOL,
+                  f"moe_topk kernel disagrees with its plain version (T={T}, norm={norm})")
+            moe_err = max(moe_err, err)
+
+    # -- MoE top-k: time at the largest serve prefill (T=384) --------------
+    x = torch.randn(384, 60, generator=gen, device="cuda")
+    mt = {
+        "ms": time_ms(lambda: ops.moe_topk(x, 4)),
+        "eager_ms": eager_ms(lambda: ops.moe_topk(x, 4)),
+        "plain_ms": time_ms(lambda: ref.moe_topk_ref(x, 4)),
+        "library_ms": time_ms(lambda: torch.topk(torch.softmax(x, dim=-1), 4)),
+    }
+    nbytes = x.numel() * 4 + 384 * 4 * (4 + 4)
+    ops_ = 384 * 60 * (5 + 4)       # softmax ~5 per logit, one compare per sweep
+    mt["bound_ms"], mt["bound_by"] = bound(nbytes, ops_, "float32")
+    say("[kernels] moe_topk time T=384 E=60 k=4 fp32: " + ", ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in mt.items())
+        + f"  [{card}]")
+    rows.append({"name": "moe_topk", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/moe_topk.cu",
+                 "replaces": "src/repro/kernels/moe_dispatch.py:25",
+                 "launches": None, "max_abs_err": moe_err, "ms": mt["ms"],
+                 "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
+                 "bound_by": mt["bound_by"], "library_ms": mt["library_ms"],
+                 "eager_ms": mt["eager_ms"], "shape": "T=384 E=60 k=4 fp32"})
+    return rows, flash_times
+
+
+@contextlib.contextmanager
+def routed(ops, ref, chunks, routing):
+    """Send the model's prefill through the kernels (``chunks`` None) or
+    through their plain versions (comparison only; ``chunks`` sets the plain
+    attention's tiling: ``q_chunk``, ``k_chunk``), and append each MoE
+    layer's (router logits, expert ids) to ``routing``, on the host. The
+    model looks the wrappers up in `ops` at call time."""
+    saved = ops.flash_attention, ops.moe_topk
+    topk = ops.moe_topk
+    if chunks is not None:
+        ops.flash_attention = lambda q, k, v, *, causal=True, scale=None: \
+            ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, **chunks)
+        topk = ref.moe_topk_ref
+
+    def recorded(logits, k, *, norm_topk=False):
+        w, i = topk(logits, k, norm_topk=norm_topk)
+        routing.append((logits.float().cpu(), i.cpu()))
+        return w, i
+
+    ops.moe_topk = recorded
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.moe_topk = saved
+
+
+def routing_split(a, b):
+    """Where two prefills' MoE routing (lists of (router logits, ids) per
+    layer) first parts: (that layer or None, the max |router logit diff|
+    over the layers up to it, the tokens routed otherwise there, the largest
+    of those tokens' smallest gap between adjacent top-(k+1) logits in
+    ``b``). Before the split both prefills saw the same experts, so their
+    router logits differ only by rounding."""
+    diff = 0.0
+    for layer, ((la, ia), (lb, ib)) in enumerate(zip(a, b)):
+        diff = max(diff, (la - lb).abs().max().item())
+        rows = (ia != ib).any(dim=-1).nonzero().flatten()
+        if len(rows):
+            top = lb[rows].sort(dim=-1, descending=True).values[:, : ia.shape[-1] + 1]
+            gap = (top[:, :-1] - top[:, 1:]).min(dim=-1).values.max().item()
+            return layer, diff, len(rows), gap
+    return None, diff, 0, None
+
+
+def _serve_once(engine, prompts, Request):
+    import torch
+    reqs = [Request(i, p, max_new_tokens=SERVE_NEW_TOKENS) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return reqs, wall
+
+
+def phase_serve(card):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServingEngine, compute_metrics
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(model.params))
+    say(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.2f} B parameters ({cfg.param_dtype}), random from seed 0 "
+        f"in {time.perf_counter() - t0:.1f} s")
+    engine = ServingEngine(model, n_slots=8, s_max=512, page_size=16)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPT_LENS]
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    reqs, wall = _serve_once(engine, prompts, Request)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = cfg.num_layers * len(prompts)
+    say(f"[serve] run 1: launches {launches} (want {want} each), {len(engine.done)} done")
+    check(all(n == want for n in launches.values()),
+          f"launch counts {launches} != {want} per kernel (one per layer per prefill)")
+    check(all(len(r.tokens_out) == SERVE_NEW_TOKENS for r in reqs)
+          and all(r.t_done > 0 for r in reqs),
+          f"not every request completed with {SERVE_NEW_TOKENS} tokens")
+    m1 = compute_metrics(reqs)
+
+    reqs2, wall2 = _serve_once(engine, prompts, Request)
+    check([r.tokens_out for r in reqs2] == [r.tokens_out for r in reqs],
+          "a second identical run gave other token streams")
+    m2 = compute_metrics(reqs2)
+    n_tok = len(prompts) * SERVE_NEW_TOKENS
+    for name, m, w in (("run 1 (cold)", m1, wall), ("run 2 (warm)", m2, wall2)):
+        say(f"[serve] {name}: TTFT mean {m['ttft_mean_s'] * 1e3:.1f} ms p99 "
+            f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms "
+            f"p99 {m['tpot_p99_s'] * 1e3:.2f} ms, {n_tok / w:.1f} tok/s "
+            f"({n_tok} tokens in {w:.3f} s), peak memory {peak_gb:.2f} GB  [{card}]")
+    check(engine.pool.free_pages == engine.pool.n_pages, "page pool not pristine after run()")
+
+    # every prompt's prefill logits on each path; the engine's first token
+    # is the argmax of a direct prefill on the kernel path
+    bf16 = [_path_logits(model, p) for p in prompts]
+    for r, lg in zip(reqs, bf16):
+        check(r.tokens_out[0] == int(lg["kernel"][0].argmax()),
+              f"request {r.rid}: the engine's first token is not the prefill's argmax")
+
+    profile = _profile_run(engine, prompts, Request, [r.tokens_out for r in reqs], card)
+    return launches, {"run1": m1, "run2": m2, "wall1_s": wall, "wall2_s": wall2,
+                      "tokens": n_tok, "peak_gb": peak_gb, "profile": profile}, bf16
+
+
+# the paths a prefill can take: the kernels, or their plain versions with one
+# attention chunk or with the flash kernel's 64 x 64 tiling
+PATHS = {"kernel": None, "plain": {}, "plain_tiled": {"q_chunk": 64, "k_chunk": 64}}
+
+
+def _path_logits(model, prompt):
+    """One prompt's last-token logits (fp32, real vocab, on the host) and
+    MoE routing on each of `PATHS`, checking that each path launched what
+    it should: ``{path: (logits, routing)}``."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.common import padded_vocab
+    cfg = model.cfg
+    batch = {"tokens": torch.as_tensor(prompt, device="cuda")[None]}
+    out = {}
+    for name, chunks in PATHS.items():
+        before, routing = dict(ops.LAUNCHES), []
+        with routed(ops, ref, chunks, routing):
+            logits, _ = model.prefill(batch)
+        torch.cuda.synchronize()
+        want = {n: cfg.num_layers if chunks is None else 0 for n in before}
+        check({n: ops.LAUNCHES[n] - before[n] for n in before} == want,
+              f"the {name} path launched {ops.LAUNCHES} (before: {before}), want +{want}")
+        check(tuple(logits.shape) == (1, padded_vocab(cfg.vocab_size))
+              and bool(torch.isfinite(logits).all()),
+              f"{name} prefill logits: shape {tuple(logits.shape)}, or not finite")
+        check(len(routing) == cfg.num_layers, f"{name} path: {len(routing)} MoE layers routed")
+        out[name] = (logits[0, :cfg.vocab_size].float().cpu(), routing)
+    return out
+
+
+def _profile_run(engine, prompts, Request, streams, card, top=12):
+    """A third, profiled run: device time by kernel and the device's busy
+    share of the run's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reqs, wall = _serve_once(engine, prompts, Request)
+    check([r.tokens_out for r in reqs] == streams, "the profiled run gave other token streams")
+    from torch.autograd import DeviceType
+    rows = []
+    for evt in prof.key_averages():      # device-side events only
+        if evt.device_type == DeviceType.CUDA:
+            rows.append((evt.self_device_time_total, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    say(f"[profile] run 3 (warm, profiled): wall {wall:.3f} s, device busy {busy_s:.3f} s "
+        f"({100 * busy_s / wall:.1f} %), idle {100 * (1 - busy_s / wall):.1f} %  [{card}]")
+    for dev_us, count, key in rows[:top]:
+        say(f"[profile] {dev_us / 1e3:9.2f} ms  {count:6d} calls  "
+            f"{100 * dev_us / 1e6 / busy_s:5.1f} %  {key[:90]}")
+    for dev_us, count, key in rows:
+        for name in ("flash_fwd_kernel", "moe_topk_kernel"):
+            if name in key:
+                say(f"[profile] {name}: {count} launches, {dev_us / count:.2f} us each "
+                    "on the device over the run's prompt mix")
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "top": [{"device_ms": d / 1e3, "calls": c, "name": k} for d, c, k in rows[:top]]}
+
+
+def phase_paths(card, bf16):
+    """Every serve prompt's full-width prefill on each path, in fp32 (made
+    here) and in bf16 (``bf16``, from the serve phase; the bf16 weights are
+    the fp32 ones rounded). MoE routing is discrete: where a token's top-k
+    logits nearly tie, rounding alone can send it to other experts, and
+    from there the paths part. So, for each dtype, the kernel path against
+    the plain path: up to the first layer whose routing differs the router
+    logits agree within `ROUTER_TOL`, and where routing never differs the
+    final logits agree within `PATH_LOGITS_TOL` with the same top-1. Then,
+    held to the fp32 logits, the bf16 kernel path may stray at most
+    `BF16_PATH_RATIO` times as far as the bf16 plain paths do."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), param_dtype="float32",
+                              activ_dtype="float32")
+    model = Model(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPT_LENS]
+    fp32 = [_path_logits(model, p) for p in prompts]
+    say(f"[paths] {cfg.name} full width, logit std {fp32[0]['plain'][0].std().item():.3f}; "
+        f"per prompt, kernel vs plain path: routing split (layer, tokens, their largest "
+        f"top-(k+1) logit gap), router logit max|diff| up to it, final logits  [{card}]")
+
+    rows, ok = [], True
+    for dtype, paths in (("float32", fp32), ("bfloat16", bf16)):
+        for S, lg in zip(SERVE_PROMPT_LENS, paths):
+            layer, rdiff, n, gap = routing_split(lg["kernel"][1], lg["plain"][1])
+            t_layer, t_rdiff, _, _ = routing_split(lg["plain_tiled"][1], lg["plain"][1])
+            lk, lp = lg["kernel"][0], lg["plain"][0]
+            row = {"dtype": dtype, "S": S, "split_layer": layer, "split_tokens": n,
+                   "split_gap": gap, "router_max_diff": rdiff,
+                   "logits_max_diff": (lk - lp).abs().max().item(),
+                   "top1_kernel": int(lk.argmax()), "top1_plain": int(lp.argmax()),
+                   "tiled_split_layer": t_layer, "tiled_router_max_diff": t_rdiff}
+            row["ok"] = rdiff <= ROUTER_TOL[dtype] and (layer is not None or (
+                row["top1_kernel"] == row["top1_plain"]
+                and row["logits_max_diff"] <= PATH_LOGITS_TOL[dtype]))
+            ok &= row["ok"]
+            rows.append(row)
+            split = ("none" if layer is None
+                     else f"layer {layer}, {n} tokens, gap {gap:.2e}")
+            say(f"[paths] {dtype} S={S}: split {split}; router {rdiff:.2e} "
+                f"(tol {ROUTER_TOL[dtype]}); logits max|diff| {row['logits_max_diff']:.3e}, "
+                f"top-1 {row['top1_kernel']} vs {row['top1_plain']}"
+                f"{'' if layer is not None else f' (tol {PATH_LOGITS_TOL[dtype]})'}; "
+                f"plain_tiled vs plain split {t_layer}, router {t_rdiff:.2e}  "
+                f"{'ok' if row['ok'] else 'FAIL'}")
+    check(ok, "full-width prefill: the kernel path disagrees with the plain path")
+
+    rms = lambda a, b: (a - b).pow(2).mean().sqrt().item()   # noqa: E731
+    dev = {name: [rms(l16[name][0], l32["plain"][0]) for l16, l32 in zip(bf16, fp32)]
+           for name in PATHS}
+    top1 = {name: sum(int(l16[name][0].argmax()) == int(l32["plain"][0].argmax())
+                      for l16, l32 in zip(bf16, fp32)) for name in PATHS}
+    mean = {name: float(np.mean(v)) for name, v in dev.items()}
+    limit = BF16_PATH_RATIO * max(mean["plain"], mean["plain_tiled"])
+    for name in PATHS:
+        say(f"[paths] bf16 {name} path vs fp32 plain logits, rms per prompt: "
+            + " ".join(f"{v:.4f}" for v in dev[name])
+            + f"; mean {mean[name]:.4f}; top-1 as fp32 in {top1[name]}/{len(prompts)}")
+    say(f"[paths] bf16 kernel path mean rms {mean['kernel']:.4f} vs limit {limit:.4f} "
+        f"({BF16_PATH_RATIO} x the plain paths')  [{card}]")
+    check(mean["kernel"] <= limit,
+          "full-width bf16 prefill: the kernel path strays further from fp32 "
+          "than the plain paths do")
+    return {"prompts": rows, "bf16_rms_vs_fp32": dev, "bf16_mean_rms_vs_fp32": mean,
+            "bf16_top1_as_fp32": top1, "bf16_kernel_limit": limit}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def main() -> int:
+    import torch
+    check(torch.cuda.is_available(), "no CUDA device: the port's smoke run needs one card")
+    check((SRC / "repro_torch").is_dir(), f"{SRC / 'repro_torch'} not found: run from the repo")
+    sys.path.insert(0, str(SRC))
+
+    card = phase_device()
+    phase_build()
+    rows, flash_times = phase_kernels(card)
+    launches, serve, bf16 = phase_serve(card)
+    torch.cuda.empty_cache()        # the bf16 model is gone; make room for fp32
+    serve["paths"] = phase_paths(card, bf16)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    OUT.mkdir(exist_ok=True)
+    (OUT / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "kernels": rows, "flash_times": flash_times, "serve": serve},
+        indent=1))
+    say(json.dumps({"kernels": rows}))
+    say(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

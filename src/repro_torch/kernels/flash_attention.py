@@ -1,0 +1,62 @@
+"""Hopper flash attention: the CUDA port of the Pallas `_flash_kernel`.
+
+Source: ``csrc/flash_attention.cu`` (design notes there). This module checks
+the arguments and launches the kernel on PyTorch's current stream; the
+public entry point, which also takes the plain version for CPU tensors, is
+`repro_torch.kernels.ops.flash_attention`.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q ``(B, Sq, Hq, D)``, k/v ``(B, Sk, Hkv, D)`` CUDA tensors of one
+    dtype (fp32 or bf16), contiguous -> ``(B, Sq, Hq, D)`` in q's dtype.
+
+    Raises:
+        ValueError / TypeError: a device, dtype, shape or contiguity the
+            kernel does not take.
+        RuntimeError: the launch failed (its CUDA error code).
+    """
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must lie on q's CUDA device, got {t.device}")
+        if t.dtype not in _DTYPE_CODE or t.dtype != q.dtype:
+            raise TypeError(f"{name} dtype {t.dtype}: the kernel takes q, k, v "
+                            "all float32 or all bfloat16")
+        if t.dim() != 4 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 4-d tensor, got "
+                             f"shape {tuple(t.shape)}")
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    if min(B, Sq, Sk) == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    scale = float(scale) if scale is not None else D ** -0.5
+    out = torch.empty_like(q)
+    lib = _build.load()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Sk, Hq, Hkv, D, scale, int(causal), _DTYPE_CODE[q.dtype],
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+    return out

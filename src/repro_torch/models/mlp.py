@@ -1,0 +1,148 @@
+"""Feed-forward layers: gated-SiLU / squared-ReLU MLPs and MoE.
+
+The MoE keeps the reference's grouped, capacity-bucketed dense dispatch
+(one-hot dispatch and combine einsums), so its results match token for
+token. Prefill routes through the MoE top-k kernel; decode keeps the plain
+`router_topk`, as the reference does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import top_k
+from repro_torch.models.common import act_fn
+
+# ---------------------------------------------------------------------------
+# dense MLPs
+# ---------------------------------------------------------------------------
+
+
+def mlp_shapes(cfg: ModelConfig, d_ff: Optional[int] = None, lead: Tuple[int, ...] = ()
+               ) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
+    """Per-layer ``{name: (shape, std)}``; std None is the fan-in rule."""
+    d = cfg.d_model
+    ff = d_ff if d_ff is not None else cfg.d_ff
+    out_scale = ff ** -0.5 / math.sqrt(2 * cfg.num_layers)
+    shapes = {"w_up": (lead + (d, ff), None),
+              "w_down": (lead + (ff, d), out_scale)}
+    if cfg.mlp_act == "silu":    # gated
+        shapes["w_gate"] = (lead + (d, ff), None)
+    return shapes
+
+
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    act = act_fn(cfg.mlp_act)
+    if cfg.mlp_act == "silu":
+        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = act(x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# mixture of experts
+# ---------------------------------------------------------------------------
+
+
+EXPERT_PAD_MULTIPLE = 16
+
+
+def padded_experts(num_experts: int) -> int:
+    m = EXPERT_PAD_MULTIPLE
+    return (num_experts + m - 1) // m * m
+
+
+def switch_aux(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Switch load-balancing loss of ``(T, E)`` router probabilities and
+    the ``(T, k)`` chosen ids (top-1 dispatch fraction times mean prob)."""
+    E = probs.shape[-1]
+    f = F.one_hot(idx[:, 0].long(), E).float().mean(dim=0)
+    return E * torch.sum(f * probs.mean(dim=0))
+
+
+def router_topk(m: MoEConfig, logits: torch.Tensor, *, want_aux: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Top-k routing of ``(T, E)`` logits. Returns (weights (T, k), expert
+    ids (T, k), Switch load-balancing aux loss, or None unless
+    ``want_aux``)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    weights, idx = top_k(probs, m.top_k)
+    if m.norm_topk_prob:
+        weights = weights / weights.sum(dim=-1, keepdim=True)
+    return weights, idx, (switch_aux(probs, idx) if want_aux else None)
+
+
+EXACT_SMALL_G = 512   # groups up to this size dispatch drop-free (cap = g)
+GROUP_SIZE = 1024     # tokens per dispatch group
+
+
+def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
+            want_aux: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Grouped capacity-bucketed dense-dispatch MoE over ``x (B, S, d)``.
+    Returns (out, aux_loss), the aux loss only if ``want_aux`` (serving
+    never reads it), else None. ``kernel`` routes through `kops.moe_topk`
+    (prefill); otherwise through the plain `router_topk` (decode)."""
+    m = cfg.moe
+    B, S, d = x.shape
+    T = B * S
+    E, k = m.num_experts, m.top_k
+    E_pad = padded_experts(E)
+    xt = x.reshape(T, d)
+
+    g = min(GROUP_SIZE, T)
+    T_pad = (T + g - 1) // g * g
+    if T_pad != T:
+        xt = F.pad(xt, (0, 0, 0, T_pad - T))
+    G = T_pad // g
+    xg = xt.reshape(G, g, d)
+
+    logits = (xg.float() @ p["router"]).reshape(G * g, E)
+    if kernel:
+        weights, idx = kops.moe_topk(logits, k, norm_topk=m.norm_topk_prob)
+        aux = switch_aux(torch.softmax(logits.float(), dim=-1), idx) if want_aux else None
+    else:
+        weights, idx, aux = router_topk(m, logits, want_aux=want_aux)
+    weights = weights.reshape(G, g, k)
+    idx = idx.long().reshape(G, g, k)
+
+    # capacity per expert within a group
+    if g <= EXACT_SMALL_G:
+        cap = g                      # drop-free
+    else:
+        cap = min(max(1, int(math.ceil(g * k / E * m.capacity_factor))), g)
+
+    # position of each (token, slot) within its per-group expert bucket
+    e_one = F.one_hot(idx, E_pad)                              # (G, g, k, E_pad)
+    flat = e_one.reshape(G, g * k, E_pad)
+    pos_in_e = torch.cumsum(flat, dim=1) - flat
+    pos = (pos_in_e.reshape(G, g, k, E_pad) * e_one).sum(dim=-1)   # (G, g, k)
+    keep = pos < cap
+    weights = weights * keep.to(weights.dtype)
+
+    dt = xt.dtype
+    disp = torch.einsum(
+        "gske,gskc->gsec", e_one.to(dt),
+        F.one_hot(torch.where(keep, pos, cap), cap + 1).to(dt)[..., :-1])
+    x_e = torch.einsum("gsec,gsd->gecd", disp, xg)            # (G, E_pad, cap, d)
+
+    act = act_fn(cfg.mlp_act)
+    if cfg.mlp_act == "silu":
+        h = act(torch.einsum("gecd,edf->gecf", x_e, p["w_gate"])) * torch.einsum(
+            "gecd,edf->gecf", x_e, p["w_up"])
+    else:
+        h = act(torch.einsum("gecd,edf->gecf", x_e, p["w_up"]))
+    y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # (G, E_pad, cap, d)
+
+    combine = disp * (e_one.to(weights.dtype) * weights[..., None]).sum(dim=2)[..., None]
+    out = torch.einsum("gsec,gecd->gsd", combine.to(y_e.dtype), y_e)
+
+    out = out.reshape(T_pad, d)[:T]
+    if m.num_shared_experts:
+        out = out + mlp(cfg, p["shared"], xt[:T])
+    return out.reshape(B, S, d), aux

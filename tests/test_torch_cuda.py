@@ -1,0 +1,64 @@
+"""The port's Hopper kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips where no CUDA device is present (the
+decision is made inside the test, never at import). On a machine with an
+H100 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+Tolerances are those of ``tests/test_kernels.py``: 1e-5 in fp32 (atol and
+rtol; the sums run in another order) and 2e-2 in bf16 (the output rounds to
+bf16; both compute in fp32 in between, the softmax weights included).
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's Hopper kernels)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("shape", [(1, 200, 16, 16, 128), (2, 77, 6, 2, 64)],
+                         ids=["qwen_ragged", "gqa_d64"])
+def test_flash_kernel_matches_plain(gen, shape, causal, dtype, tol):
+    B, S, Hq, Hkv, D = shape
+    q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("T", [1, 200, 1024])
+@pytest.mark.parametrize("norm", [False, True], ids=["raw", "norm_topk"])
+def test_moe_topk_kernel_matches_plain(gen, T, norm):
+    x = torch.randn(T, 60, generator=gen, device="cuda")
+    if T > 5:
+        x[3] = 0.5                                    # every expert ties
+        x[5] = torch.tensor([1.0, 2.0, 2.0] * 20, device="cuda")
+    w, i = ops.moe_topk(x, 4, norm_topk=norm)
+    wr, ir = ref.moe_topk_ref(x, 4, norm_topk=norm)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir)
+    torch.testing.assert_close(w, wr, atol=1e-6, rtol=0)
+
+
+def test_kernels_raise_on_what_they_do_not_take(gen):
+    q = torch.randn(1, 16, 2, 128, generator=gen, device="cuda")
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    with pytest.raises(ValueError):
+        ops.moe_topk(torch.randn(4, 65, generator=gen, device="cuda"), 4)
