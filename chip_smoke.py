@@ -10,20 +10,32 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 3. kernels — each Hopper kernel against its plain PyTorch version on the
              card, at the serving shapes, within the stated tolerances; times
              of the kernel, the plain version and one PyTorch library call for
-             the same function (the yardstick; the port never calls it).
+             the same function where there is one (the yardstick; the port
+             never calls it).
 4. serve   — ``ServingEngine`` serving full-width Qwen1.5-MoE-A2.7B (bf16,
-             random weights from seed 0): 8 requests, 16 new tokens each. The
-             launch counters are zeroed just before the first run and read
-             just after it: each kernel must launch once per layer per prefill.
-             A second identical run must give identical streams; a third,
-             profiled run shows where the device time goes.
+             random weights from seed 0) on the paged pool: 8 requests, 16 new
+             tokens each. The launch counters are zeroed just before the first
+             run and read just after it: flash and MoE top-k must launch once
+             per layer per prefill, the SSD scan never. A second identical run
+             must give identical streams; a third, profiled run shows where
+             the device time goes.
 5. paths   — every serve prompt's full-width prefill, kernel path against
              the plain path on the card, in fp32 and in bf16: router logits
              within tolerance up to the first layer whose MoE routing
              differs, final logits within tolerance where it never does;
              and the bf16 kernel path no further from the fp32 logits than
              the bf16 plain paths are.
-6. output  — a ``{"kernels": [...]}`` JSON line, then, last, the result line
+6. ssm serve — the same for full-width Mamba2-370m (bf16, random weights
+             from seed 0) on the slot-granular pool: 8 requests over 4 slots,
+             so slots are refilled over a used state. The SSD scan must
+             launch once per layer per prefill, flash and MoE top-k never.
+7. ssm paths — every Mamba2 serve prompt's prefill, kernel path against the
+             plain path: in fp32 the logits and every layer's final state
+             within tolerance; in bf16 the kernel path no further from the
+             fp32 logits than the plain path is; and decode continuity:
+             prefill(S) + one decode step gives prefill(S + 1)'s logits at
+             the chunk boundaries.
+8. output  — a ``{"kernels": [...]}`` JSON line, then, last, the result line
              ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
@@ -62,9 +74,24 @@ PATH_LOGITS_TOL = {"float32": 1e-3, "bfloat16": 0.25}  # where routing never spl
 # tiling) by at most this factor.
 BF16_PATH_RATIO = 1.5
 
+# the SSD scan against its plain version, (y, final state), atol = rtol:
+# 1e-4 in fp32 (tests/test_kernels.py). In bf16 y rounds to bf16 (2e-2); the
+# fp32 state is widened alike on both sides, and only the order of the sums
+# differs (1e-3).
+SSD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-3)}
+# full-width fp32 Mamba2, kernel path against plain path: last-token logits
+# max |diff| and every layer's final SSM state (atol = rtol); the same for
+# decode continuity (prefill(S) + one decode step against prefill(S + 1)).
+SSM_PATH_TOL = 1e-3
+
 SERVE_ARCH = "qwen2_moe_a2_7b"
 SERVE_PROMPT_LENS = (17, 64, 100, 150, 200, 256, 320, 384)
 SERVE_NEW_TOKENS = 16
+SSM_ARCH = "mamba2_370m"
+SSM_PROMPT_LENS = (17, 100, 255, 256, 257, 384, 512, 1000)
+SSM_CONTINUITY_LENS = (255, 256, 511)     # around the chunk boundary (256)
+# the kernels each served model's prefill runs, once per layer
+SERVE_KERNELS = {SERVE_ARCH: ("flash_attention", "moe_topk"), SSM_ARCH: ("ssd_scan",)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -119,6 +146,38 @@ def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def within(out, gold, tol: float):
+    """(every element within atol = rtol = ``tol`` of ``gold``, max |err|)."""
+    diff = (out.float() - gold.float()).abs()
+    return bool((diff <= tol + tol * gold.float().abs()).all()), diff.max().item()
+
+
+def ssd_work(B, S, H, G, P, N, chunk, x_bytes):
+    """(bytes, operations) of one SSD scan: x, dt, A, B, C read once, y and
+    the final state written once; per head and chunk of Lc rows the causal
+    half of the two Lc x Lc products (C Bᵀ, then times dt x) and the two
+    state products (C hᵀ, the state update)."""
+    nbytes = (2 * B * S * H * P * x_bytes + B * S * H * 4 + H * 4
+              + 2 * B * S * G * N * x_bytes + B * H * P * N * 4)
+    ops = 0
+    for t0 in range(0, S, chunk):
+        Lc = min(chunk, S - t0)
+        ops += 2 * Lc * (Lc + 1) // 2 * (N + P) + 2 * 2 * Lc * P * N
+    return nbytes, ops * B * H
+
+
+def _ssd_case(gen, B, S, H, G, P, N, dtype):
+    """SSD inputs as tests/test_kernels.py draws them: dt after softplus,
+    A = -exp(0.5 z)."""
+    import torch
+    import torch.nn.functional as F
+    x = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn(B, S, H, generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn(H, generator=gen, device="cuda"))
+    Bm, Cm = (torch.randn(B, S, G, N, generator=gen, device="cuda").to(dtype) for _ in "BC")
+    return x, dt, A, Bm, Cm
 
 
 # ---------------------------------------------------------------------------
@@ -180,9 +239,7 @@ def phase_kernels(card):
                 gold = ref.flash_attention_ref(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 tol = FLASH_TOL[str(dtype).replace("torch.", "")]
-                diff = (out.float() - gold.float()).abs()
-                err = diff.max().item()
-                ok = bool((diff <= tol + tol * gold.float().abs()).all())
+                ok, err = within(out, gold, tol)
                 say(f"[kernels] flash {tag} B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} "
                     f"{dtype} causal={causal}: max|err|={err:.3e} "
                     f"(atol=rtol={tol}) {'ok' if ok else 'FAIL'}")
@@ -260,7 +317,55 @@ def phase_kernels(card):
                  "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
                  "bound_by": mt["bound_by"], "library_ms": mt["library_ms"],
                  "eager_ms": mt["eager_ms"], "shape": "T=384 E=60 k=4 fp32"})
-    return rows, flash_times
+
+    # -- SSD scan: compare -------------------------------------------------
+    ssd_err = 0.0
+    cases = [(1, S, 32, 1, 64, 128, 256, "mamba2") for S in (17, 255, 256, 257, 512, 1000)]
+    cases.append((2, 77, 8, 2, 16, 32, 32, "grouped"))
+    for B, S, H, G, P, N, chunk, tag in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = _ssd_case(gen, B, S, H, G, P, N, dtype)
+            y, h = ops.ssd_scan(*inp, chunk=chunk)
+            y_ref, h_ref = ref.ssd_scan_ref(*inp, chunk=chunk)
+            torch.cuda.synchronize()
+            tol_y, tol_h = SSD_TOL[str(dtype).replace("torch.", "")]
+            ok_y, err_y = within(y, y_ref, tol_y)
+            ok_h, err_h = within(h, h_ref, tol_h)
+            say(f"[kernels] ssd_scan {tag} B={B} S={S} H={H} G={G} P={P} N={N} "
+                f"chunk={chunk} {dtype}: y max|err|={err_y:.3e} (atol=rtol={tol_y}), "
+                f"state max|err|={err_h:.3e} (atol=rtol={tol_h}) "
+                f"{'ok' if ok_y and ok_h else 'FAIL'}")
+            check(ok_y and ok_h, f"ssd_scan kernel disagrees with its plain version "
+                                 f"({tag}, S={S}, {dtype})")
+            if tag == "mamba2" and dtype == torch.bfloat16:
+                ssd_err = max(ssd_err, err_y)
+
+    # -- SSD scan: time at two serve prompt lengths (bf16) -----------------
+    ssd_times = {}
+    for S in (512, 1000):
+        inp = _ssd_case(gen, 1, S, 32, 1, 64, 128, torch.bfloat16)
+        kernel = lambda: ops.ssd_scan(*inp, chunk=256)  # noqa: E731
+        ssd_times[S] = {
+            "ms": time_ms(kernel),
+            "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*inp, chunk=256)),
+            "library_ms": None,          # no single PyTorch call computes the scan
+            "eager_ms": eager_ms(kernel),
+        }
+        ssd_times[S]["bound_ms"], ssd_times[S]["bound_by"] = bound(
+            *ssd_work(1, S, 32, 1, 64, 128, 256, 2), "bfloat16")
+        say(f"[kernels] ssd_scan time S={S} H=32 P=64 N=128 chunk=256 bf16: " + ", ".join(
+            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in ssd_times[S].items()) + f"; 32 blocks on 132 SMs  [{card}]")
+    t = ssd_times[1000]
+    rows.append({"name": "ssd_scan", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "replaces": "src/repro/kernels/ssd_scan.py:28",
+                 "launches": None, "max_abs_err": ssd_err, "ms": t["ms"],
+                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                 "bound_by": t["bound_by"], "library_ms": None,
+                 "eager_ms": t["eager_ms"],
+                 "shape": "B=1 S=1000 H=32 G=1 P=64 N=128 chunk=256 bf16"})
+    return rows, {"flash": flash_times, "ssd_scan": ssd_times}
 
 
 @contextlib.contextmanager
@@ -270,11 +375,12 @@ def routed(ops, ref, chunks, routing):
     attention's tiling: ``q_chunk``, ``k_chunk``), and append each MoE
     layer's (router logits, expert ids) to ``routing``, on the host. The
     model looks the wrappers up in `ops` at call time."""
-    saved = ops.flash_attention, ops.moe_topk
+    saved = ops.flash_attention, ops.moe_topk, ops.ssd_scan
     topk = ops.moe_topk
     if chunks is not None:
         ops.flash_attention = lambda q, k, v, *, causal=True, scale=None: \
             ref.flash_attention_ref(q, k, v, causal=causal, scale=scale, **chunks)
+        ops.ssd_scan = ref.ssd_scan_ref
         topk = ref.moe_topk_ref
 
     def recorded(logits, k, *, norm_topk=False):
@@ -286,7 +392,7 @@ def routed(ops, ref, chunks, routing):
     try:
         yield
     finally:
-        ops.flash_attention, ops.moe_topk = saved
+        ops.flash_attention, ops.moe_topk, ops.ssd_scan = saved
 
 
 def routing_split(a, b):
@@ -320,7 +426,20 @@ def _serve_once(engine, prompts, Request):
     return reqs, wall
 
 
-def phase_serve(card):
+def launches_per_prefill(arch, n):
+    """Launch counts a run of ``arch`` prefills must add: ``n`` for each
+    kernel its prefill runs, 0 for every other kernel."""
+    from repro_torch.kernels import ops
+    return {k: n if k in SERVE_KERNELS[arch] else 0 for k in ops.LAUNCHES}
+
+
+def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **engine_kw):
+    """``ServingEngine`` over full-width ``arch`` (bf16, random weights from
+    seed 0) on the paged or the slot-granular pool (``paged``): run 1 with
+    the launch counters zeroed just before it and read just after it, run 2
+    identical, then each prompt's prefill on each path (``path_fn``), whose
+    kernel-path argmax must be the engine's first token, and a profiled run
+    3. Returns (launches of run 1, metrics, the per-prompt path outputs)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -328,28 +447,32 @@ def phase_serve(card):
     from repro_torch.models import Model
     from repro_torch.serving import Request, ServingEngine, compute_metrics
 
-    cfg = get_config(SERVE_ARCH)
+    tag = "[serve]" if paged else "[ssm serve]"
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(model.params))
-    say(f"[serve] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    say(f"{tag} {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.2f} B parameters ({cfg.param_dtype}), random from seed 0 "
         f"in {time.perf_counter() - t0:.1f} s")
-    engine = ServingEngine(model, n_slots=8, s_max=512, page_size=16)
+    engine = ServingEngine(model, **engine_kw)
+    check(engine.paged is paged, f"{cfg.name}: the engine chose the "
+                                 f"{'paged' if engine.paged else 'slot-granular'} pool")
+    say(f"{tag} {'paged' if paged else 'slot-granular'} pool, {engine_kw}")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
-               for n in SERVE_PROMPT_LENS]
+               for n in prompt_lens]
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     reqs, wall = _serve_once(engine, prompts, Request)
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = cfg.num_layers * len(prompts)
-    say(f"[serve] run 1: launches {launches} (want {want} each), {len(engine.done)} done")
-    check(all(n == want for n in launches.values()),
-          f"launch counts {launches} != {want} per kernel (one per layer per prefill)")
+    want = launches_per_prefill(arch, cfg.num_layers * len(prompts))
+    say(f"{tag} run 1: launches {launches} (want {want}), {len(engine.done)} done")
+    check(launches == want,
+          f"launch counts {launches} != {want} (one per layer per prefill)")
     check(all(len(r.tokens_out) == SERVE_NEW_TOKENS for r in reqs)
           and all(r.t_done > 0 for r in reqs),
           f"not every request completed with {SERVE_NEW_TOKENS} tokens")
@@ -361,22 +484,44 @@ def phase_serve(card):
     m2 = compute_metrics(reqs2)
     n_tok = len(prompts) * SERVE_NEW_TOKENS
     for name, m, w in (("run 1 (cold)", m1, wall), ("run 2 (warm)", m2, wall2)):
-        say(f"[serve] {name}: TTFT mean {m['ttft_mean_s'] * 1e3:.1f} ms p99 "
+        say(f"{tag} {name}: TTFT mean {m['ttft_mean_s'] * 1e3:.1f} ms p99 "
             f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms "
             f"p99 {m['tpot_p99_s'] * 1e3:.2f} ms, {n_tok / w:.1f} tok/s "
             f"({n_tok} tokens in {w:.3f} s), peak memory {peak_gb:.2f} GB  [{card}]")
-    check(engine.pool.free_pages == engine.pool.n_pages, "page pool not pristine after run()")
+    check(engine.kv_allocated_tokens == 0 and engine.free_tokens == engine.kv_token_capacity,
+          "pool not pristine after run()")
 
-    # every prompt's prefill logits on each path; the engine's first token
-    # is the argmax of a direct prefill on the kernel path
-    bf16 = [_path_logits(model, p) for p in prompts]
-    for r, lg in zip(reqs, bf16):
+    # every prompt's prefill on each path; the engine's first token is the
+    # argmax of a direct prefill on the kernel path
+    paths = [path_fn(model, p) for p in prompts]
+    for r, lg in zip(reqs, paths):
         check(r.tokens_out[0] == int(lg["kernel"][0].argmax()),
               f"request {r.rid}: the engine's first token is not the prefill's argmax")
 
-    profile = _profile_run(engine, prompts, Request, [r.tokens_out for r in reqs], card)
+    profile = _profile_run(engine, prompts, Request, [r.tokens_out for r in reqs], card,
+                           profile_kernels)
+    profile["decode_step_host_ops"] = n_ops = _decode_step_host_ops(model, engine.n_slots)
+    say(f"{tag} one model.decode_step over {engine.n_slots} sequences issues {n_ops} "
+        f"top-level aten ops, {n_ops / cfg.num_layers:.1f} per layer (host work per step)")
     return launches, {"run1": m1, "run2": m2, "wall1_s": wall, "wall2_s": wall2,
-                      "tokens": n_tok, "peak_gb": peak_gb, "profile": profile}, bf16
+                      "tokens": n_tok, "peak_gb": peak_gb, "profile": profile}, paths
+
+
+def _decode_step_host_ops(model, batch):
+    """Top-level aten ops (each a host dispatch; views included) that one
+    ``model.decode_step`` over a fresh ``batch``-sequence cache issues: what
+    the host must get through per decode step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cache = model.init_cache(batch, 16)
+    tokens = torch.zeros((batch, 1), dtype=torch.long, device="cuda")
+    pos = torch.zeros(batch, dtype=torch.long, device="cuda")
+    model.decode_step(tokens, cache, pos)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model.decode_step(tokens, cache, pos)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
 
 
 # the paths a prefill can take: the kernels, or their plain versions with one
@@ -400,9 +545,10 @@ def _path_logits(model, prompt):
         with routed(ops, ref, chunks, routing):
             logits, _ = model.prefill(batch)
         torch.cuda.synchronize()
-        want = {n: cfg.num_layers if chunks is None else 0 for n in before}
-        check({n: ops.LAUNCHES[n] - before[n] for n in before} == want,
-              f"the {name} path launched {ops.LAUNCHES} (before: {before}), want +{want}")
+        want = launches_per_prefill(SERVE_ARCH, cfg.num_layers if chunks is None else 0)
+        want = {n: before[n] + k for n, k in want.items()}
+        check(ops.LAUNCHES == want,
+              f"the {name} path launched {ops.LAUNCHES} (before: {before}), want {want}")
         check(tuple(logits.shape) == (1, padded_vocab(cfg.vocab_size))
               and bool(torch.isfinite(logits).all()),
               f"{name} prefill logits: shape {tuple(logits.shape)}, or not finite")
@@ -411,9 +557,9 @@ def _path_logits(model, prompt):
     return out
 
 
-def _profile_run(engine, prompts, Request, streams, card, top=12):
+def _profile_run(engine, prompts, Request, streams, card, kernels, top=12):
     """A third, profiled run: device time by kernel and the device's busy
-    share of the run's wall time."""
+    share of the run's wall time; per launch for the named ``kernels``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -432,7 +578,7 @@ def _profile_run(engine, prompts, Request, streams, card, top=12):
         say(f"[profile] {dev_us / 1e3:9.2f} ms  {count:6d} calls  "
             f"{100 * dev_us / 1e6 / busy_s:5.1f} %  {key[:90]}")
     for dev_us, count, key in rows:
-        for name in ("flash_fwd_kernel", "moe_topk_kernel"):
+        for name in kernels:
             if name in key:
                 say(f"[profile] {name}: {count} launches, {dev_us / count:.2f} us each "
                     "on the device over the run's prompt mix")
@@ -513,6 +659,110 @@ def phase_paths(card, bf16):
             "bf16_top1_as_fp32": top1, "bf16_kernel_limit": limit}
 
 
+def _ssm_path_outputs(model, prompt):
+    """One Mamba2 prompt's last-token logits (fp32, real vocab, on the host)
+    and every layer's final SSM state ``(L, 1, H, P, N)`` fp32 on the kernel
+    and the plain path, checking that each path launched what it should:
+    ``{path: (logits, states)}``."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.common import padded_vocab
+    cfg = model.cfg
+    batch = {"tokens": torch.as_tensor(prompt, device="cuda")[None]}
+    out = {}
+    for name, chunks in (("kernel", None), ("plain", {})):
+        before = dict(ops.LAUNCHES)
+        with routed(ops, ref, chunks, []):
+            logits, cache = model.prefill(batch)
+        torch.cuda.synchronize()
+        want = launches_per_prefill(SSM_ARCH, cfg.num_layers if chunks is None else 0)
+        want = {n: before[n] + k for n, k in want.items()}
+        check(ops.LAUNCHES == want,
+              f"the {name} path launched {ops.LAUNCHES} (before: {before}), want {want}")
+        check(tuple(logits.shape) == (1, padded_vocab(cfg.vocab_size))
+              and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(cache["ssm"]).all()),
+              f"{name} prefill: logits shape {tuple(logits.shape)}, or not finite")
+        out[name] = (logits[0, :cfg.vocab_size].float().cpu(), cache["ssm"])
+    return out
+
+
+def phase_ssm_paths(card, bf16):
+    """Every Mamba2 serve prompt's full-width prefill, kernel path against
+    plain path: in fp32 (made here) the logits within `SSM_PATH_TOL` and
+    every layer's final SSM state within atol = rtol = `SSM_PATH_TOL`; in
+    bf16 (``bf16``, from the serve phase; the bf16 weights are the fp32
+    ones rounded) the max logit difference, and the kernel path's rms
+    against the fp32 logits at most `BF16_PATH_RATIO` times the plain
+    path's. Then decode continuity in fp32 on the kernel path: prefill(S)
+    and one decode step of token S give prefill(S + 1)'s logits within
+    `SSM_PATH_TOL`, for S around the chunk boundary."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), param_dtype="float32",
+                              activ_dtype="float32")
+    model = Model(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SSM_PROMPT_LENS]
+    rows, fp32, ok = [], [], True
+    for S, prompt in zip(SSM_PROMPT_LENS, prompts):
+        out = _ssm_path_outputs(model, prompt)
+        (lk, hk), (lp, hp) = out["kernel"], out["plain"]
+        s_ok, s_diff = within(hk, hp, SSM_PATH_TOL)
+        row = {"dtype": "float32", "S": S, "logits_max_diff": (lk - lp).abs().max().item(),
+               "states_max_diff": s_diff, "top1_kernel": int(lk.argmax()),
+               "top1_plain": int(lp.argmax())}
+        row["ok"] = s_ok and row["logits_max_diff"] <= SSM_PATH_TOL
+        ok &= row["ok"]
+        rows.append(row)
+        fp32.append({name: lg for name, (lg, _) in out.items()})
+        say(f"[ssm paths] float32 S={S}: logits max|diff| {row['logits_max_diff']:.3e}, "
+            f"{cfg.num_layers} final states max|diff| {s_diff:.3e} (tol {SSM_PATH_TOL}), top-1 "
+            f"{row['top1_kernel']} vs {row['top1_plain']}  {'ok' if row['ok'] else 'FAIL'}  [{card}]")
+    check(ok, "full-width fp32 Mamba2 prefill: the kernel path disagrees with the plain path")
+
+    for S, lg in zip(SSM_PROMPT_LENS, bf16):
+        lk, lp = lg["kernel"][0], lg["plain"][0]
+        rows.append({"dtype": "bfloat16", "S": S, "logits_max_diff": (lk - lp).abs().max().item(),
+                     "top1_kernel": int(lk.argmax()), "top1_plain": int(lp.argmax())})
+        say(f"[ssm paths] bfloat16 S={S}: kernel vs plain logits max|diff| "
+            f"{rows[-1]['logits_max_diff']:.3e}, top-1 {rows[-1]['top1_kernel']} vs "
+            f"{rows[-1]['top1_plain']}")
+    rms = lambda a, b: (a - b).pow(2).mean().sqrt().item()   # noqa: E731
+    dev = {name: [rms(l16[name][0], l32["plain"]) for l16, l32 in zip(bf16, fp32)]
+           for name in ("kernel", "plain")}
+    mean = {name: float(np.mean(v)) for name, v in dev.items()}
+    limit = BF16_PATH_RATIO * mean["plain"]
+    for name, v in dev.items():
+        say(f"[ssm paths] bf16 {name} path vs fp32 plain logits, rms per prompt: "
+            + " ".join(f"{x:.4f}" for x in v) + f"; mean {mean[name]:.4f}")
+    say(f"[ssm paths] bf16 kernel path mean rms {mean['kernel']:.4f} vs limit {limit:.4f} "
+        f"({BF16_PATH_RATIO} x the plain path's)  [{card}]")
+    check(mean["kernel"] <= limit, "full-width bf16 Mamba2 prefill: the kernel path strays "
+                                   "further from fp32 than the plain path does")
+
+    toks = torch.as_tensor(prompts[-1], device="cuda")[None].long()
+    continuity = {}
+    for S in SSM_CONTINUITY_LENS:
+        _, cache = model.prefill({"tokens": toks[:, :S]})
+        stepped, _ = model.decode_step(toks[:, S:S + 1], cache, torch.tensor(S, device="cuda"))
+        full, _ = model.prefill({"tokens": toks[:, :S + 1]})
+        diff = (stepped - full)[0, :cfg.vocab_size].abs().max().item()
+        continuity[S] = diff
+        say(f"[ssm paths] decode continuity fp32: prefill({S}) + decode_step(token {S}) vs "
+            f"prefill({S + 1}): logits max|diff| {diff:.3e} (tol {SSM_PATH_TOL})  "
+            f"{'ok' if diff <= SSM_PATH_TOL else 'FAIL'}  [{card}]")
+        check(diff <= SSM_PATH_TOL, f"decode after prefill({S}) parts from prefill({S + 1})")
+    return {"prompts": rows, "bf16_rms_vs_fp32": dev, "bf16_mean_rms_vs_fp32": mean,
+            "bf16_kernel_limit": limit, "decode_continuity_max_diff": continuity}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -529,17 +779,30 @@ def main() -> int:
 
     card = phase_device()
     phase_build()
-    rows, flash_times = phase_kernels(card)
-    launches, serve, bf16 = phase_serve(card)
+    rows, kernel_times = phase_kernels(card)
+    launches, serve, bf16 = phase_serve(
+        card, SERVE_ARCH, SERVE_PROMPT_LENS, _path_logits,
+        ("flash_fwd_kernel", "moe_topk_kernel"), paged=True,
+        n_slots=8, s_max=512, page_size=16)
     torch.cuda.empty_cache()        # the bf16 model is gone; make room for fp32
     serve["paths"] = phase_paths(card, bf16)
+    del bf16
+    torch.cuda.empty_cache()
+    ssm_launches, ssm, ssm_bf16 = phase_serve(
+        card, SSM_ARCH, SSM_PROMPT_LENS, _ssm_path_outputs, ("ssd_scan_kernel",),
+        paged=False, n_slots=4, s_max=1024)
+    ssm_bf16 = [{name: (lg, None) for name, (lg, _) in out.items()}   # drop the states
+                for out in ssm_bf16]
+    torch.cuda.empty_cache()
+    ssm["paths"] = phase_ssm_paths(card, ssm_bf16)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        runs = launches if row["name"] in SERVE_KERNELS[SERVE_ARCH] else ssm_launches
+        row["launches"] = runs[row["name"]]
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": rows, "flash_times": flash_times, "serve": serve},
-        indent=1))
+        {"card": card, "kernels": rows, "kernel_times": kernel_times, "serve": serve,
+         "ssm_serve": ssm}, indent=1))
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,7 @@ ARCH_IDS: List[str] = [
 ]
 
 #: the architectures this port can build
-PORTED: List[str] = ["minitron_4b", "qwen2_moe_a2_7b"]
+PORTED: List[str] = ["minitron_4b", "qwen2_moe_a2_7b", "mamba2_370m"]
 
 _ALIASES: Dict[str, str] = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({

@@ -96,6 +96,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.flash_attention_fwd.restype = i32
     lib.moe_topk_fwd.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.moe_topk_fwd.restype = i32
+    lib.ssd_scan_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
+                                 i32, i32, i32, i32, i32, vp]
+    lib.ssd_scan_fwd.restype = i32
     return lib
 
 

@@ -15,8 +15,9 @@ import torch
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import moe_dispatch as _moe
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "moe_topk": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "moe_topk": 0, "ssd_scan": 0}
 
 
 def reset_launches() -> None:
@@ -44,4 +45,18 @@ def moe_topk(logits: torch.Tensor, k: int, *, norm_topk: bool = False
         return ref.moe_topk_ref(logits, k, norm_topk=norm_topk)
     out = _moe.moe_topk(logits, k, norm_topk=norm_topk)
     LAUNCHES["moe_topk"] += 1
+    return out
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_mat: torch.Tensor, C_mat: torch.Tensor, *, chunk: int = 256
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD chunked scan from a zero state: x ``(B, S, H, P)``, dt
+    ``(B, S, H)`` fp32, A ``(H,)`` fp32, B/C ``(B, S, G, N)`` -> (y ``(B, S,
+    H, P)`` in x's dtype, final state ``(B, H, P, N)`` fp32) (replaces
+    Pallas `ssd_scan`)."""
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
+    out = _ssd.ssd_scan(x, dt, A, B_mat, C_mat, chunk=chunk)
+    LAUNCHES["ssd_scan"] += 1
     return out

@@ -92,3 +92,88 @@ def moe_topk_ref(logits: torch.Tensor, k: int, *, norm_topk: bool = False
     if norm_topk:
         weights = weights / weights.sum(dim=-1, keepdim=True)
     return weights, idx.to(torch.int32)
+
+
+def heads_of_groups(t: torch.Tensor, rep: int) -> torch.Tensor:
+    """``(..., G, N)`` -> ``(..., G * rep, N)``: head h reads group
+    ``h // rep`` (`repeat_interleave`, written as a broadcast so that it
+    never reads a count back to the host, and a CUDA graph can hold it)."""
+    *lead, G, N = t.shape
+    return t[..., None, :].expand(*lead, G, rep, N).reshape(*lead, G * rep, N)
+
+
+def _segsum(cs: torch.Tensor) -> torch.Tensor:
+    """Segment sums from inclusive prefix sums ``cs`` of x: ``out[..., i,
+    j] = cs[..., i] - cs[..., j] = sum_{j < t <= i} x[..., t]``,
+    lower-triangular, -inf above the diagonal (so its exp is exactly 0 and
+    never overflows)."""
+    T = cs.shape[-1]
+    out = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((T, T), dtype=torch.bool, device=cs.device).tril()
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def ssd_scan_ref(
+    x: torch.Tensor,        # (B, S, H, P)
+    dt: torch.Tensor,       # (B, S, H) fp32, after softplus
+    A: torch.Tensor,        # (H,) fp32, negative
+    B_mat: torch.Tensor,    # (B, S, G, N)
+    C_mat: torch.Tensor,    # (B, S, G, N)
+    *,
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,     # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 chunked SSD scan -> (y ``(B, S, H, P)`` in x's dtype, final
+    state ``(B, H, P, N)`` fp32). Head h reads B/C group ``h // (H / G)``.
+    S is zero-padded to the chunk: dt = 0 there, so the decay is 1 and the
+    state gains nothing, which makes the padding exact. Everything after the
+    inputs is fp32: the intra-chunk ``exp(segsum)``-masked ``C Bᵀ`` term,
+    the chunk states, and the inter-chunk recurrence (a loop over chunks).
+    As in the TPU kernel, the segment sums are differences of the one
+    prefix sum ``dA_cum`` that the state decays use too."""
+    Bb, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    S_orig = S
+    if S % chunk:
+        pad = chunk - S % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B_mat = F.pad(B_mat, (0, 0, 0, 0, 0, pad))
+        C_mat = F.pad(C_mat, (0, 0, 0, 0, 0, pad))
+        S += pad
+    nc = S // chunk
+    rep = H // G
+
+    xc = x.reshape(Bb, nc, chunk, H, P).float()
+    dtc = dt.reshape(Bb, nc, chunk, H).float()
+    Bc = heads_of_groups(B_mat.reshape(Bb, nc, chunk, G, N).float(), rep)
+    Cc = heads_of_groups(C_mat.reshape(Bb, nc, chunk, G, N).float(), rep)
+
+    dA = dtc * A.float()                                       # (B, nc, L, H)
+    dA_cum = torch.cumsum(dA, dim=2)
+    dtx = xc * dtc[..., None]                                  # (B, nc, L, H, P)
+
+    # intra-chunk (diagonal blocks)
+    decay = torch.exp(_segsum(dA_cum.movedim(-1, -2)))         # (B, nc, H, L, L)
+    scores = torch.einsum("bclhn,bcshn->bchls", Cc, Bc)
+    y_diag = torch.einsum("bchls,bcshp->bclhp", scores * decay, dtx)
+
+    # each chunk's own state contribution
+    decay_states = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)   # (B, nc, L, H)
+    states = torch.einsum("bclhn,bclhp->bchpn", Bc * decay_states[..., None], dtx)
+
+    # inter-chunk recurrence: h entering chunk c, then the final state
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])              # (B, nc, H)
+    h = (init_state.float() if init_state is not None
+         else torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device))
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, dim=1)                        # (B, nc, H, P, N)
+
+    state_decay = torch.exp(dA_cum)                            # (B, nc, L, H)
+    y_off = torch.einsum("bclhn,bchpn->bclhp", Cc * state_decay[..., None], h_prev)
+
+    y = (y_diag + y_off).reshape(Bb, S, H, P)[:, :S_orig]
+    return y.to(x.dtype), h

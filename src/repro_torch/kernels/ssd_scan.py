@@ -1,0 +1,74 @@
+"""Hopper Mamba2 SSD chunked scan: the CUDA port of the Pallas `_ssd_kernel`.
+
+Source: ``csrc/ssd_scan.cu`` (design notes there). This module checks the
+arguments and launches the kernel on PyTorch's current stream; the public
+entry point, which also takes the plain version for CPU tensors, is
+`repro_torch.kernels.ops.ssd_scan`.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_P = 64            # head dim: y columns per thread, P / 16 <= 4
+MAX_N = 128           # state dim: state columns per thread, N / 16 <= 8
+MAX_CHUNK = 1024      # the chunk's dt and prefix sum live in shared memory
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_mat: torch.Tensor, C_mat: torch.Tensor, *, chunk: int = 256
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x ``(B, S, H, P)``, dt ``(B, S, H)`` fp32, A ``(H,)`` fp32, B/C
+    ``(B, S, G, N)`` in x's dtype (fp32 or bf16), all contiguous CUDA
+    tensors -> (y ``(B, S, H, P)`` in x's dtype, final state ``(B, H, P,
+    N)`` fp32). P and N are multiples of 16 up to `MAX_P` and `MAX_N`,
+    ``chunk`` a multiple of 16 up to `MAX_CHUNK`, and G divides H.
+
+    Raises:
+        ValueError / TypeError: a device, dtype, shape or contiguity the
+            kernel does not take.
+        RuntimeError: the launch failed (its CUDA error code).
+    """
+    for name, t, dims in (("x", x, 4), ("dt", dt, 3), ("A", A, 1),
+                          ("B_mat", B_mat, 4), ("C_mat", C_mat, 4)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
+        if t.dim() != dims or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dims}-d tensor, got "
+                             f"shape {tuple(t.shape)}")
+    if x.dtype not in _DTYPE_CODE or B_mat.dtype != x.dtype or C_mat.dtype != x.dtype:
+        raise TypeError(f"x {x.dtype}, B {B_mat.dtype}, C {C_mat.dtype}: the kernel "
+                        "takes x, B and C all float32 or all bfloat16")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"dt {dt.dtype}, A {A.dtype}: the kernel takes both float32")
+    Bsz, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
+    if (tuple(dt.shape) != (Bsz, S, H) or tuple(A.shape) != (H,)
+            or tuple(B_mat.shape[:2]) != (Bsz, S) or C_mat.shape != B_mat.shape):
+        raise ValueError(f"shapes do not match: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B_mat.shape)}, C {tuple(C_mat.shape)}")
+    if G == 0 or H % G:
+        raise ValueError(f"H={H} is not a multiple of G={G}")
+    if min(Bsz, S, H) == 0:
+        raise ValueError(f"empty scan: x {tuple(x.shape)}")
+    if P % 16 or not 0 < P <= MAX_P or N % 16 or not 0 < N <= MAX_N:
+        raise ValueError(f"P={P}, N={N}: the kernel takes multiples of 16 up to "
+                         f"P={MAX_P}, N={MAX_N}")
+    if chunk % 16 or not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk={chunk}: the kernel takes a multiple of 16 up to {MAX_CHUNK}")
+    y = torch.empty_like(x)
+    h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
+            C_mat.data_ptr(), y.data_ptr(), h.data_ptr(),
+            Bsz, S, H, G, P, N, chunk, _DTYPE_CODE[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"ssd_scan_fwd launch failed: CUDA error {err}")
+    return y, h

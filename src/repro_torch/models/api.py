@@ -49,8 +49,7 @@ class Model:
         return lm.init_cache(self.cfg, batch, s_max, dtype=dtype, device=self.device)
 
     def cache_shapes(self, batch: int, s_max: int) -> Dict[str, Tuple[int, ...]]:
-        shape = lm.cache_shape(self.cfg, batch, s_max)
-        return {"k": shape, "v": shape}
+        return lm.cache_shape(self.cfg, batch, s_max)
 
 
 def build_model(cfg: ModelConfig, **kw) -> Model:

@@ -1,5 +1,5 @@
-"""Shared model primitives: device choice, norms, activations, rotary
-embeddings and init."""
+"""Shared model primitives: device choice, norms (the gated Mamba2 one
+included), activations, rotary embeddings and init."""
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
@@ -82,6 +82,14 @@ def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.norm_type == "layernorm":
         return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rmsnorm(x, p["scale"], cfg.norm_eps)
+
+
+def gated_rmsnorm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2 RMSNormGated: rmsnorm(x * silu(z)) * scale."""
+    xf = x.float() * F.silu(z.float())
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def norm_shapes(cfg: ModelConfig, dim: int) -> dict:

@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly (dense and MoE families).
+"""Decoder-only LM assembly (dense, MoE and SSM families).
 
 Layer parameters and caches keep the reference's scan-stacked layout: every
 layer leaf has a leading ``L`` dim, and `forward` is a Python loop over it.
@@ -14,6 +14,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as ffn
+from repro_torch.models import ssm as ssd
 from repro_torch.models.common import (
     apply_norm,
     dense_init,
@@ -34,7 +35,10 @@ Cache = Dict[str, torch.Tensor]
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
     """(mixer_kind, ffn_kind) of the one repeated layer. The port has the
-    dense and MoE families with GQA attention."""
+    dense and MoE families with GQA attention, and the attention-free SSM
+    family (Mamba2); hybrid periods, MLA and enc-dec are not ported yet."""
+    if cfg.family == "ssm" and not cfg.hybrid_period:
+        return (("ssm", "none"),)
     if cfg.family not in ("dense", "moe") or cfg.hybrid_period or cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / attention {cfg.attn_type!r} "
@@ -53,7 +57,8 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
 class Leaf:
     """One parameter: its full shape (with the leading ``L`` for layer
     leaves), dtype and init: a std, ``None`` for the fan-in rule on the
-    per-layer shape, or "ones" / "zeros" / "embed"."""
+    per-layer shape, or "ones" / "zeros" / "embed" / "a_log" (the Mamba2
+    ``A_log``, `ssm.a_log_init`)."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
@@ -75,11 +80,14 @@ def param_layout(cfg: ModelConfig) -> Params:
         return {k: layer(s, "ones" if k == "scale" else "zeros")
                 for k, s in norm_shapes(cfg, dim).items()}
 
-    layers: Params = {
-        "mixer_norm": norm(d),
-        "mixer": {k: layer(s, std) for k, (s, std) in attn.gqa_shapes(cfg).items()},
-        "ffn_norm": norm(d),
-    }
+    layers: Params = {"mixer_norm": norm(d)}
+    if mixer == "ssm":
+        layers["mixer"] = {k: layer(s, init, dtype or pd)
+                           for k, (s, init, dtype) in ssd.ssm_shapes(cfg).items()}
+    else:
+        layers["mixer"] = {k: layer(s, std) for k, (s, std) in attn.gqa_shapes(cfg).items()}
+    if f != "none":
+        layers["ffn_norm"] = norm(d)
     if f == "moe":
         m = cfg.moe
         e_pad = ffn.padded_experts(m.num_experts)
@@ -90,7 +98,7 @@ def param_layout(cfg: ModelConfig) -> Params:
             moe["shared"] = {k: layer(s, std) for k, (s, std)
                              in ffn.mlp_shapes(cfg, m.d_shared).items()}
         layers["ffn"] = moe
-    else:
+    elif f == "mlp":
         layers["ffn"] = {k: layer(s, std) for k, (s, std) in ffn.mlp_shapes(cfg).items()}
 
     v_pad = padded_vocab(cfg.vocab_size)
@@ -131,6 +139,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
             return torch.zeros(leaf.shape, dtype=leaf.dtype, device=device)
         if leaf.init == "embed":
             return embed_init(gen, leaf.shape, leaf.dtype, device=device)
+        if leaf.init == "a_log":
+            return ssd.a_log_init(leaf.shape[-1], device=device).expand(leaf.shape).clone()
         if not leaf.stacked:
             return dense_init(gen, leaf.shape, leaf.dtype, leaf.init, device=device)
         out = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
@@ -152,19 +162,29 @@ def layer_params(layers: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-def cache_shape(cfg: ModelConfig, batch: int, s_max: int) -> Tuple[int, ...]:
-    """Shape of each cache leaf: ``(L, batch, s_max, Hkv, Dh)``."""
-    layer_kinds(cfg)
-    return (cfg.num_layers, batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+#: the cache leaves with a sequence axis (axis 2, after ``L`` and the batch)
+POSITIONAL_LEAVES = ("k", "v")
+
+
+def cache_shape(cfg: ModelConfig, batch: int, s_max: int) -> Dict[str, Tuple[int, ...]]:
+    """Shape of each cache leaf, stacked over layers: attention ``k``/``v``
+    ``(L, batch, s_max, Hkv, Dh)``; SSM ``conv_x``/``conv_B``/``conv_C``
+    ``(L, batch, K-1, C)`` and ``ssm`` ``(L, batch, H, P, N)``, which have
+    no sequence axis (``s_max`` does not size them)."""
+    L = cfg.num_layers
+    if layer_kinds(cfg)[0][0] == "ssm":
+        return {k: (L,) + s for k, s in ssd.state_shapes(cfg, batch).items()}
+    shape = (L, batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": shape, "v": shape}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
                dtype: torch.dtype = torch.bfloat16, device: torch.device) -> Cache:
     """Zeroed decode cache, stacked over layers. bf16 by default, as in the
-    reference, whatever the activation dtype."""
-    shape = cache_shape(cfg, batch, s_max)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    reference, whatever the activation dtype; the SSM ``ssm`` state is fp32
+    always."""
+    return {k: torch.zeros(s, dtype=ssd.state_dtype(k, dtype), device=device)
+            for k, s in cache_shape(cfg, batch, s_max).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +193,16 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
 
 
 def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
-    _, f = kind
+    mixer, f = kind
     h = apply_norm(cfg, p["mixer_norm"], x)
-    out, new_cache = attn.gqa_attention(
-        cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
+    if mixer == "ssm":
+        out, new_cache = ssd.ssm_block(cfg, p["mixer"], h, mode=mode, state=cache)
+    else:
+        out, new_cache = attn.gqa_attention(
+            cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
     x = x + out
+    if f == "none":
+        return x, new_cache
     h = apply_norm(cfg, p["ffn_norm"], x)
     if f == "moe":
         out, _ = ffn.moe_ffn(cfg, p["ffn"], h, kernel=(mode == "prefill"))
@@ -196,10 +221,12 @@ def forward(
     cache: Optional[Cache] = None,
     pos: Optional[torch.Tensor] = None,   # decode position: scalar or (B,)
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (hidden (B, S, d), cache). Prefill returns a new
-    ``(L, B, S, Hkv, Dh)`` cache in the activation dtype; decode writes into
-    ``cache`` in place and returns it. The MoE aux loss is a training term
-    and the port serves only, so it is not computed."""
+    """Returns (hidden (B, S, d), cache). Prefill returns a new cache
+    stacked over layers: ``(L, B, S, Hkv, Dh)`` K/V in the activation dtype,
+    or the SSM state after the prompt (conv histories in the activation
+    dtype, ``ssm`` fp32). Decode writes into ``cache`` in place and returns
+    it. The MoE aux loss is a training term and the port serves only, so it
+    is not computed."""
     B, S = tokens.shape
     kind = layer_kinds(cfg)[0]
     x = params["embed"][tokens].to(dtype_of(cfg))
@@ -210,17 +237,15 @@ def forward(
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
-    ks, vs = [], []
+    per_layer = []
     for i in range(cfg.num_layers):
-        lc = None
-        if mode == "decode":
-            lc = {"k": cache["k"][i], "v": cache["v"][i]}
+        lc = {k: v[i] for k, v in cache.items()} if mode == "decode" else None
         x, new_lc = _run_layer(cfg, layer_params(params["layers"], i), kind, x,
                                positions=positions, mode=mode, cache=lc, pos=pos)
         if mode == "prefill":
-            ks.append(new_lc["k"])
-            vs.append(new_lc["v"])
-    new_cache = cache if mode == "decode" else {"k": torch.stack(ks), "v": torch.stack(vs)}
+            per_layer.append(new_lc)
+    new_cache = cache if mode == "decode" else {
+        k: torch.stack([lc[k] for lc in per_layer]) for k in per_layer[0]}
     x = apply_norm(cfg, params["final_norm"], x)
     return x, new_cache
 
@@ -242,7 +267,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
 
     ``batch`` may carry ``true_len``: the prompt is then right-padded to the
     token buffer's length and the logits are read at ``true_len - 1``;
-    causal attention keeps every position below it blind to the padding.
+    causal attention keeps every position below it blind to the padding (an
+    SSM state would fold the padding in: its engine never pads).
     """
     tokens = batch["tokens"]
     hidden, cache = forward(cfg, params, tokens, mode="prefill",

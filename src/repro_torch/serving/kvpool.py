@@ -48,7 +48,8 @@ class PoolOOM(RuntimeError):
 
 def supports_paging(model) -> bool:
     """Whether the model's KV cache can be paged: every layer's cache must
-    be positional. Every family the port has is (GQA attention)."""
+    be positional (GQA attention). An SSM state has no sequence axis to
+    page, so SSM models serve on the slot-granular pool."""
     return all(mixer == "attn" for mixer, _ in layer_kinds(model.cfg))
 
 

@@ -5,7 +5,10 @@ decision is made inside the test, never at import). On a machine with an
 H100 run ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances are those of ``tests/test_kernels.py``: 1e-5 in fp32 (atol and
 rtol; the sums run in another order) and 2e-2 in bf16 (the output rounds to
-bf16; both compute in fp32 in between, the softmax weights included).
+bf16; both compute in fp32 in between, the softmax weights included). The
+SSD scan: 1e-4 in fp32, as there; in bf16 y at 2e-2 (it rounds to bf16) and
+the fp32 state at 1e-3 (both sides widen to fp32; only the order of the sums
+differs).
 """
 import pytest
 import torch
@@ -54,6 +57,33 @@ def test_moe_topk_kernel_matches_plain(gen, T, norm):
     torch.testing.assert_close(w, wr, atol=1e-6, rtol=0)
 
 
+def _ssd_case(gen, B, S, H, G, P, N, dtype):
+    x = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn(H, generator=gen, device="cuda"))
+    Bm, Cm = (torch.randn(B, S, G, N, generator=gen, device="cuda").to(dtype) for _ in "BC")
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype,tol_y,tol_h", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 2e-2, 1e-3)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(1, 257, 32, 1, 64, 128, 256), (2, 77, 8, 2, 16, 32, 32),
+                                   (1, 40, 8, 1, 16, 16, 32)],
+                         ids=["mamba2_ragged257", "grouped", "mamba2_reduced"])
+def test_ssd_scan_kernel_matches_plain(gen, shape, dtype, tol_y, tol_h):
+    B, S, H, G, P, N, chunk = shape
+    inp = _ssd_case(gen, B, S, H, G, P, N, dtype)
+    before = ops.LAUNCHES["ssd_scan"]
+    y, h = ops.ssd_scan(*inp, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["ssd_scan"] == before + 1
+    assert y.dtype == dtype and h.dtype == torch.float32
+    y_ref, h_ref = ref.ssd_scan_ref(*inp, chunk=chunk)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol_y, rtol=tol_y)
+    torch.testing.assert_close(h, h_ref, atol=tol_h, rtol=tol_h)
+
+
 def test_kernels_raise_on_what_they_do_not_take(gen):
     q = torch.randn(1, 16, 2, 128, generator=gen, device="cuda")
     with pytest.raises(TypeError):
@@ -62,3 +92,10 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
     with pytest.raises(ValueError):
         ops.moe_topk(torch.randn(4, 65, generator=gen, device="cuda"), 4)
+    x, dt, A, Bm, Cm = _ssd_case(gen, 1, 8, 4, 1, 16, 16, torch.float32)
+    with pytest.raises(TypeError):
+        ops.ssd_scan(x, dt, A, Bm.bfloat16(), Cm.bfloat16(), chunk=16)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=24)
+    with pytest.raises(ValueError):
+        ops.ssd_scan(x[..., :8].contiguous(), dt, A, Bm, Cm, chunk=16)

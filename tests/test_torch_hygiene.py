@@ -61,7 +61,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
 
 def test_importing_the_port_builds_no_kernel():
     for mod in ("repro_torch.kernels.ops", "repro_torch.serving.engine",
-                "repro_torch.bridge"):
+                "repro_torch.bridge", "repro_torch.models.ssm"):
         importlib.import_module(mod)
     from repro_torch.kernels import _build
     assert _build._LIB is None

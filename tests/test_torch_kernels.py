@@ -79,7 +79,11 @@ def test_cpu_tensors_take_the_plain_versions():
     for a, b in zip(ops.moe_topk(x, 4, norm_topk=True),
                     ref.moe_topk_ref(x, 4, norm_topk=True)):
         assert torch.equal(a, b)
-    assert ops.LAUNCHES == {"flash_attention": 0, "moe_topk": 0}
+    ssd = [torch.randn(1, 20, 2, 16), torch.rand(1, 20, 2), -torch.rand(2),
+           torch.randn(1, 20, 1, 16), torch.randn(1, 20, 1, 16)]
+    for a, b in zip(ops.ssd_scan(*ssd, chunk=16), ref.ssd_scan_ref(*ssd, chunk=16)):
+        assert torch.equal(a, b)
+    assert ops.LAUNCHES == {"flash_attention": 0, "moe_topk": 0, "ssd_scan": 0}
 
 
 def test_non_cpu_tensors_never_fall_back():
@@ -91,4 +95,7 @@ def test_non_cpu_tensors_never_fall_back():
         ops.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="CUDA"):
         ops.moe_topk(torch.empty((4, 60), device="meta"), 4)
-    assert ops.LAUNCHES == {"flash_attention": 0, "moe_topk": 0}
+    x = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, :1], x[:, :, :1], chunk=16)
+    assert ops.LAUNCHES == {"flash_attention": 0, "moe_topk": 0, "ssd_scan": 0}
