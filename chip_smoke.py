@@ -213,6 +213,14 @@ def phase_build():
             say(f"[build] {line.strip()}")
 
 
+def grid_note(blocks: int) -> str:
+    """Blocks of a launch and the SMs they can occupy at once (blocks go
+    to distinct SMs first)."""
+    import torch
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return f"{blocks} blocks, {min(blocks, n_sm)} of {n_sm} SMs used"
+
+
 def _flash_case(gen, B, S, Hq, Hkv, D, dtype):
     import torch
     mk = lambda H: torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)  # noqa: E731
@@ -223,14 +231,20 @@ def phase_kernels(card):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as ssd
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
 
     # -- flash attention: compare ------------------------------------------
+    # the serve shapes, then every edge of the bf16 kernel's tiles (16-row
+    # warp strips, 64-row q and k tiles, the two warp groups' k walks,
+    # 32-column causal halves) at each head dim it takes, batched, GQA
     flash_err = 0.0
     shapes = [(1, S, 16, 16, 128, "qwen") for S in (17, 128, 200, 384, 512)]
     shapes.append((1, 384, 24, 8, 128, "minitron-gqa"))
+    shapes += [(2, S, 6, 2, D, "edge") for S in (17, 77, 200, 257) for D in (16, 32, 64)]
     for B, S, Hq, Hkv, D, tag in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_case(gen, B, S, Hq, Hkv, D, dtype)
@@ -264,6 +278,7 @@ def phase_kernels(card):
         nbytes = 4 * q.numel() * q.element_size()
         ops_ = 4 * 16 * 128 * S * (S + 1) // 2       # two products over the causal pairs
         flash_times[S]["bound_ms"], flash_times[S]["bound_by"] = bound(nbytes, ops_, "bfloat16")
+        flash_times[S]["grid"] = grid_note(-(-S // fa.BF16_Q_TILE) * 16)
         say(f"[kernels] flash time S={S} bf16 causal: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in flash_times[S].items()) + f"  [{card}]")
@@ -322,6 +337,11 @@ def phase_kernels(card):
     ssd_err = 0.0
     cases = [(1, S, 32, 1, 64, 128, 256, "mamba2") for S in (17, 255, 256, 257, 512, 1000)]
     cases.append((2, 77, 8, 2, 16, 32, 32, "grouped"))
+    # every edge of the tiles: one P tile (P=16), grouped heads, chunks of 32
+    # (a quarter of a 128-row tile) and 256, ragged tails within and across
+    # chunks
+    cases += [(2, S, 8, 2, 16, 128, chunk, "edge") for S in (17, 77, 255, 257)
+              for chunk in (32, 256)]
     for B, S, H, G, P, N, chunk, tag in cases:
         for dtype in (torch.float32, torch.bfloat16):
             inp = _ssd_case(gen, B, S, H, G, P, N, dtype)
@@ -353,9 +373,10 @@ def phase_kernels(card):
         }
         ssd_times[S]["bound_ms"], ssd_times[S]["bound_by"] = bound(
             *ssd_work(1, S, 32, 1, 64, 128, 256, 2), "bfloat16")
+        ssd_times[S]["grid"] = grid_note(32 * 64 // ssd.P_TILE)
         say(f"[kernels] ssd_scan time S={S} H=32 P=64 N=128 chunk=256 bf16: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in ssd_times[S].items()) + f"; 32 blocks on 132 SMs  [{card}]")
+            for k, v in ssd_times[S].items()) + f"  [{card}]")
     t = ssd_times[1000]
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-Every ``csrc/*.cu`` source compiles with its own ``nvcc`` process (all
-started together) into an object, and the objects link into one shared
-library with a plain C interface, loaded with `ctypes`. The library lands in
+Every ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers it includes)
+compiles with its own ``nvcc`` process (all started together) into an
+object, and the objects link into one shared library with a plain C
+interface, loaded with `ctypes`. The library lands in
 ``build/kernels/<hash>/`` at the root of the checkout; the hash covers the
-sources and the flags, so an edited source builds anew and an unchanged one
-loads the library already there. Nothing here runs at import time: the first
+sources, the headers and the flags, so an edited source or header builds
+anew and an unchanged tree loads the library already there. Nothing here runs at import time: the first
 kernel launch on a CUDA tensor (or an explicit `load()`) builds.
 """
 from __future__ import annotations
@@ -54,9 +55,13 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

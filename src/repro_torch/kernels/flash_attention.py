@@ -14,6 +14,9 @@ import torch
 from repro_torch.kernels import _build
 
 HEAD_DIMS = (16, 32, 64, 128)
+#: q rows per block of the bf16 kernel: 16 * MW, MW a constant of
+#: csrc/flash_attention.cu (change both together)
+BF16_Q_TILE = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -21,7 +24,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q ``(B, Sq, Hq, D)``, k/v ``(B, Sk, Hkv, D)`` CUDA tensors of one
-    dtype (fp32 or bf16), contiguous -> ``(B, Sq, Hq, D)`` in q's dtype.
+    dtype (fp32 or bf16), contiguous (bf16: 16-byte aligned) -> ``(B, Sq,
+    Hq, D)`` in q's dtype.
 
     Raises:
         ValueError / TypeError: a device, dtype, shape or contiguity the
@@ -48,6 +52,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
     if min(B, Sq, Sk) == 0:
         raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v must start on a 16-byte boundary "
+                         "(the kernel copies rows 16 bytes at a time)")
     scale = float(scale) if scale is not None else D ** -0.5
     out = torch.empty_like(q)
     lib = _build.load()

@@ -13,9 +13,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_P = 64            # head dim: y columns per thread, P / 16 <= 4
-MAX_N = 128           # state dim: state columns per thread, N / 16 <= 8
+MAX_P = 64            # head dim, split over blocks 16 columns at a time
+MAX_N = 128           # state dim: 16 columns of the state per warp, 8 warps
 MAX_CHUNK = 1024      # the chunk's dt and prefix sum live in shared memory
+#: P columns per block (PT in the source): B * H * P / P_TILE blocks
+P_TILE = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -24,9 +26,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``(B, S, H, P)``, dt ``(B, S, H)`` fp32, A ``(H,)`` fp32, B/C
     ``(B, S, G, N)`` in x's dtype (fp32 or bf16), all contiguous CUDA
-    tensors -> (y ``(B, S, H, P)`` in x's dtype, final state ``(B, H, P,
-    N)`` fp32). P and N are multiples of 16 up to `MAX_P` and `MAX_N`,
-    ``chunk`` a multiple of 16 up to `MAX_CHUNK`, and G divides H.
+    tensors (bf16: 16-byte aligned) -> (y ``(B, S, H, P)`` in x's dtype,
+    final state ``(B, H, P, N)`` fp32). P and N are multiples of 16 up to
+    `MAX_P` and `MAX_N`, ``chunk`` a multiple of 16 up to `MAX_CHUNK`, and G
+    divides H.
 
     Raises:
         ValueError / TypeError: a device, dtype, shape or contiguity the
@@ -60,6 +63,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"P={MAX_P}, N={MAX_N}")
     if chunk % 16 or not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk={chunk}: the kernel takes a multiple of 16 up to {MAX_CHUNK}")
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B_mat, C_mat)):
+        raise ValueError("bf16 x, B_mat and C_mat must start on a 16-byte boundary "
+                         "(the kernel copies rows 16 bytes at a time)")
     y = torch.empty_like(x)
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     lib = _build.load()

@@ -28,8 +28,11 @@ def gen():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
-@pytest.mark.parametrize("shape", [(1, 200, 16, 16, 128), (2, 77, 6, 2, 64)],
-                         ids=["qwen_ragged", "gqa_d64"])
+@pytest.mark.parametrize("shape", [(1, 200, 16, 16, 128), (2, 77, 6, 2, 64),
+                                   (2, 17, 6, 2, 16), (2, 257, 6, 2, 32),
+                                   (2, 200, 6, 2, 64), (1, 257, 4, 4, 128), (1, 1, 4, 2, 64)],
+                         ids=["qwen_ragged", "gqa_d64", "gqa_s17_d16", "gqa_s257_d32",
+                              "gqa_s200_d64", "s257_d128", "s1"])
 def test_flash_kernel_matches_plain(gen, shape, causal, dtype, tol):
     B, S, Hq, Hkv, D = shape
     q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(dtype)
@@ -69,8 +72,14 @@ def _ssd_case(gen, B, S, H, G, P, N, dtype):
                                                (torch.bfloat16, 2e-2, 1e-3)],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", [(1, 257, 32, 1, 64, 128, 256), (2, 77, 8, 2, 16, 32, 32),
-                                   (1, 40, 8, 1, 16, 16, 32)],
-                         ids=["mamba2_ragged257", "grouped", "mamba2_reduced"])
+                                   (1, 40, 8, 1, 16, 16, 32), (1, 17, 32, 1, 64, 128, 256),
+                                   (1, 255, 32, 1, 64, 128, 256), (2, 77, 8, 1, 16, 128, 32),
+                                   (1, 257, 8, 2, 16, 64, 256), (1, 200, 4, 1, 32, 32, 80),
+                                   (1, 300, 4, 1, 32, 48, 128), (1, 1100, 4, 1, 32, 128, 1024),
+                                   (1, 1, 4, 1, 16, 16, 16)],
+                         ids=["mamba2_ragged257", "grouped", "mamba2_reduced", "mamba2_s17",
+                              "mamba2_s255", "p16_s77_chunk32", "grouped_p16_s257",
+                              "chunk80_partial_tile", "n48_padded", "chunk1024", "s1"])
 def test_ssd_scan_kernel_matches_plain(gen, shape, dtype, tol_y, tol_h):
     B, S, H, G, P, N, chunk = shape
     inp = _ssd_case(gen, B, S, H, G, P, N, dtype)
@@ -90,6 +99,10 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         ops.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         ops.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    flat = torch.randn(q.numel() + 1, generator=gen, device="cuda").bfloat16()
+    odd = flat[1:].view(q.shape)              # contiguous, but 2 bytes off 16
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(odd, odd, odd)
     with pytest.raises(ValueError):
         ops.moe_topk(torch.randn(4, 65, generator=gen, device="cuda"), 4)
     x, dt, A, Bm, Cm = _ssd_case(gen, 1, 8, 4, 1, 16, 16, torch.float32)
