@@ -11,14 +11,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              card, at the serving shapes, within the stated tolerances; times
              of the kernel, the plain version and one PyTorch library call for
              the same function where there is one (the yardstick; the port
-             never calls it).
+             never calls it); and the launch floor, an empty kernel timed
+             the same way.
 4. serve   — ``ServingEngine`` serving full-width Qwen1.5-MoE-A2.7B (bf16,
              random weights from seed 0) on the paged pool: 8 requests, 16 new
              tokens each. The launch counters are zeroed just before the first
              run and read just after it: flash and MoE top-k must launch once
              per layer per prefill, the SSD scan never. A second identical run
              must give identical streams; a third, profiled run shows where
-             the device time goes.
+             the device time goes, and the empty kernel's device duration
+             in the same trace.
 5. paths   — every serve prompt's full-width prefill, kernel path against
              the plain path on the card, in fp32 and in bf16: router logits
              within tolerance up to the first layer whose MoE routing
@@ -227,12 +229,34 @@ def _flash_case(gen, B, S, Hq, Hkv, D, dtype):
     return mk(Hq), mk(Hkv), mk(Hkv)
 
 
+# (E, k) of the repo's MoE configs: qwen2_moe, moonshot, jamba, and the
+# reduced ones
+MOE_SHAPES = ((60, 4), (64, 6), (16, 2), (8, 2), (8, 3), (4, 2))
+
+
+def _moe_case(gen, T, E, dtype):
+    """Router logits; row 3 ties everywhere, row 5 ties among its largest."""
+    import torch
+    x = torch.randn(T, E, generator=gen, device="cuda")
+    if T > 5:
+        x[3] = 0.5
+        x[5] = torch.tensor(([1.0, 2.0, 2.0] * E)[:E], device="cuda")
+    return x.to(dtype)
+
+
+def moe_tie_ids(E, k):
+    """The ids row 5 of `_moe_case` must get: its 2.0s, then its 1.0s, each
+    in index order."""
+    return sorted(range(E), key=lambda e: (e % 3 == 0, e))[:k]
+
+
 def phase_kernels(card):
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import moe_dispatch as moe
     from repro_torch.kernels import ssd_scan as ssd
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -292,24 +316,33 @@ def phase_kernels(card):
                  "eager_ms": t["eager_ms"], "shape": "B=1 S=384 Hq=Hkv=16 D=128 bf16 causal"})
 
     # -- MoE top-k: compare ------------------------------------------------
+    # every (E, k) of the repo's MoE configs, fp32 and bf16 logits; T from
+    # one row, one short of and one past a block's rows, one past 48 and 128
+    # full blocks (a last block with one live row), to two dispatch groups;
+    # rows 3 and 5 tie (T > 5)
     moe_err = 0.0
-    for T in (1, 200, 384, 1024):
-        x = torch.randn(T, 60, generator=gen, device="cuda")
-        if T > 5:
-            x[3] = 0.5                                  # every expert ties
-            x[5] = torch.tensor([1.0, 2.0, 2.0] * 20, device="cuda")
-        for norm in (False, True):
-            w, i = ops.moe_topk(x, 4, norm_topk=norm)
-            wr, ir = ref.moe_topk_ref(x, 4, norm_topk=norm)
-            torch.cuda.synchronize()
-            err = (w - wr).abs().max().item()
-            same = torch.equal(i, ir)
-            ties = T <= 5 or (i[3].tolist() == [0, 1, 2, 3] and i[5].tolist() == [1, 2, 4, 5])
-            say(f"[kernels] moe_topk T={T} E=60 k=4 norm={norm}: ids equal={same} "
-                f"tie rows lowest-index={ties} max|w err|={err:.3e} (tol {MOE_W_TOL})")
-            check(same and ties and err <= MOE_W_TOL,
-                  f"moe_topk kernel disagrees with its plain version (T={T}, norm={norm})")
-            moe_err = max(moe_err, err)
+    r = moe.BLOCK_ROWS
+    moe_tokens = sorted({1, 2, r - 1, r + 1, 17, 384, 385, 1024, 1025, 2048})
+    for E, k in MOE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            worst = 0.0
+            for T in moe_tokens:
+                x = _moe_case(gen, T, E, dtype)
+                for norm in (False, True):
+                    w, i = ops.moe_topk(x, k, norm_topk=norm)
+                    wr, ir = ref.moe_topk_ref(x, k, norm_topk=norm)
+                    torch.cuda.synchronize()
+                    err = (w - wr).abs().max().item()
+                    ties = T <= 5 or (i[3].tolist() == list(range(k))
+                                      and i[5].tolist() == moe_tie_ids(E, k))
+                    check(torch.equal(i, ir) and ties and err <= MOE_W_TOL,
+                          f"moe_topk kernel disagrees with its plain version (E={E}, k={k}, "
+                          f"{dtype}, T={T}, norm={norm}): ids equal {torch.equal(i, ir)}, "
+                          f"tie rows lowest-index {ties}, max|w err| {err:.3e}")
+                    worst = max(worst, err)
+            say(f"[kernels] moe_topk E={E} k={k} {dtype}: T={moe_tokens}, norm False and True: "
+                f"ids equal, tie rows lowest-index, max|w err|={worst:.3e} (tol {MOE_W_TOL}) ok")
+            moe_err = max(moe_err, worst)
 
     # -- MoE top-k: time at the largest serve prefill (T=384) --------------
     x = torch.randn(384, 60, generator=gen, device="cuda")
@@ -322,6 +355,7 @@ def phase_kernels(card):
     nbytes = x.numel() * 4 + 384 * 4 * (4 + 4)
     ops_ = 384 * 60 * (5 + 4)       # softmax ~5 per logit, one compare per sweep
     mt["bound_ms"], mt["bound_by"] = bound(nbytes, ops_, "float32")
+    mt["grid"] = grid_note(-(-384 // moe.BLOCK_ROWS))
     say("[kernels] moe_topk time T=384 E=60 k=4 fp32: " + ", ".join(
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}" for k, v in mt.items())
         + f"  [{card}]")
@@ -332,6 +366,13 @@ def phase_kernels(card):
                  "plain_ms": mt["plain_ms"], "bound_ms": mt["bound_ms"],
                  "bound_by": mt["bound_by"], "library_ms": mt["library_ms"],
                  "eager_ms": mt["eager_ms"], "shape": "T=384 E=60 k=4 fp32"})
+
+    # -- the launch floor: an empty kernel, timed as the kernels are -------
+    dev = torch.device("cuda", torch.cuda.current_device())
+    empty = lambda: _build.launch("launch_floor", dev)  # noqa: E731
+    floor = {"ms": time_ms(empty), "eager_ms": eager_ms(empty)}
+    say(f"[kernels] launch floor (empty kernel, 1 block of 32 threads): graph-timed "
+        f"ms={floor['ms']:.5f}, eager ms={floor['eager_ms']:.5f} (ctypes path)  [{card}]")
 
     # -- SSD scan: compare -------------------------------------------------
     ssd_err = 0.0
@@ -386,7 +427,8 @@ def phase_kernels(card):
                  "bound_by": t["bound_by"], "library_ms": None,
                  "eager_ms": t["eager_ms"],
                  "shape": "B=1 S=1000 H=32 G=1 P=64 N=128 chunk=256 bf16"})
-    return rows, {"flash": flash_times, "ssd_scan": ssd_times}
+    return rows, {"flash": flash_times, "moe_topk": mt, "ssd_scan": ssd_times,
+                  "launch_floor": floor}
 
 
 @contextlib.contextmanager
@@ -578,19 +620,37 @@ def _path_logits(model, prompt):
     return out
 
 
+FLOOR_KERNEL = "launch_floor_kernel"
+FLOOR_LAUNCHES = 192
+
+
 def _profile_run(engine, prompts, Request, streams, card, kernels, top=12):
     """A third, profiled run: device time by kernel and the device's busy
-    share of the run's wall time; per launch for the named ``kernels``."""
+    share of the run's wall time; per launch for the named ``kernels``. After
+    the run, still in the profile, `FLOOR_LAUNCHES` launches of the empty
+    kernel give the launch floor's device duration in the same trace (left
+    out of the busy time and the table)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda", torch.cuda.current_device())
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         reqs, wall = _serve_once(engine, prompts, Request)
+        for _ in range(FLOOR_LAUNCHES):
+            _build.launch("launch_floor", dev)
+        torch.cuda.synchronize()
     check([r.tokens_out for r in reqs] == streams, "the profiled run gave other token streams")
     from torch.autograd import DeviceType
-    rows = []
+    rows, floor_us = [], None
     for evt in prof.key_averages():      # device-side events only
-        if evt.device_type == DeviceType.CUDA:
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        if FLOOR_KERNEL in evt.key:
+            floor_us = evt.self_device_time_total / evt.count
+        else:
             rows.append((evt.self_device_time_total, evt.count, evt.key))
+    check(floor_us is not None, f"the profile shows no {FLOOR_KERNEL}")
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     say(f"[profile] run 3 (warm, profiled): wall {wall:.3f} s, device busy {busy_s:.3f} s "
@@ -603,7 +663,9 @@ def _profile_run(engine, prompts, Request, streams, card, kernels, top=12):
             if name in key:
                 say(f"[profile] {name}: {count} launches, {dev_us / count:.2f} us each "
                     "on the device over the run's prompt mix")
-    return {"wall_s": wall, "device_busy_s": busy_s,
+    say(f"[profile] launch floor: {FLOOR_LAUNCHES} launches of the empty kernel, "
+        f"{floor_us:.2f} us each on the device (same trace)")
+    return {"wall_s": wall, "device_busy_s": busy_s, "launch_floor_us": floor_us,
             "top": [{"device_ms": d / 1e3, "calls": c, "name": k} for d, c, k in rows[:top]]}
 
 

@@ -7,7 +7,9 @@ interface, loaded with `ctypes`. The library lands in
 ``build/kernels/<hash>/`` at the root of the checkout; the hash covers the
 sources, the headers and the flags, so an edited source or header builds
 anew and an unchanged tree loads the library already there. Nothing here runs at import time: the first
-kernel launch on a CUDA tensor (or an explicit `load()`) builds.
+kernel launch on a CUDA tensor (or an explicit `load()`) builds. `launch`
+is the wrappers' one way into the library: it calls a C launcher on
+PyTorch's current stream and raises on the CUDA error it returns.
 """
 from __future__ import annotations
 
@@ -104,6 +106,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ssd_scan_fwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32, i32, i32,
                                  i32, i32, i32, i32, i32, vp]
     lib.ssd_scan_fwd.restype = i32
+    lib.launch_floor.argtypes = [vp]
+    lib.launch_floor.restype = i32
     return lib
 
 
@@ -137,3 +141,28 @@ def load() -> ctypes.CDLL:
         PTXAS_LOG = log.read_text() if log.is_file() else ""
     _LIB = _declare(ctypes.CDLL(str(lib_path)))
     return _LIB
+
+
+def _raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on device ``index`` (the raw
+    handle where this PyTorch exposes it, which skips building a `Stream`)."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw else torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's C launcher ``name(*args, stream)`` on PyTorch's
+    current stream of the CUDA ``device``, which is made the current device
+    only for the call and only if it is not already; raise `RuntimeError` if
+    the launcher returns a CUDA error."""
+    import torch
+    fn = getattr(_LIB or load(), name)
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        err = fn(*args, _raw_stream(current))
+    else:
+        with torch.cuda.device(device.index):
+            err = fn(*args, _raw_stream(device.index))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")

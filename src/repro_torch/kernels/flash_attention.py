@@ -57,13 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "(the kernel copies rows 16 bytes at a time)")
     scale = float(scale) if scale is not None else D ** -0.5
     out = torch.empty_like(q)
-    lib = _build.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, D, scale, int(causal), _DTYPE_CODE[q.dtype],
-            stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {err}")
+    _build.launch("flash_attention_fwd", q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), B, Sq, Sk, Hq, Hkv, D, scale,
+                  int(causal), _DTYPE_CODE[q.dtype])
     return out

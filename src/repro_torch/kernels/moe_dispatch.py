@@ -13,8 +13,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_EXPERTS = 64      # two logits per lane of one warp
-MAX_K = 32            # one chosen expert per lane
+MAX_EXPERTS = 64      # held in the registers of one row's lanes
+#: token rows a block takes, BLOCK_WARPS * 32 / LANES of csrc/moe_topk.cu
+#: (change both together): T / BLOCK_ROWS blocks, rounded up
+BLOCK_ROWS = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -30,24 +32,19 @@ def moe_topk(logits: torch.Tensor, k: int, *, norm_topk: bool = False
     """
     if logits.device.type != "cuda":
         raise ValueError(f"logits must lie on a CUDA device, got {logits.device}")
-    if logits.dtype not in _DTYPE_CODE:
+    code = _DTYPE_CODE.get(logits.dtype)
+    if code is None:
         raise TypeError(f"logits dtype {logits.dtype}: the kernel takes "
                         "float32 or bfloat16")
     if logits.dim() != 2 or not logits.is_contiguous():
         raise ValueError("logits must be a contiguous (T, E) tensor, got "
                          f"shape {tuple(logits.shape)}")
     T, E = logits.shape
-    if not (0 < E <= MAX_EXPERTS and 0 < k <= min(E, MAX_K)) or T == 0:
-        raise ValueError(f"need T > 0, 0 < k <= min(E, {MAX_K}) and "
-                         f"E <= {MAX_EXPERTS}; got T={T}, E={E}, k={k}")
+    if not (0 < k <= E <= MAX_EXPERTS) or T == 0:
+        raise ValueError(f"need T > 0 and 0 < k <= E <= {MAX_EXPERTS}; "
+                         f"got T={T}, E={E}, k={k}")
     w = torch.empty((T, k), dtype=torch.float32, device=logits.device)
     idx = torch.empty((T, k), dtype=torch.int32, device=logits.device)
-    lib = _build.load()
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = lib.moe_topk_fwd(logits.data_ptr(), w.data_ptr(), idx.data_ptr(),
-                               T, E, k, int(norm_topk),
-                               _DTYPE_CODE[logits.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"moe_topk_fwd launch failed: CUDA error {err}")
+    _build.launch("moe_topk_fwd", logits.device, logits.data_ptr(), w.data_ptr(),
+                  idx.data_ptr(), T, E, k, int(norm_topk), code)
     return w, idx

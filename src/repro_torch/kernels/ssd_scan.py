@@ -68,13 +68,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          "(the kernel copies rows 16 bytes at a time)")
     y = torch.empty_like(x)
     h = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
-    lib = _build.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_mat.data_ptr(),
-            C_mat.data_ptr(), y.data_ptr(), h.data_ptr(),
-            Bsz, S, H, G, P, N, chunk, _DTYPE_CODE[x.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"ssd_scan_fwd launch failed: CUDA error {err}")
+    _build.launch("ssd_scan_fwd", x.device, x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                  B_mat.data_ptr(), C_mat.data_ptr(), y.data_ptr(), h.data_ptr(),
+                  Bsz, S, H, G, P, N, chunk, _DTYPE_CODE[x.dtype])
     return y, h

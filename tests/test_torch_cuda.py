@@ -46,18 +46,56 @@ def test_flash_kernel_matches_plain(gen, shape, causal, dtype, tol):
                                atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("T", [1, 200, 1024])
-@pytest.mark.parametrize("norm", [False, True], ids=["raw", "norm_topk"])
-def test_moe_topk_kernel_matches_plain(gen, T, norm):
-    x = torch.randn(T, 60, generator=gen, device="cuda")
+MOE_SHAPES = [(60, 4), (64, 6), (16, 2), (8, 2), (8, 3), (4, 2)]
+
+
+def _moe_tokens():
+    """T = 1, 2, one short of and one past a block's rows, 17, 384, one past
+    48 and 128 full blocks (a last block with one live row), one and two
+    dispatch groups (1024, 2048)."""
+    from repro_torch.kernels.moe_dispatch import BLOCK_ROWS as r
+    return sorted({1, 2, r - 1, r + 1, 17, 384, 385, 1024, 1025, 2048})
+
+
+def _moe_logits(gen, T, E, dtype):
+    x = torch.randn(T, E, generator=gen, device="cuda")
     if T > 5:
         x[3] = 0.5                                    # every expert ties
-        x[5] = torch.tensor([1.0, 2.0, 2.0] * 20, device="cuda")
-    w, i = ops.moe_topk(x, 4, norm_topk=norm)
-    wr, ir = ref.moe_topk_ref(x, 4, norm_topk=norm)
-    torch.cuda.synchronize()
-    assert torch.equal(i, ir)
-    torch.testing.assert_close(w, wr, atol=1e-6, rtol=0)
+        x[5] = torch.tensor(([1.0, 2.0, 2.0] * E)[:E], device="cuda")
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("norm", [False, True], ids=["raw", "norm_topk"])
+@pytest.mark.parametrize("E,k", MOE_SHAPES, ids=[f"E{E}_k{k}" for E, k in MOE_SHAPES])
+def test_moe_topk_kernel_matches_plain(gen, E, k, norm, dtype):
+    for T in _moe_tokens():
+        x = _moe_logits(gen, T, E, dtype)
+        before = ops.LAUNCHES["moe_topk"]
+        w, i = ops.moe_topk(x, k, norm_topk=norm)
+        wr, ir = ref.moe_topk_ref(x, k, norm_topk=norm)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["moe_topk"] == before + 1
+        assert w.shape == (T, k) and w.dtype == torch.float32 and i.dtype == torch.int32
+        assert torch.equal(i, ir), f"T={T}"
+        torch.testing.assert_close(w, wr, atol=1e-6, rtol=0)
+        if T > 5:
+            assert i[3].tolist() == list(range(k))
+            assert i[5].tolist() == sorted(range(E), key=lambda e: (e % 3 == 0, e))[:k]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_moe_topk_kernel_takes_unaligned_rows(gen, dtype):
+    """A base off the vector loads' alignment, or an E that is no multiple
+    of their width, takes the kernel's scalar loads: the same answer."""
+    flat = torch.randn(384 * 60 + 1, generator=gen, device="cuda").to(dtype)
+    for x in (flat[1:].view(384, 60), flat[: 384 * 59].view(384, 59)):
+        assert x.is_contiguous()
+        w, i = ops.moe_topk(x, 4, norm_topk=True)
+        wr, ir = ref.moe_topk_ref(x, 4, norm_topk=True)
+        torch.cuda.synchronize()
+        assert torch.equal(i, ir)
+        torch.testing.assert_close(w, wr, atol=1e-6, rtol=0)
 
 
 def _ssd_case(gen, B, S, H, G, P, N, dtype):

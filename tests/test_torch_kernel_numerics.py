@@ -26,7 +26,17 @@ evaluation of the same bf16 inputs, each split keeps the kernel's own error
 far inside those: the tests below state by how much, and that the
 alternative the kernel does not use (one bf16 P; TF32 products) would lose
 more than 10x as much.
+
+`csrc/moe_topk.cu` has no bf16 products; its model (last section) follows
+what decides its ids and the last bits of its weights: which lane holds
+which experts, the order of the partial max and exp-sums (each lane's
+pairwise tree, then the butterfly across lanes), each lane's best key and
+the merge of the lanes' bests, with either merge the kernel can be built
+with. It is held to the Pallas kernel exactly in the ids and within 1e-6
+in the weights, the tolerance of ``chip_smoke.py``.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -308,3 +318,144 @@ def test_ssd_split_products_hold_the_state_tolerance():
     (y_split, h_split), (_, h_tf32) = used("split"), used("tf32")
     assert y_split < 1e-2 and h_split < 1e-2
     assert h_tf32 > 10 * h_split
+
+
+# ---------------------------------------------------------------------------
+# MoE top-k gating
+# ---------------------------------------------------------------------------
+
+MOE_MAX_E = 64                    # MAX_E in moe_topk.cu
+MOE_W_TOL = 1e-6                  # chip_smoke.MOE_W_TOL
+MOE_SHAPES = [(60, 4), (64, 6), (16, 2), (8, 2), (8, 3), (4, 2)]
+
+
+def moe_layout(lanes: int, *, interleaved: bool = False) -> torch.Tensor:
+    """``(lanes, 64 // lanes)`` expert ids: register c of group lane g holds
+    expert g * (64 // lanes) + c, the kernel's layout, so lane order is
+    expert order; ids >= E are absent. ``interleaved``: the layout the
+    kernel does not use, lane g's loads of VEC = min(4, 64 // lanes) at
+    (s * lanes + g) * VEC, which breaks that order."""
+    per = MOE_MAX_E // lanes
+    c, g = torch.arange(per), torch.arange(lanes)
+    if not interleaved:
+        return g[:, None] * per + c[None]
+    vec = min(per, 4)
+    return ((c[None] // vec) * lanes + g[:, None]) * vec + c[None] % vec
+
+
+def _pairwise(t, op):
+    """A lane's tree over its registers (last dim): adjacent pairs, level by
+    level, as `lane_max` / `lane_sum` pair them."""
+    while t.shape[-1] > 1:
+        t = op(t[..., 0::2], t[..., 1::2])
+    return t[..., 0]
+
+
+def _butterfly(t, op):
+    """The exchange across a row's lanes (last dim): at offsets L/2, ..., 1
+    each lane combines its value with that of lane ``g ^ offset``; every
+    lane ends with the same result."""
+    lanes = torch.arange(t.shape[-1])
+    o = t.shape[-1] // 2
+    while o:
+        t = op(t, t[..., lanes ^ o])
+        o //= 2
+    return t
+
+
+def moe_topk_model(x: torch.Tensor, k: int, *, norm_topk: bool, lanes: int,
+                   interleaved: bool = False):
+    """The kernel's arithmetic and order: ``(T, E)`` logits -> (weights fp32,
+    ids int64). Each lane reduces its registers first (pairwise), then the
+    lanes exchange (the max, then the exp-sum in the kernel's order). Each
+    expert's key is bits(p) + 1 (0: taken or absent); a lane's best is its
+    largest key, its lowest register among equals. A sweep takes the
+    group's largest key, and the lowest lane whose best equals it holds the
+    pick: it zeroes that key and takes its next best. The weights' sum for
+    ``norm_topk`` runs in pick order."""
+    T, E = x.shape
+    ex = moe_layout(lanes, interleaved=interleaved)
+    present = ex < E
+    v = torch.full((T, *ex.shape), float("-inf"))
+    v[:, present] = x.float()[:, ex[present]]
+    mx = _butterfly(_pairwise(v, torch.maximum), torch.maximum)
+    e = torch.exp(v - mx[..., None])
+    denom = _butterfly(_pairwise(e, torch.add), torch.add)
+    p = e / denom[..., None]
+    key = torch.where(present, p.view(torch.int32).long() + 1, 0)    # (T, lanes, regs)
+    rows = torch.arange(T)
+    ws, ids, total = [], [], torch.zeros(T)
+    for _ in range(k):
+        best, reg = key.max(dim=2)             # ties: the first, the lowest register
+        top = best.max(dim=1).values
+        lane = (best == top[:, None]).int().argmax(dim=1)   # the lowest lane holding it
+        c = reg[rows, lane]
+        w = p[rows, lane, c]
+        total = total + w
+        ws.append(w)
+        ids.append(ex[lane, c])
+        key[rows, lane, c] = 0
+    w, i = torch.stack(ws, dim=1), torch.stack(ids, dim=1)
+    return (w / total[:, None] if norm_topk else w), i
+
+
+def _moe_logits(T, E, seed):
+    x = np.random.default_rng(seed).standard_normal((T, E)).astype(np.float32)
+    x[3] = 0.25                               # every expert ties
+    x[5] = np.tile([1.0, 2.0, 2.0], E)[:E]    # ties among the largest
+    return x
+
+
+def _tie_ids(E, k):
+    """Row 5 of `_moe_logits`: its 2.0s, then its 1.0s, in index order."""
+    return sorted(range(E), key=lambda e: (e % 3 == 0, e))[:k]
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_gate(E, k, norm_topk):
+    w, i = jops.moe_topk(jnp.asarray(_moe_logits(200, E, seed=E + k)), k, norm_topk=norm_topk)
+    return np.asarray(w), np.asarray(i)
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_moe_layout_holds_each_expert_once_in_lane_order(lanes):
+    """Every expert id 0..63 sits in exactly one register of one lane; lane
+    by lane and register by register the ids rise, so the lowest lane
+    holding a key holds its lowest expert; and every load is VEC
+    neighbouring experts from a VEC boundary (one 8- or 16-byte access where
+    E is a multiple of VEC)."""
+    ex = moe_layout(lanes)
+    vec = min(MOE_MAX_E // lanes, 4)
+    assert ex.flatten().tolist() == list(range(MOE_MAX_E))
+    loads = ex.reshape(lanes, -1, vec)
+    assert bool((loads - loads[..., :1] == torch.arange(vec)).all())
+    assert bool((loads[..., 0] % vec == 0).all())
+
+
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+@pytest.mark.parametrize("E,k", MOE_SHAPES, ids=[f"E{E}_k{k}" for E, k in MOE_SHAPES])
+def test_moe_model_matches_pallas_kernel(E, k, lanes):
+    """The model of the kernel's layout, sums and sweeps against the Pallas
+    kernel (interpret mode) on random rows and the tie rows (row 3: every
+    expert equal; row 5: equal largest values in every lane): ids exactly
+    equal, weights within 1e-6, with and without renormalisation."""
+    x = torch.as_tensor(_moe_logits(200, E, seed=E + k))
+    for norm in (False, True):
+        gw, gi = _pallas_gate(E, k, norm)
+        w, i = moe_topk_model(x, k, norm_topk=norm, lanes=lanes)
+        np.testing.assert_array_equal(i.numpy(), gi)
+        np.testing.assert_allclose(w.numpy(), gw, atol=MOE_W_TOL, rtol=0)
+        assert i[3].tolist() == list(range(k))
+        assert i[5].tolist() == _tie_ids(E, k)
+
+
+def test_moe_lowest_lane_rule_needs_lanes_in_expert_order():
+    """The sweep's rule (the lowest lane holding the largest key) is the
+    tie rule only because lane order is expert order. With the loads
+    interleaved across 8 lanes, row 5's third and fourth picks go to experts
+    32 and 34 (lane 0's second load), not 4 and 5 (lane 1's first)."""
+    x = torch.as_tensor(_moe_logits(200, 60, seed=64))
+    _, kept = moe_topk_model(x, 4, norm_topk=False, lanes=8)
+    _, mixed = moe_topk_model(x, 4, norm_topk=False, lanes=8, interleaved=True)
+    assert kept[5].tolist() == _tie_ids(60, 4) == [1, 2, 4, 5]
+    assert mixed[5].tolist() == [1, 2, 32, 34]

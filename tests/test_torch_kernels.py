@@ -46,18 +46,28 @@ def _logits_with_ties(T, E, seed):
     return x
 
 
+# (E, k) of the repo's MoE configs: qwen2_moe, moonshot, jamba, reduced ones
+MOE_SHAPES = [(60, 4), (64, 6), (16, 2), (8, 2), (8, 3), (4, 2)]
+
+
+def _tie_ids(E, k):
+    """Row 5 of `_logits_with_ties`: its 2.0s, then its 1.0s, in index order."""
+    return sorted(range(E), key=lambda e: (e % 3 == 0, e))[:k]
+
+
 @pytest.mark.parametrize("norm", [False, True], ids=["raw", "norm_topk"])
-def test_moe_topk_ref_matches_pallas_kernel(norm):
+@pytest.mark.parametrize("E,k", MOE_SHAPES, ids=[f"E{E}_k{k}" for E, k in MOE_SHAPES])
+def test_moe_topk_ref_matches_pallas_kernel(E, k, norm):
     """Ids exactly equal (the lowest index wins a tie, as in `lax.top_k`),
     weights within 1e-6."""
-    x = _logits_with_ties(200, 60, seed=1)
-    jw, ji = jops.moe_topk(jnp.asarray(x), 4, norm_topk=norm)
-    w, i = ref.moe_topk_ref(torch.as_tensor(x), 4, norm_topk=norm)
+    x = _logits_with_ties(200, E, seed=1)
+    jw, ji = jops.moe_topk(jnp.asarray(x), k, norm_topk=norm)
+    w, i = ref.moe_topk_ref(torch.as_tensor(x), k, norm_topk=norm)
     assert i.dtype == torch.int32 and w.dtype == torch.float32
     np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
     np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=1e-6, rtol=0)
-    assert i[3].tolist() == [0, 1, 2, 3]
-    assert i[5].tolist() == [1, 2, 4, 5]
+    assert i[3].tolist() == list(range(k))
+    assert i[5].tolist() == _tie_ids(E, k)
 
 
 def test_top_k_has_lax_order():
