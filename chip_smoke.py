@@ -37,7 +37,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              fp32 logits than the plain path is; and decode continuity:
              prefill(S) + one decode step gives prefill(S + 1)'s logits at
              the chunk boundaries.
-8. output  — a ``{"kernels": [...]}`` JSON line, then, last, the result line
+8. cluster — the intent-driven cluster path (`ServingCluster`,
+             `Orchestrator`) on full-width Minitron-4B (bf16, random weights
+             from seed 0; paged engines of 8 slots, s_max 512): a unified
+             engine runs the serve prompts twice (the oracle); then a phi and
+             a general engine take four unlabeled and four phi requests, the
+             intent "Phi traffic must remain inside the pod." is submitted
+             with ``async_reconfig`` while they decode (PREPARE warms beside
+             serving; the swap commits at a step boundary), two unlabeled
+             decoding requests migrate, the batch runs again on the
+             reconfigured pair in turns with the unified engine, and a phi
+             request is rejected once the phi engine retires; then a prefill and a decode engine hand
+             every request off at its first token. Streams equal the
+             oracle; no route lands mid-swap; flash launches once per layer
+             per prefill (PREPARE's warm prefills included), never in a
+             migration. Prints the swap's ``DowntimeReport`` and every pause
+             beside the paper's 50 ms budget as ``within`` or ``over``, and
+             TTFT/TPOT of the reconfigured pair and of the handoff pair
+             against the unified engine over paired windows taken in turns
+             (median and range of the ratios) beside its 10 % budget as
+             ``within``, ``over`` or ``unresolved``; never a failure.
+9. ssm migrate — Mamba2-370m at full width and half depth on two
+             slot-granular engines: two requests migrate mid-decode; streams equal the run without
+             migration; the SSD scan launches once per layer per prefill.
+10. output — a ``{"kernels": [...]}`` JSON line, then, last, the result line
              ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
@@ -262,12 +285,14 @@ def phase_kernels(card):
     rows = []
 
     # -- flash attention: compare ------------------------------------------
-    # the serve shapes, then every edge of the bf16 kernel's tiles (16-row
-    # warp strips, 64-row q and k tiles, the two warp groups' k walks,
-    # 32-column causal halves) at each head dim it takes, batched, GQA
+    # the serve shapes (Qwen's, and Minitron's 3:1 GQA at every prompt
+    # length the cluster phase prefills and PREPARE warms), then every edge
+    # of the bf16 kernel's tiles (16-row warp strips, 64-row q and k tiles,
+    # the two warp groups' k walks, 32-column causal halves) at each head
+    # dim it takes, batched, GQA
     flash_err = 0.0
     shapes = [(1, S, 16, 16, 128, "qwen") for S in (17, 128, 200, 384, 512)]
-    shapes.append((1, 384, 24, 8, 128, "minitron-gqa"))
+    shapes += [(1, S, 24, 8, 128, "minitron-gqa") for S in SERVE_PROMPT_LENS]
     shapes += [(2, S, 6, 2, D, "edge") for S in (17, 77, 200, 257) for D in (16, 32, 64)]
     for B, S, Hq, Hkv, D, tag in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -846,6 +871,382 @@ def phase_ssm_paths(card, bf16):
             "bf16_kernel_limit": limit, "decode_continuity_max_diff": continuity}
 
 
+# ---------------------------------------------------------------------------
+# the intent-driven cluster path
+# ---------------------------------------------------------------------------
+
+CLUSTER_ARCH = "minitron_4b"
+CLUSTER_ENGINE = {"n_slots": 8, "s_max": 512, "page_size": 16}
+PHI_INTENT = "Phi traffic must remain inside the pod."
+# the paper's budgets: downtime and each migration pause under 50 ms, TTFT
+# and TPOT within 10 % of a unified engine's. Printed beside the figures as
+# `within` or `over` (the overhead also `unresolved`, see `_paired_overhead`);
+# host time on the card's machine moves from call to call, so they do not
+# fail the run.
+PAUSE_BUDGET_S = 0.05
+OVERHEAD_BUDGET = 0.10
+# windows of each side, taken in turns, behind each overhead verdict
+OVERHEAD_PAIRS = 3
+# serving steps the cluster may take while PREPARE runs, before it waits for
+# the warm-up: the requests to migrate must still be decoding after the swap
+PREPARE_STEPS = 4
+SSM_MIGRATE_SLOTS = 4
+# Mamba2's migration runs at full width and half depth, to keep the whole
+# run inside its time
+SSM_MIGRATE_LAYERS = 24
+
+
+def budget(value, limit):
+    return "within" if value < limit else "over"
+
+
+def _zeroed_launches(fn):
+    """Run ``fn`` with the launch counters set to 0 just before it; return
+    (its result, the counts just after it)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    out = fn()
+    return out, dict(ops.LAUNCHES)
+
+
+def _overhead_lines(tag, m, base, card):
+    """One window against one unified window: ratios, no verdict."""
+    out = {}
+    for key in ("ttft_mean_s", "tpot_mean_s"):
+        ratio = m[key] / base[key] - 1.0
+        out[key] = ratio
+        say(f"[{tag}] {key[:4].upper()} mean {m[key] * 1e3:.2f} ms against the unified "
+            f"engine's {base[key] * 1e3:.2f} ms: {100 * ratio:+.1f} %  [{card}]")
+    return out
+
+
+def _paired_overhead(tag, serve_unified, serve_other, card):
+    """The paper's overhead budget from `OVERHEAD_PAIRS` pairs of windows,
+    each a unified window then one of ``tag`` (``serve_*(k)`` serves the
+    batch once and returns its metrics): each pair's TTFT and TPOT ratio,
+    their median and range. ``within`` when every pair's ratio is under the
+    budget, ``over`` when none is, else ``unresolved``: the host's speed
+    moved across the budget between windows."""
+    pairs = [(serve_unified(k), serve_other(k)) for k in range(OVERHEAD_PAIRS)]
+    out = {}
+    for key in ("ttft_mean_s", "tpot_mean_s"):
+        base = [b[key] for b, _ in pairs]
+        other = [o[key] for _, o in pairs]
+        ratios = [o / b - 1.0 for b, o in zip(base, other)]
+        lo, hi = min(ratios), max(ratios)
+        verdict = ("within" if hi < OVERHEAD_BUDGET else
+                   "over" if lo >= OVERHEAD_BUDGET else "unresolved")
+        out[key] = {"unified_s": base, "other_s": other, "ratios": ratios,
+                    "median": float(np.median(ratios)), "verdict": verdict}
+        say(f"[{tag}] {key[:4].upper()} mean over {OVERHEAD_PAIRS} paired windows: unified "
+            f"median {np.median(base) * 1e3:.2f} ms ({min(base) * 1e3:.2f}-{max(base) * 1e3:.2f}), "
+            f"{tag} median {np.median(other) * 1e3:.2f} ms ({min(other) * 1e3:.2f}-"
+            f"{max(other) * 1e3:.2f}); ratio median {100 * np.median(ratios):+.1f} % "
+            f"({100 * lo:+.1f} % to {100 * hi:+.1f} %): {verdict} the "
+            f"{100 * OVERHEAD_BUDGET:.0f} % budget  [{card}]")
+    return out
+
+
+def phase_cluster(card):
+    """The intent-driven cluster path on full-width Minitron-4B (bf16, random
+    weights from seed 0), every engine paged with `CLUSTER_ENGINE`, the
+    serve prompts with `SERVE_NEW_TOKENS` new tokens each:
+
+    1. unified: one engine runs the batch twice; the streams agree and are
+       the oracle (flash once per layer per prefill);
+    2. cluster: ``edge0`` (phi) and ``edge1`` (general); four unlabeled
+       requests, then four phi ones; the phi intent goes through the
+       `Orchestrator` with ``async_reconfig`` while they decode, and its swap
+       commits at a step boundary; two unlabeled decoding requests then
+       migrate edge0 -> edge1. Streams equal the oracle, no route lands
+       mid-swap, flash launches once per layer per prefill (PREPARE's warm
+       prefills included) and never in the migration; then the batch runs
+       again on the reconfigured pair, in turns with the unified engine
+       (streams equal the oracle); with edge0 retired, a phi request is
+       rejected;
+    3. handoff: a prefill and a decode engine; every request hands off at
+       its first token; streams equal the oracle; then the batch runs again
+       on the pair, in turns with the unified engine.
+    Then `phase_ssm_migration`. Prints the swap's report and every pause
+    with the paper's 50 ms budget, and the reconfigured pair's and the
+    handoff pair's TTFT/TPOT against the unified engine with its 10 % budget
+    over paired windows (`_paired_overhead`)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import Orchestrator
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.obs import Recorder, recording
+    from repro_torch.serving import (
+        PrepareWorker,
+        Request,
+        RoutingError,
+        ServingCluster,
+        ServingEngine,
+        compute_metrics,
+    )
+
+    cfg = get_config(CLUSTER_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(model.params))
+    say(f"[cluster] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.2f} B parameters ({cfg.param_dtype}), random from seed 0 "
+        f"in {time.perf_counter() - t0:.1f} s; engines {CLUSTER_ENGINE}")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPT_LENS]
+    per_prefill = cfg.num_layers
+    want_launches = lambda n: {k: n if k == "flash_attention" else 0  # noqa: E731
+                               for k in ops.LAUNCHES}
+
+    # -- 1. unified baseline (the oracle) -------------------------------------
+    unified = ServingEngine(model, **CLUSTER_ENGINE)
+    (reqs1, _), launches = _zeroed_launches(lambda: _serve_once(unified, prompts, Request))
+    check(launches == want_launches(per_prefill * len(prompts)),
+          f"unified run: launches {launches}, want {want_launches(per_prefill * len(prompts))}")
+    reqs2, wall2 = _serve_once(unified, prompts, Request)
+    oracle = {r.rid: r.tokens_out for r in reqs2}
+    check({r.rid: r.tokens_out for r in reqs1} == oracle,
+          "the unified engine's two runs gave other token streams")
+    base = compute_metrics(reqs2)
+    say(f"[cluster] unified: launches {launches}; two runs agree; warm TTFT mean "
+        f"{base['ttft_mean_s'] * 1e3:.2f} ms, TPOT mean {base['tpot_mean_s'] * 1e3:.2f} ms  [{card}]")
+
+    def serve_unified(k):
+        """A unified window for `_paired_overhead`; streams held to the oracle."""
+        got, _ = _serve_once(unified, prompts, Request)
+        check({r.rid: r.tokens_out for r in got} == oracle,
+              f"unified window {k}: streams differ from the oracle")
+        return compute_metrics(got)
+
+    def serve_cluster_window(cl, k, labelled):
+        """The batch once more on cluster ``cl`` under fresh rids (half phi
+        when ``labelled``); streams held to the oracle."""
+        rid0 = 1000 * (k + 1)
+        got = [Request(rid0 + i, p, max_new_tokens=SERVE_NEW_TOKENS,
+                       labels={"data-type": "phi"} if labelled and i >= 4 else {})
+               for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        for r in got:
+            cl.submit(r)
+        cl.run()
+        torch.cuda.synchronize()
+        check({r.rid - rid0: r.tokens_out for r in got} == oracle,
+              f"cluster window {k}: streams differ from the oracle")
+        return compute_metrics(got)
+
+    # -- 2. the cluster: intent, swap, migration, fail-closed -----------------
+    worker = PrepareWorker(max_workers=1)
+    try:
+        cluster = ServingCluster(prepare_worker=worker)
+        cluster.register("edge0", ServingEngine(model, labels={"data-type": "phi"},
+                                                **CLUSTER_ENGINE))
+        cluster.register("edge1", ServingEngine(model, labels={"data-type": "general"},
+                                                **CLUSTER_ENGINE))
+        reqs = [Request(i, p, max_new_tokens=SERVE_NEW_TOKENS,
+                        labels={"data-type": "phi"} if i >= 4 else {})
+                for i, p in enumerate(prompts)]
+        state = {}
+
+        def drive():
+            torch.cuda.synchronize()
+            state["placed"] = [cluster.submit(r) for r in reqs]
+            for _ in range(2):
+                cluster.step()
+            state["warm_lengths"] = cluster.engine("edge0").recent_prompt_lengths()
+            res = Orchestrator().submit(PHI_INTENT, apply_to=cluster, async_reconfig=True)
+            check(res.success and list(res.reports) == ["edge0"],
+                  f"intent: success={res.success}, reconfigured {list(res.reports)}")
+            ticket = res.reports["edge0"]
+            served = 0
+            while not ticket.done() and served < PREPARE_STEPS:
+                served += 1
+                cluster.step()                  # serving continues through PREPARE
+            check(ticket.wait_ready(600.0), f"PREPARE did not finish: {ticket!r}")
+            while not ticket.done():
+                cluster.step()                  # the swap commits at this boundary
+            state["report"] = ticket.result()
+            state["steps_in_prepare"] = served
+            movable = [r.rid for r in cluster.engine("edge0").slot_req
+                       if r is not None and not r.labels]
+            check(len(movable) >= 2, f"edge0 holds {movable} unlabeled decoding requests")
+            before = dict(ops.LAUNCHES)
+            state["records"] = cluster.migrate_requests("edge0", "edge1", movable[:2])
+            check(ops.LAUNCHES == before, f"the migration launched kernels: "
+                                          f"{before} -> {ops.LAUNCHES}")
+            cluster.run()
+            torch.cuda.synchronize()
+
+        _, launches = _zeroed_launches(drive)
+        report, records = state["report"], state["records"]
+        n_prefill = len(prompts) + report.compiled_in_prepare - 1
+        check(launches == want_launches(per_prefill * n_prefill),
+              f"cluster run: launches {launches}, want {want_launches(per_prefill * n_prefill)} "
+              f"({len(prompts)} request prefills + {report.compiled_in_prepare - 1} warmed)")
+        check(state["placed"] == ["edge0", "edge1", "edge0", "edge1"] + ["edge0"] * 4,
+              f"routing: {state['placed']}")
+        check({r.rid: r.tokens_out for r in reqs} == oracle,
+              "the cluster's streams differ from the unified engine's")
+        check(cluster.midswap_routes == 0, f"midswap_routes={cluster.midswap_routes}")
+        check(all(m.phase == "decoding" and m.batch == 2 and m.bytes_moved > 0
+                  for m in records), f"migration records {records}")
+        check("pod" in cluster.engine("edge0").plan.forbidden_collective_axes,
+              "edge0 is not on the pinned plan")
+        # serving after the swap: the batch again on the reconfigured pair,
+        # in turns with the unified engine
+        over_c = _paired_overhead(
+            "cluster", serve_unified,
+            lambda k: serve_cluster_window(cluster, k, labelled=True), card)
+        phi = Request(100, prompts[0], max_new_tokens=2, labels={"data-type": "phi"})
+        check(cluster.eligible(phi) == ["edge0"], f"phi eligible on {cluster.eligible(phi)}")
+        cluster.retire_engine("edge0")
+        try:
+            cluster.submit(phi)
+            rejected = False
+        except RoutingError:
+            rejected = True
+        check(rejected and cluster.rejected[-1].rid == 100,
+              "a phi request was served with its only compliant engine retired")
+        m_cluster = compute_metrics(reqs)
+        check(report.metrics_after["completed"] >= 4,
+              f"the swap report's post-swap window holds {report.metrics_after['completed']} "
+              "completions; the four phi requests finish on edge0 after the swap")
+        say(f"[cluster] routing {state['placed']}; launches {launches} "
+            f"({len(prompts)} request prefills + {report.compiled_in_prepare - 1} warmed, "
+            f"{per_prefill} each; none in the migration); streams equal the unified run's; "
+            f"midswap_routes 0; phi rejected with edge0 retired (fail-closed)")
+        say(f"[cluster] swap: {report.summary()}; prepare_s {report.prepare_s:.4f}, "
+            f"downtime_s {report.downtime_s:.6f} ({budget(report.downtime_s, PAUSE_BUDGET_S)} "
+            f"the 50 ms budget), compiled_in_prepare {report.compiled_in_prepare}, "
+            f"migrate_bytes {report.migrate_bytes}; {state['steps_in_prepare']} steps served "
+            f"during PREPARE  [{card}]")
+        for m in records:
+            say(f"[cluster] migration rid {m.rid} {m.src}->{m.dst}: pause_s {m.pause_s:.6f} "
+                f"({budget(m.pause_s, PAUSE_BUDGET_S)} the 50 ms budget), "
+                f"{m.bytes_moved} bytes, batch {m.batch}  [{card}]")
+        say(f"[cluster] the run through the intent (PREPARE beside serving, swap, "
+            f"migration) against the unified engine's warm run; one window, informational:")
+        _overhead_lines("cluster run", m_cluster, base, card)
+        check(report.compiled_in_prepare == 1 + len(state["warm_lengths"]),
+              f"PREPARE warmed {report.compiled_in_prepare - 1} prompt lengths, "
+              f"not {state['warm_lengths']}")
+    finally:
+        worker.shutdown()
+
+    # -- 3. first-token handoff ------------------------------------------------
+    with recording(Recorder()) as rec:
+        cluster = ServingCluster()
+        cluster.register("pf", ServingEngine(model, **CLUSTER_ENGINE), role="prefill")
+        cluster.register("dc", ServingEngine(model, **CLUSTER_ENGINE), role="decode")
+        hreqs = [Request(i, p, max_new_tokens=SERVE_NEW_TOKENS) for i, p in enumerate(prompts)]
+
+        def drive_handoff():
+            torch.cuda.synchronize()
+            for r in hreqs:
+                cluster.submit(r)
+            cluster.run()
+            torch.cuda.synchronize()
+
+        _, h_launches = _zeroed_launches(drive_handoff)
+    pauses = rec.events("migration.pause")
+    cohorts = rec.events("cluster.handoff")
+    check(h_launches == want_launches(per_prefill * len(prompts)),
+          f"handoff run: launches {h_launches}")
+    check({r.rid: r.tokens_out for r in hreqs} == oracle,
+          "the handed-off streams differ from the unified engine's")
+    check(len(pauses) == len(prompts) and all(e.data["reason"] == "handoff" for e in pauses),
+          f"{len(pauses)} handoff pauses recorded")
+    check(cluster.metrics_by_label()["role:decode"]["completed"] == len(prompts),
+          "not every request completed on the decode engine")
+    m_handoff = compute_metrics(hreqs)
+    hp = [e.data["pause_s"] for e in pauses]
+    say(f"[handoff] {len(cohorts)} cohort(s) moved {sum(c.data['moved'] for c in cohorts)} "
+        f"requests at their first token; launches {h_launches}; streams equal the "
+        f"unified run's; pauses " + ", ".join(f"{p:.6f}" for p in hp)
+        + f" s, max {max(hp):.6f} ({budget(max(hp), PAUSE_BUDGET_S)} the 50 ms budget), "
+        f"{sum(e.data['bytes_moved'] for e in pauses)} bytes  [{card}]")
+    over_h = _paired_overhead(
+        "handoff", serve_unified,
+        lambda k: serve_cluster_window(cluster, k, labelled=False), card)
+    del cluster, unified, model
+    torch.cuda.empty_cache()
+    return {"unified": base, "cluster_run": m_cluster,
+            "handoff": m_handoff, "report_metrics_after": report.metrics_after,
+            "overhead": {"cluster": over_c, "handoff": over_h},
+            "launches": {"cluster": launches, "handoff": h_launches},
+            "report": {"prepare_s": report.prepare_s, "downtime_s": report.downtime_s,
+                       "compiled_in_prepare": report.compiled_in_prepare,
+                       "migrate_bytes": report.migrate_bytes, "summary": report.summary()},
+            "migrations": [{"rid": m.rid, "pause_s": m.pause_s, "bytes": m.bytes_moved,
+                            "batch": m.batch} for m in records],
+            "handoff_pauses_s": hp, "steps_in_prepare": state["steps_in_prepare"]}
+
+
+def phase_ssm_migration(card):
+    """Full-width Mamba2-370m (bf16, random weights from seed 0) on two
+    slot-granular engines (`SSM_MIGRATE_SLOTS` slots, ``s_max`` 1024), cut to
+    `SSM_MIGRATE_LAYERS` layers: the SSM serve prompts go to one engine, two
+    of its requests migrate to the other mid-decode; the streams equal one engine's run without migration
+    and the SSD scan launches once per layer per prefill."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServingCluster, ServingEngine
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_MIGRATE_LAYERS)
+    model = Model(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SSM_PROMPT_LENS]
+    kw = {"n_slots": SSM_MIGRATE_SLOTS, "s_max": 1024}
+    ref, _ = _serve_once(ServingEngine(model, **kw), prompts, Request)
+    want = {r.rid: r.tokens_out for r in ref}
+    cluster = ServingCluster()
+    cluster.register("a", ServingEngine(model, **kw))
+    cluster.register("b", ServingEngine(model, **kw))
+    reqs = [Request(i, p, max_new_tokens=SERVE_NEW_TOKENS) for i, p in enumerate(prompts)]
+    state = {}
+
+    def drive():
+        torch.cuda.synchronize()
+        for r in reqs:
+            cluster.engine("a").submit(r)
+        for _ in range(2):
+            cluster.step()
+        movable = [r.rid for r in cluster.engine("a").slot_req if r is not None][:2]
+        state["records"] = cluster.migrate_requests("a", "b", movable)
+        cluster.run()
+        torch.cuda.synchronize()
+
+    _, launches = _zeroed_launches(drive)
+    records = state["records"]
+    want_l = launches_per_prefill(SSM_ARCH, cfg.num_layers * len(prompts))
+    check(launches == want_l, f"ssm migration: launches {launches}, want {want_l}")
+    check({r.rid: r.tokens_out for r in reqs} == want,
+          "the migrated Mamba2 streams differ from the run without migration")
+    check(len(records) == 2 and all(m.phase == "decoding" and m.bytes_moved > 0
+                                    for m in records), f"records {records}")
+    for m in records:
+        say(f"[ssm migrate] rid {m.rid} a->b: pause_s {m.pause_s:.6f} "
+            f"({budget(m.pause_s, PAUSE_BUDGET_S)} the 50 ms budget), {m.bytes_moved} bytes "
+            f"(SSM state), batch {m.batch}  [{card}]")
+    say(f"[ssm migrate] launches {launches} ({cfg.num_layers} per prefill); streams equal "
+        f"the run without migration")
+    del cluster, model
+    torch.cuda.empty_cache()
+    return {"launches": launches,
+            "migrations": [{"rid": m.rid, "pause_s": m.pause_s, "bytes": m.bytes_moved,
+                            "batch": m.batch} for m in records]}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -855,29 +1256,45 @@ def _leaves(tree):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     check(torch.cuda.is_available(), "no CUDA device: the port's smoke run needs one card")
     check((SRC / "repro_torch").is_dir(), f"{SRC / 'repro_torch'} not found: run from the repo")
     sys.path.insert(0, str(SRC))
 
     card = phase_device()
+    marks = [("start", t_start)]
+    mark = lambda name: marks.append((name, time.perf_counter()))  # noqa: E731
     phase_build()
+    mark("build")
     rows, kernel_times = phase_kernels(card)
+    mark("kernels")
     launches, serve, bf16 = phase_serve(
         card, SERVE_ARCH, SERVE_PROMPT_LENS, _path_logits,
         ("flash_fwd_kernel", "moe_topk_kernel"), paged=True,
         n_slots=8, s_max=512, page_size=16)
     torch.cuda.empty_cache()        # the bf16 model is gone; make room for fp32
+    mark("serve")
     serve["paths"] = phase_paths(card, bf16)
+    mark("paths")
     del bf16
     torch.cuda.empty_cache()
     ssm_launches, ssm, ssm_bf16 = phase_serve(
         card, SSM_ARCH, SSM_PROMPT_LENS, _ssm_path_outputs, ("ssd_scan_kernel",),
         paged=False, n_slots=4, s_max=1024)
+    mark("ssm serve")
     ssm_bf16 = [{name: (lg, None) for name, (lg, _) in out.items()}   # drop the states
                 for out in ssm_bf16]
     torch.cuda.empty_cache()
     ssm["paths"] = phase_ssm_paths(card, ssm_bf16)
+    mark("ssm paths")
+    del ssm_bf16
+    torch.cuda.empty_cache()
+    cluster = phase_cluster(card)
+    mark("cluster")
+    cluster["ssm_migration"] = phase_ssm_migration(card)
+    mark("ssm migrate")
+    phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     for row in rows:
         runs = launches if row["name"] in SERVE_KERNELS[SERVE_ARCH] else ssm_launches
         row["launches"] = runs[row["name"]]
@@ -885,7 +1302,10 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": rows, "kernel_times": kernel_times, "serve": serve,
-         "ssm_serve": ssm}, indent=1))
+         "ssm_serve": ssm, "cluster": cluster, "phase_s": phase_s}, indent=1))
+    say(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' "
+        f"build included; by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+        + f" s  [{card}]")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

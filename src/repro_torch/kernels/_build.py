@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -30,6 +31,9 @@ FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libreprotorch_kernels.so"
 
 _LIB: Optional[ctypes.CDLL] = None
+# one build and one CDLL per process: a PREPARE worker thread and the
+# serving thread may both reach their first kernel launch at once
+_LOAD_LOCK = threading.Lock()
 #: seconds the last `load()` spent compiling (0.0 when it found a build)
 BUILD_SECONDS = 0.0
 #: `-Xptxas -v` report of the last compile (registers, shared memory, spills)
@@ -113,11 +117,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load() -> ctypes.CDLL:
     """The kernels' library, built from the checkout's sources if no build
-    of these exact sources exists yet. Raises if ``nvcc`` is missing or a
-    source does not compile."""
-    global _LIB, BUILD_SECONDS, PTXAS_LOG
+    of these exact sources exists yet. Thread-safe: concurrent first calls
+    build and load once. Raises if ``nvcc`` is missing or a source does not
+    compile."""
     if _LIB is not None:
         return _LIB
+    with _LOAD_LOCK:
+        if _LIB is None:
+            _load_locked()
+    return _LIB
+
+
+def _load_locked() -> None:
+    global _LIB, BUILD_SECONDS, PTXAS_LOG
     final = BUILD_ROOT / source_hash()
     lib_path = final / LIB_NAME
     t0 = time.perf_counter()
@@ -140,7 +152,6 @@ def load() -> ctypes.CDLL:
         log = final / "build.log"
         PTXAS_LOG = log.read_text() if log.is_file() else ""
     _LIB = _declare(ctypes.CDLL(str(lib_path)))
-    return _LIB
 
 
 def _raw_stream(index: int) -> int:

@@ -4,10 +4,12 @@ A CPU tensor takes the kernel's plain PyTorch version (`kernels.ref`). A
 CUDA tensor launches the hand-written Hopper kernel, or raises on what the
 kernel does not take; nothing falls back. `LAUNCHES` counts, per kernel, the
 launches made through these wrappers, so a run can show that its path went
-through the kernels.
+through the kernels. A PREPARE worker thread launches kernels while the
+serving thread does, so a count is raised under a lock.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -18,11 +20,18 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "moe_topk": 0, "ssd_scan": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -33,7 +42,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     out = _fa.flash_attention(q, k, v, causal=causal, scale=scale)
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention")
     return out
 
 
@@ -44,7 +53,7 @@ def moe_topk(logits: torch.Tensor, k: int, *, norm_topk: bool = False
     if logits.device.type == "cpu":
         return ref.moe_topk_ref(logits, k, norm_topk=norm_topk)
     out = _moe.moe_topk(logits, k, norm_topk=norm_topk)
-    LAUNCHES["moe_topk"] += 1
+    _count("moe_topk")
     return out
 
 
@@ -58,5 +67,5 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
     out = _ssd.ssd_scan(x, dt, A, B_mat, C_mat, chunk=chunk)
-    LAUNCHES["ssd_scan"] += 1
+    _count("ssd_scan")
     return out

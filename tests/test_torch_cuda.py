@@ -150,3 +150,105 @@ def test_kernels_raise_on_what_they_do_not_take(gen):
         ops.ssd_scan(x, dt, A, Bm, Cm, chunk=24)
     with pytest.raises(ValueError):
         ops.ssd_scan(x[..., :8].contiguous(), dt, A, Bm, Cm, chunk=16)
+
+
+# ---------------------------------------------------------------------------
+# the engine lifecycle on the card: export/import, swap_plan, PREPARE
+# ---------------------------------------------------------------------------
+
+
+def _card_model(arch):
+    """A reduced fp32 model on the card, random weights from seed 0."""
+    import dataclasses
+
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(get_reduced_config(arch), param_dtype="float32",
+                              activ_dtype="float32")
+    return Model(cfg, device="cuda", seed=0)
+
+
+def _card_prompts(cfg, sizes=(5, 9, 17, 12)):
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in sizes]
+
+
+@pytest.mark.parametrize("arch,paged", [("minitron_4b", True), ("minitron_4b", False),
+                                        ("mamba2_370m", False)],
+                         ids=["paged", "attn_slot", "ssm_slot"])
+def test_export_import_on_the_card(gen, arch, paged):
+    """Two requests move mid-decode between two engines on the card: the
+    streams equal one engine's, every export and import leaves no queued
+    device work behind (they synchronise), and the pool is pristine after."""
+    from repro_torch.serving import Request, ServingEngine
+    model = _card_model(arch)
+    ps = _card_prompts(model.cfg)
+
+    def engine():
+        return ServingEngine(model, n_slots=4, s_max=64, paged=paged)
+
+    ref = engine()
+    want = [Request(i, p, max_new_tokens=8) for i, p in enumerate(ps)]
+    for r in want:
+        ref.submit(r)
+    ref.run()
+    src, dst = engine(), engine()
+    reqs = [Request(i, p, max_new_tokens=8) for i, p in enumerate(ps)]
+    for r in reqs:
+        src.submit(r)
+    src.step()
+    src.step()
+    for rid in (1, 2):
+        snap = src.export_slot(rid)
+        assert torch.cuda.current_stream().query()
+        assert snap.kv is not None and all(t.is_cuda for t in snap.kv.values())
+        assert dst.import_slot(snap) == snap.nbytes > 0
+        assert torch.cuda.current_stream().query()
+    while src.load or dst.load:
+        src.step()
+        dst.step()
+    assert [r.tokens_out for r in reqs] == [r.tokens_out for r in want]
+    for eng in (src, dst):
+        assert eng.kv_allocated_tokens == 0 and eng.free_tokens == eng.kv_token_capacity
+
+
+def test_swap_plan_and_prepare_on_the_card(gen):
+    """PREPARE warms on scratch state on the card (flash launches once per
+    layer per warmed prefill, no live row changes); swap_plan counts params
+    + cache, moves nothing on its own card and refuses to move shared
+    params."""
+    from repro_torch.serving import EngineStateError, Request, ServingEngine
+    from repro_torch.sharding import ShardingPlan, plan_to_placement, single_device_mesh
+    model = _card_model("minitron_4b")
+    eng = ServingEngine(model, n_slots=2, s_max=64)
+    eng.submit(Request(0, _card_prompts(model.cfg)[0], max_new_tokens=8))
+    eng.step()
+    live = {k: v.clone() for k, v in eng.cache.items()}
+    plan = ShardingPlan(device_constraints=(("pod", 1),), forbidden_collective_axes=("pod",))
+    place = plan_to_placement(plan, single_device_mesh(eng.device))
+    assert place == {"params": eng.device, "cache": eng.device}
+    before = ops.LAUNCHES["flash_attention"]
+    execs, n = eng.prepare_executables(place, prefill_lengths=(5, 33))
+    assert n == 3 and execs["prefill"] == (5, 33)
+    assert ops.LAUNCHES["flash_attention"] - before == 2 * model.cfg.num_layers
+    assert all(torch.equal(live[k], eng.cache[k]) for k in live)
+    with pytest.raises(EngineStateError):
+        eng.swap_plan(plan, placement=place)
+    eng.pause()
+    ptrs = {k: v.data_ptr() for k, v in eng.cache.items()}
+    nbytes = eng.swap_plan(plan, placement=place, executables=execs)
+    assert nbytes == sum(t.numel() * t.element_size() for t in _leaves(model.params)) \
+        + sum(t.numel() * t.element_size() for t in eng.cache.values())
+    assert {k: v.data_ptr() for k, v in eng.cache.items()} == ptrs
+    with pytest.raises(ValueError, match="params"):
+        eng.swap_plan(plan, placement={"params": torch.device("cpu"), "cache": eng.device})
+    eng.resume()
+    assert eng.plan is plan and eng.decode_collectives() == []
+    eng.run()
+    assert len(eng.done) == 1 and len(eng.done[0].tokens_out) == 8
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))

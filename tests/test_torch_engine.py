@@ -152,12 +152,16 @@ def test_compute_metrics_empty_window_is_nan():
 
 
 def test_engine_rejects_unknown_role_and_device_mismatch():
-    """Cluster knobs (``role``, ``labels``) and sampling modes other than
-    greedy are not ported: the engine refuses them rather than ignore them."""
+    """The cluster knobs are ported and an unknown ``role`` is refused
+    fail-closed; sampling modes other than greedy are not ported: the engine
+    refuses them rather than ignore them."""
     model = Model(_fp32(get_reduced_config("minitron_4b")), device="cpu")
-    for knob in ({"role": "router"}, {"labels": {"data-type": "phi"}}, {"greedy": False}):
-        with pytest.raises(TypeError):
-            ServingEngine(model, device="cpu", **knob)
+    with pytest.raises(ValueError, match="unknown engine role"):
+        ServingEngine(model, device="cpu", role="router")
+    with pytest.raises(TypeError):
+        ServingEngine(model, device="cpu", greedy=False)
+    eng = ServingEngine(model, device="cpu", role="decode", labels={"data-type": "phi"})
+    assert eng.role == "decode" and eng.labels == {"data-type": "phi"}
     with pytest.raises(ValueError, match="lives on"):
         ServingEngine(model, device="meta")
 

@@ -109,3 +109,44 @@ def test_non_cpu_tensors_never_fall_back():
     with pytest.raises(ValueError, match="CUDA"):
         ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, :1], x[:, :, :1], chunk=16)
     assert ops.LAUNCHES == {"flash_attention": 0, "moe_topk": 0, "ssd_scan": 0}
+
+
+def test_library_load_builds_once_under_concurrent_first_calls(tmp_path, monkeypatch):
+    """Two threads reaching their first launch at once (a PREPARE worker and
+    the serving thread) build and load the library once; the compile step
+    is stubbed, so this runs without nvcc."""
+    import ctypes
+    import threading
+    import time
+
+    from repro_torch.kernels import _build
+
+    compiles, loads = [], []
+
+    def fake_compile(out_dir):
+        compiles.append(out_dir)
+        time.sleep(0.2)                      # wide window for a second thread to build
+        (out_dir / (_build.LIB_NAME + ".tmp")).write_bytes(b"")
+        return "stub"
+
+    monkeypatch.setattr(_build, "_LIB", None)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_compile", fake_compile)
+    monkeypatch.setattr(ctypes, "CDLL", lambda path: loads.append(path) or object())
+    monkeypatch.setattr(_build, "_declare", lambda lib: lib)
+    barrier = threading.Barrier(2)
+    got = []
+
+    def first_launch():
+        barrier.wait(timeout=10)
+        got.append(_build.load())
+
+    threads = [threading.Thread(target=first_launch) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert len(compiles) == 1 and len(loads) == 1
+    assert len(got) == 2 and got[0] is got[1]
+    assert _build.load() is got[0] and len(loads) == 1
