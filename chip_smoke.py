@@ -17,10 +17,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              random weights from seed 0) on the paged pool: 8 requests, 16 new
              tokens each. The launch counters are zeroed just before the first
              run and read just after it: flash and MoE top-k must launch once
-             per layer per prefill, the SSD scan never. A second identical run
-             must give identical streams; a third, profiled run shows where
-             the device time goes, and the empty kernel's device duration
-             in the same trace.
+             per layer per prefill, the SSD scan never. The decode step is a
+             CUDA graph: the engine's first decode step runs eagerly and
+             captures it, every later step must replay it. A second identical
+             run must give identical streams (each step's host time
+             recorded); a third, profiled run shows where the device time
+             goes, and the empty kernel's device duration in the same trace;
+             a fourth holds every replayed step to the eager step over a
+             clone of its state and inputs (logits, and the streams).
 5. paths   — every serve prompt's full-width prefill, kernel path against
              the plain path on the card, in fp32 and in bf16: router logits
              within tolerance up to the first layer whose MoE routing
@@ -30,7 +34,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 6. ssm serve — the same for full-width Mamba2-370m (bf16, random weights
              from seed 0) on the slot-granular pool: 8 requests over 4 slots,
              so slots are refilled over a used state. The SSD scan must
-             launch once per layer per prefill, flash and MoE top-k never.
+             launch once per layer per prefill, flash and MoE top-k never;
+             the decode graph as for Qwen.
 7. ssm paths — every Mamba2 serve prompt's prefill, kernel path against the
              plain path: in fp32 the logits and every layer's final state
              within tolerance; in bf16 the kernel path no further from the
@@ -51,7 +56,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              every request off at its first token. Streams equal the
              oracle; no route lands mid-swap; flash launches once per layer
              per prefill (PREPARE's warm prefills included), never in a
-             migration. Prints the swap's ``DowntimeReport`` and every pause
+             migration; the swap installs the decode graph PREPARE captured
+             beside serving, nothing is captured inside the swap window and
+             no graph is discarded; every engine's decode steps after its
+             first replay its graph. Prints the swap's ``DowntimeReport`` and every pause
              beside the paper's 50 ms budget as ``within`` or ``over``, and
              TTFT/TPOT of the reconfigured pair and of the handoff pair
              against the unified engine over paired windows taken in turns
@@ -69,6 +77,7 @@ and the repository's ``src/`` beside this file. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -117,6 +126,15 @@ SSM_PROMPT_LENS = (17, 100, 255, 256, 257, 384, 512, 1000)
 SSM_CONTINUITY_LENS = (255, 256, 511)     # around the chunk boundary (256)
 # the kernels each served model's prefill runs, once per layer
 SERVE_KERNELS = {SERVE_ARCH: ("flash_attention", "moe_topk"), SSM_ARCH: ("ssd_scan",)}
+
+
+def free_device() -> None:
+    """Return the memory of what the last phase dropped to the card: collect
+    reference cycles (a wrapped engine method holds its engine), then empty
+    PyTorch's cache."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(cond: bool, msg: str) -> None:
@@ -524,10 +542,14 @@ def launches_per_prefill(arch, n):
 def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **engine_kw):
     """``ServingEngine`` over full-width ``arch`` (bf16, random weights from
     seed 0) on the paged or the slot-granular pool (``paged``): run 1 with
-    the launch counters zeroed just before it and read just after it, run 2
-    identical, then each prompt's prefill on each path (``path_fn``), whose
-    kernel-path argmax must be the engine's first token, and a profiled run
-    3. Returns (launches of run 1, metrics, the per-prompt path outputs)."""
+    the launch counters zeroed just before it and read just after it (its
+    first decode step runs eagerly and captures the decode graph, every
+    later step replays it), run 2 identical with each step's host time
+    recorded, then each prompt's prefill on each path (``path_fn``), whose
+    kernel-path argmax must be the engine's first token, a profiled run 3,
+    the host ops of one graph step against one eager ``decode_step``, and
+    run 4, each graph step held to the eager step (`_graph_vs_eager`).
+    Returns (launches of run 1, metrics, the per-prompt path outputs)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -536,14 +558,16 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **e
     from repro_torch.serving import Request, ServingEngine, compute_metrics
 
     tag = "[serve]" if paged else "[ssm serve]"
+    parts = [("start", time.perf_counter())]
+    part = lambda name: parts.append((name, time.perf_counter()))  # noqa: E731
     cfg = get_config(arch)
-    t0 = time.perf_counter()
     model = Model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
+    part("model")
     n_params = sum(t.numel() for t in _leaves(model.params))
     say(f"{tag} {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"{n_params / 1e9:.2f} B parameters ({cfg.param_dtype}), random from seed 0 "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"in {parts[-1][1] - parts[0][1]:.1f} s")
     engine = ServingEngine(model, **engine_kw)
     check(engine.paged is paged, f"{cfg.name}: the engine chose the "
                                  f"{'paged' if engine.paged else 'slot-granular'} pool")
@@ -564,18 +588,30 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **e
     check(all(len(r.tokens_out) == SERVE_NEW_TOKENS for r in reqs)
           and all(r.t_done > 0 for r in reqs),
           f"not every request completed with {SERVE_NEW_TOKENS} tokens")
+    _check_graph_steps(tag, engine)
     m1 = compute_metrics(reqs)
+    part("run 1")
 
-    reqs2, wall2 = _serve_once(engine, prompts, Request)
+    with _host_timed(engine) as (step_s, launch_s):
+        reqs2, wall2 = _serve_once(engine, prompts, Request)
     check([r.tokens_out for r in reqs2] == [r.tokens_out for r in reqs],
           "a second identical run gave other token streams")
+    _check_graph_steps(tag, engine)
     m2 = compute_metrics(reqs2)
+    part("run 2")
     n_tok = len(prompts) * SERVE_NEW_TOKENS
     for name, m, w in (("run 1 (cold)", m1, wall), ("run 2 (warm)", m2, wall2)):
         say(f"{tag} {name}: TTFT mean {m['ttft_mean_s'] * 1e3:.1f} ms p99 "
             f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms "
             f"p99 {m['tpot_p99_s'] * 1e3:.2f} ms, {n_tok / w:.1f} tok/s "
             f"({n_tok} tokens in {w:.3f} s), peak memory {peak_gb:.2f} GB  [{card}]")
+    graph = _graph_line(tag, "engine", engine, card)
+    graph.update(step_ms_median=1e3 * float(np.median(step_s)),
+                 launch_us_mean=1e6 * float(np.mean(launch_s)))
+    say(f"{tag} run 2 host time: {len(step_s)} steps, step wall median "
+        f"{graph['step_ms_median']:.3f} ms (prefills included where a step admits); "
+        f"graph launch (replay call, returns before the device runs it) mean "
+        f"{graph['launch_us_mean']:.1f} us over {len(launch_s)} replays  [{card}]")
     check(engine.kv_allocated_tokens == 0 and engine.free_tokens == engine.kv_token_capacity,
           "pool not pristine after run()")
 
@@ -585,14 +621,144 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **e
     for r, lg in zip(reqs, paths):
         check(r.tokens_out[0] == int(lg["kernel"][0].argmax()),
               f"request {r.rid}: the engine's first token is not the prefill's argmax")
+    part("paths")
 
     profile = _profile_run(engine, prompts, Request, [r.tokens_out for r in reqs], card,
                            profile_kernels)
+    part("profiled run 3")
     profile["decode_step_host_ops"] = n_ops = _decode_step_host_ops(model, engine.n_slots)
+    profile["graph_step_host_ops"] = g_ops = _graph_step_host_ops(engine, prompts[0])
     say(f"{tag} one model.decode_step over {engine.n_slots} sequences issues {n_ops} "
-        f"top-level aten ops, {n_ops / cfg.num_layers:.1f} per layer (host work per step)")
+        f"top-level aten ops, {n_ops / cfg.num_layers:.1f} per layer (eager host work per "
+        f"step); one engine decode step through the graph issues {g_ops}")
+    part("host ops")
+    graph["vs_eager"] = _graph_vs_eager(engine, prompts, [r.tokens_out for r in reqs],
+                                        tag, card)
+    _check_graph_steps(tag, engine)
+    part("graph vs eager")
+    part_s = {name: t - parts[i][1] for i, (name, t) in enumerate(parts[1:])}
+    say(f"{tag} phase parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items())
+        + f"  [{card}]")
     return launches, {"run1": m1, "run2": m2, "wall1_s": wall, "wall2_s": wall2,
-                      "tokens": n_tok, "peak_gb": peak_gb, "profile": profile}, paths
+                      "tokens": n_tok, "peak_gb": peak_gb, "profile": profile,
+                      "graph": graph, "parts_s": part_s}, paths
+
+
+def _check_graph_steps(tag, engine):
+    """Every decode step after the engine's first replayed its graph."""
+    s = engine.decode_stats
+    check(s["eager"] == 1 and s["captures"] >= 1 and s["replays"] == engine.steps - 1,
+          f"{tag}: {s} over {engine.steps} decode steps: every step after the first "
+          "must replay the graph")
+
+
+def _graph_line(tag, name, engine, card):
+    """Print and return an engine's decode-graph counts and its graph's
+    private pool."""
+    s = dict(engine.decode_stats)
+    exe = engine.decode_executable
+    s.update(steps=engine.steps, pool_bytes=exe.pool_bytes() if exe is not None else 0)
+    say(f"{tag} {name} decode graph: captures {s['captures']} in {s['capture_s']:.4f} s, "
+        f"replays {s['replays']} of {s['steps']} decode steps (eager {s['eager']}), "
+        f"installs {s['installs']}, discards {s['discards']}, graph pool "
+        f"{s['pool_bytes'] / 2**20:.1f} MiB  [{card}]")
+    return s
+
+
+@contextlib.contextmanager
+def _host_timed(engine):
+    """Record each ``engine.step()``'s wall time and the host time of each
+    replay call of its installed graph (which returns before the device
+    runs the step); yields the two lists."""
+    exe = engine.decode_executable
+    step, run = engine.step, exe.run
+    steps, launches = [], []
+
+    def timed_step():
+        t0 = time.perf_counter()
+        n = step()
+        steps.append(time.perf_counter() - t0)
+        return n
+
+    def timed_run():
+        t0 = time.perf_counter()
+        run()
+        launches.append(time.perf_counter() - t0)
+
+    engine.step, exe.run = timed_step, timed_run
+    try:
+        yield steps, launches
+    finally:
+        del engine.step, exe.run
+
+
+def _graph_step_host_ops(engine, prompt):
+    """Top-level aten ops that one engine decode step through the graph
+    issues (tables unchanged, no admission): one request is admitted and
+    decoded once, then one more step is profiled, and the request runs to
+    its end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import Request
+    engine.submit(Request(-1, prompt, max_new_tokens=6))
+    engine.step()
+    engine.step()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    engine.run()
+    return sum(1 for e in prof.events() if e.name.startswith("aten::") and (
+        e.cpu_parent is None or not e.cpu_parent.name.startswith("aten::")))
+
+
+def _graph_vs_eager(engine, prompts, streams, tag, card):
+    """Run 4: the prompts once more, each graph step held to the eager
+    step. Around every replay, the state and inputs the graph reads are
+    cloned before it, and the engine's decode function (the paged decode
+    or ``model.decode_step``) runs eagerly over the clones after it; the
+    active lanes' logits are compared and the eager picks collected. The
+    graph's streams must equal run 1's and the eager picks' streams."""
+    import torch
+
+    from repro_torch.serving import Request, kvpool
+    model = engine.model
+    vocab = model.cfg.vocab_size
+    if engine.paged:
+        eager = kvpool.make_paged_decode(model, *kvpool.page_axes(model))
+    else:
+        eager = lambda tokens, cache, pos, tables: model.decode_step(tokens, cache, pos)  # noqa: E731
+    exe = engine.decode_executable
+    run = exe.run
+    diffs, picks = [], {}
+
+    def checked_run():
+        lanes = [(i, r.rid) for i, r in enumerate(engine.slot_req) if r is not None]
+        state = {k: v.clone() for k, v in exe.cache.items()}
+        tables = None if exe.tables is None else exe.tables.clone()
+        tokens, pos = exe.tokens.clone(), exe.pos.clone()
+        run()
+        logits, _ = eager(tokens, state, pos, tables)
+        rows = torch.tensor([i for i, _ in lanes], device=logits.device)
+        got, want = exe.logits[rows, :vocab].float(), logits[rows, :vocab].float()
+        diffs.append((got - want).abs().max().item())
+        for (_, rid), p in zip(lanes, want.argmax(dim=-1).tolist()):
+            picks.setdefault(rid, []).append(p)
+
+    exe.run = checked_run
+    try:
+        reqs, _ = _serve_once(engine, prompts, Request)
+    finally:
+        del exe.run
+    graph = [r.tokens_out for r in reqs]
+    eager_streams = [r.tokens_out[:1] + picks.get(r.rid, []) for r in reqs]
+    check(graph == streams, f"{tag}: run 4 gave other streams than run 1")
+    check(eager_streams == graph, f"{tag}: the graph's streams differ from the eager steps'")
+    say(f"{tag} graph vs eager, run 4: {len(diffs)} replays, each held to the eager decode "
+        f"over a clone of the state and inputs it read: streams equal; active lanes' "
+        f"max|logit diff| per step " + " ".join(f"{d:.1e}" for d in diffs)
+        + f"; max {max(diffs):.3e}  [{card}]")
+    return {"steps": len(diffs), "max_logit_diff": max(diffs), "logit_diff_per_step": diffs}
 
 
 def _decode_step_host_ops(model, batch):
@@ -896,6 +1062,21 @@ SSM_MIGRATE_SLOTS = 4
 SSM_MIGRATE_LAYERS = 24
 
 
+def _watch_swaps(engine, log):
+    """Wrap ``engine.swap_plan`` to log each swap: the engine, the decode
+    executable it was handed and the engine's captures during the call."""
+    swap = engine.swap_plan
+
+    def watched(*args, **kw):
+        before = engine.decode_stats["captures"]
+        out = swap(*args, **kw)
+        log.append({"engine": engine, "decode": (kw.get("executables") or {}).get("decode"),
+                    "captures_in_window": engine.decode_stats["captures"] - before})
+        return out
+
+    engine.swap_plan = watched
+
+
 def budget(value, limit):
     return "within" if value < limit else "over"
 
@@ -1014,6 +1195,7 @@ def phase_cluster(card):
     check({r.rid: r.tokens_out for r in reqs1} == oracle,
           "the unified engine's two runs gave other token streams")
     base = compute_metrics(reqs2)
+    _check_graph_steps("[cluster] unified", unified)
     say(f"[cluster] unified: launches {launches}; two runs agree; warm TTFT mean "
         f"{base['ttft_mean_s'] * 1e3:.2f} ms, TPOT mean {base['tpot_mean_s'] * 1e3:.2f} ms  [{card}]")
 
@@ -1048,6 +1230,10 @@ def phase_cluster(card):
                                                 **CLUSTER_ENGINE))
         cluster.register("edge1", ServingEngine(model, labels={"data-type": "general"},
                                                 **CLUSTER_ENGINE))
+        edge0, edge1 = cluster.engine("edge0"), cluster.engine("edge1")
+        swaps = []
+        for eng in (edge0, edge1):
+            _watch_swaps(eng, swaps)
         reqs = [Request(i, p, max_new_tokens=SERVE_NEW_TOKENS,
                         labels={"data-type": "phi"} if i >= 4 else {})
                 for i, p in enumerate(prompts)]
@@ -1059,6 +1245,7 @@ def phase_cluster(card):
             for _ in range(2):
                 cluster.step()
             state["warm_lengths"] = cluster.engine("edge0").recent_prompt_lengths()
+            capture_s = edge0.decode_stats["capture_s"]
             res = Orchestrator().submit(PHI_INTENT, apply_to=cluster, async_reconfig=True)
             check(res.success and list(res.reports) == ["edge0"],
                   f"intent: success={res.success}, reconfigured {list(res.reports)}")
@@ -1068,9 +1255,15 @@ def phase_cluster(card):
                 served += 1
                 cluster.step()                  # serving continues through PREPARE
             check(ticket.wait_ready(600.0), f"PREPARE did not finish: {ticket!r}")
+            state["prepare_capture_s"] = edge0.decode_stats["capture_s"] - capture_s
             while not ticket.done():
                 cluster.step()                  # the swap commits at this boundary
             state["report"] = ticket.result()
+            check(len(swaps) == 1 and swaps[0]["engine"] is edge0
+                  and swaps[0]["decode"] is not None
+                  and edge0.decode_executable is swaps[0]["decode"]
+                  and swaps[0]["captures_in_window"] == 0,
+                  f"the swap did not install PREPARE's decode graph, or captured: {swaps}")
             state["steps_in_prepare"] = served
             movable = [r.rid for r in cluster.engine("edge0").slot_req
                        if r is not None and not r.labels]
@@ -1097,11 +1290,22 @@ def phase_cluster(card):
                   for m in records), f"migration records {records}")
         check("pod" in cluster.engine("edge0").plan.forbidden_collective_axes,
               "edge0 is not on the pinned plan")
+        check(edge0.decode_stats["installs"] == 1 and edge0.decode_stats["captures"] == 2,
+              f"edge0 {edge0.decode_stats}: one capture at its first step, one in PREPARE")
         # serving after the swap: the batch again on the reconfigured pair,
         # in turns with the unified engine
         over_c = _paired_overhead(
             "cluster", serve_unified,
             lambda k: serve_cluster_window(cluster, k, labelled=True), card)
+        graphs = {}
+        for name, eng in (("unified", unified), ("edge0", edge0), ("edge1", edge1)):
+            _check_graph_steps(f"[cluster] {name}", eng)
+            check(eng.decode_stats["discards"] == 0, f"{name} discarded a graph")
+            graphs[name] = _graph_line("[cluster]", name, eng, card)
+        check(len(swaps) == 1, f"swaps {swaps}")
+        say(f"[cluster] the swap installed PREPARE's decode graph (captured in "
+            f"{state['prepare_capture_s']:.4f} s on the PREPARE thread beside serving); "
+            f"captures inside the swap window 0; graphs discarded 0  [{card}]")
         phi = Request(100, prompts[0], max_new_tokens=2, labels={"data-type": "phi"})
         check(cluster.eligible(phi) == ["edge0"], f"phi eligible on {cluster.eligible(phi)}")
         cluster.retire_engine("edge0")
@@ -1155,6 +1359,8 @@ def phase_cluster(card):
         _, h_launches = _zeroed_launches(drive_handoff)
     pauses = rec.events("migration.pause")
     cohorts = rec.events("cluster.handoff")
+    dc = cluster.engine("dc")
+    _check_graph_steps("[handoff] dc", dc)
     check(h_launches == want_launches(per_prefill * len(prompts)),
           f"handoff run: launches {h_launches}")
     check({r.rid: r.tokens_out for r in hreqs} == oracle,
@@ -1173,8 +1379,13 @@ def phase_cluster(card):
     over_h = _paired_overhead(
         "handoff", serve_unified,
         lambda k: serve_cluster_window(cluster, k, labelled=False), card)
+    for name in ("pf", "dc"):
+        eng = cluster.engine(name)
+        if eng.steps:
+            _check_graph_steps(f"[handoff] {name}", eng)
+        graphs[f"handoff {name}"] = _graph_line("[handoff]", name, eng, card)
     del cluster, unified, model
-    torch.cuda.empty_cache()
+    free_device()
     return {"unified": base, "cluster_run": m_cluster,
             "handoff": m_handoff, "report_metrics_after": report.metrics_after,
             "overhead": {"cluster": over_c, "handoff": over_h},
@@ -1184,7 +1395,8 @@ def phase_cluster(card):
                        "migrate_bytes": report.migrate_bytes, "summary": report.summary()},
             "migrations": [{"rid": m.rid, "pause_s": m.pause_s, "bytes": m.bytes_moved,
                             "batch": m.batch} for m in records],
-            "handoff_pauses_s": hp, "steps_in_prepare": state["steps_in_prepare"]}
+            "handoff_pauses_s": hp, "steps_in_prepare": state["steps_in_prepare"],
+            "graphs": graphs, "prepare_capture_s": state["prepare_capture_s"]}
 
 
 def phase_ssm_migration(card):
@@ -1234,6 +1446,10 @@ def phase_ssm_migration(card):
           "the migrated Mamba2 streams differ from the run without migration")
     check(len(records) == 2 and all(m.phase == "decoding" and m.bytes_moved > 0
                                     for m in records), f"records {records}")
+    graphs = {}
+    for name in ("a", "b"):
+        _check_graph_steps(f"[ssm migrate] {name}", cluster.engine(name))
+        graphs[name] = _graph_line("[ssm migrate]", name, cluster.engine(name), card)
     for m in records:
         say(f"[ssm migrate] rid {m.rid} a->b: pause_s {m.pause_s:.6f} "
             f"({budget(m.pause_s, PAUSE_BUDGET_S)} the 50 ms budget), {m.bytes_moved} bytes "
@@ -1241,8 +1457,8 @@ def phase_ssm_migration(card):
     say(f"[ssm migrate] launches {launches} ({cfg.num_layers} per prefill); streams equal "
         f"the run without migration")
     del cluster, model
-    torch.cuda.empty_cache()
-    return {"launches": launches,
+    free_device()
+    return {"launches": launches, "graphs": graphs,
             "migrations": [{"rid": m.rid, "pause_s": m.pause_s, "bytes": m.bytes_moved,
                             "batch": m.batch} for m in records]}
 
@@ -1273,23 +1489,23 @@ def main() -> int:
         card, SERVE_ARCH, SERVE_PROMPT_LENS, _path_logits,
         ("flash_fwd_kernel", "moe_topk_kernel"), paged=True,
         n_slots=8, s_max=512, page_size=16)
-    torch.cuda.empty_cache()        # the bf16 model is gone; make room for fp32
+    free_device()                   # the bf16 model is gone; make room for fp32
     mark("serve")
     serve["paths"] = phase_paths(card, bf16)
     mark("paths")
     del bf16
-    torch.cuda.empty_cache()
+    free_device()
     ssm_launches, ssm, ssm_bf16 = phase_serve(
         card, SSM_ARCH, SSM_PROMPT_LENS, _ssm_path_outputs, ("ssd_scan_kernel",),
         paged=False, n_slots=4, s_max=1024)
     mark("ssm serve")
     ssm_bf16 = [{name: (lg, None) for name, (lg, _) in out.items()}   # drop the states
                 for out in ssm_bf16]
-    torch.cuda.empty_cache()
+    free_device()
     ssm["paths"] = phase_ssm_paths(card, ssm_bf16)
     mark("ssm paths")
     del ssm_bf16
-    torch.cuda.empty_cache()
+    free_device()
     cluster = phase_cluster(card)
     mark("cluster")
     cluster["ssm_migration"] = phase_ssm_migration(card)

@@ -10,10 +10,11 @@ reference's `repro.serving.cluster`, over the port's engines).
     prepare-ahead + blocking-swap protocol:
 
       PREPARE (serving continues): place the plan on the mesh
-          (`plan_to_placement`) and warm prefill/decode on scratch state
+          (`plan_to_placement`), build the decode executable over the live
+          pool (a CUDA graph on the card) and warm prefill on scratch state
           (`ServingEngine.prepare_executables`);
       SWAP (the downtime window):  pause -> drain -> place params + KV
-          pool -> install what PREPARE warmed;
+          pool -> install what PREPARE built;
       RESUME.
 
     PREPARE is CONCURRENT with serving: `reconfigure_async` /
@@ -97,8 +98,8 @@ class DowntimeReport:
     downtime + the TTFT/TPOT band before vs after the swap).
 
     Attributes:
-        prepare_s: background PREPARE (warm-up) time; serving continues
-            throughout.
+        prepare_s: background PREPARE time (decode capture and prefill
+            warm-up); serving continues throughout.
         downtime_s: the blocking window. For a reconfigure/rebalance:
             drain + migrate + install. For a retirement the HONEST
             blocking cost: 0 for drain-mode (draining never blocks other
@@ -113,29 +114,29 @@ class DowntimeReport:
             refreshed by the next `ServingCluster.run()` that retires
             post-event completions (or at reap time for a retirement).
         engine: name of the affected engine.
-        compiled_in_prepare: shapes PREPARE warmed ahead of the swap
-            (decode + prompt lengths + buckets, the reference's count of
-            executables compiled ahead).
+        compiled_in_prepare: executables PREPARE made ready ahead of the
+            swap (the decode executable + the prefill lengths and buckets
+            warmed, the reference's count of executables compiled ahead).
         event: "reconfigure" | "spawn" | "retire" | "rebalance".
         migrations: per-request `MigrationRecord`s for migrate-mode
             retirements / explicit `migrate_requests` events — each
             carries the request's own pause (the paper's <50 ms budget).
     """
 
-    prepare_s: float          # background warm-up time (serving continues)
+    prepare_s: float          # background PREPARE time (serving continues)
     downtime_s: float         # blocking window (drain + migrate + install)
     migrate_bytes: int
     metrics_before: Dict[str, float]
     metrics_after: Dict[str, float]
     engine: str = ""
-    compiled_in_prepare: int = 0   # shapes warmed ahead of the swap
+    compiled_in_prepare: int = 0   # executables made ready ahead of the swap
     event: str = "reconfigure"
     migrations: Tuple[MigrationRecord, ...] = ()
 
     def summary(self) -> str:
         """One-line human-readable digest of the event cost."""
         s = (f"engine={self.engine or '?'} event={self.event} "
-             f"prepare={self.prepare_s:.3f}s (warm x{self.compiled_in_prepare}) "
+             f"prepare={self.prepare_s:.3f}s (ready x{self.compiled_in_prepare}) "
              f"downtime={self.downtime_s*1e3:.1f}ms "
              f"migrated={self.migrate_bytes/2**20:.1f}MiB")
         if self.migrations:
@@ -1486,8 +1487,9 @@ class ServingCluster:
                      ) -> DowntimeReport:
         """Bring a NEW engine online through the PREPARE path.
 
-        The engine's params/cache are placed by its plan and its prefill
-        and decode are warmed BEFORE it joins the routing pool. Existing
+        The engine's params/cache are placed by its plan, its decode
+        executable is built and its prefill warmed BEFORE it joins the
+        routing pool. Existing
         engines keep serving throughout; the
         report's ``downtime_s`` only covers the spawn's own install window.
         (`spawn_engine_async` is the non-blocking variant; both run the

@@ -24,16 +24,24 @@ Lifecycle (the public swap protocol):
                      executables=...)
     engine.resume()
 
-PyTorch compiles nothing ahead of time, so the reference's AOT step becomes
-a warm-up (`prepare_executables`): prefill at each live prompt length and
-bucket and one decode step, on scratch state. Live migration moves one
+The decode step runs as a `DecodeExecutable` (`serving/executable.py`), the
+counterpart of the reference's compiled decode: static token, position and
+page-table buffers and an on-device greedy pick. On the card it is a CUDA
+graph of the whole step: PREPARE (`prepare_executables`) captures it beside
+serving, the swap installs it, and `step` replays it; an engine with none
+installed runs its first decode eagerly and captures for the steps after it
+(the reference's JIT at first call). On the CPU the same executable runs the
+step eagerly over the same buffers. PREPARE also warms prefill at each live
+prompt length and bucket on scratch state (prefill stays eager: PyTorch has
+no ahead-of-time compile for it). Live migration moves one
 request's state between engines (`export_slot` / `import_slot`); each ends
 in a device synchronisation, so a pause it stamps is the device's time.
 Cluster knobs (``labels``, ``role``, ``plan``) only steer the cluster.
 
-Greedy sampling takes the first index on ties (``np.argmax``), as the
-reference does. The engine runs on the card unless it is given
-``device="cpu"`` (and a model on the CPU).
+Greedy sampling takes the first index on ties, as the reference's
+``np.argmax`` does (decode picks with ``torch.argmax`` on the device). The
+engine runs on the card unless it is given ``device="cpu"`` (and a model on
+the CPU).
 """
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.lm import POSITIONAL_LEAVES
 from repro_torch.obs import events as obs_events
 from repro_torch.serving import kvpool, migration
+from repro_torch.serving.executable import DecodeExecutable
 from repro_torch.serving.migration import MigrationError, SlotSnapshot, sync
 from repro_torch.sharding.plan import ShardingPlan, default_plan
 
@@ -210,8 +219,6 @@ class ServingEngine:
             self.page_tables = np.full((n_slots, self.pages_per_seq),
                                        kvpool.SCRATCH_PAGE, dtype=np.int64)
             self.slot_pages: List[List[int]] = [[] for _ in range(n_slots)]
-            # device copy of page_tables, uploaded again only after a change
-            self._tables_dev: Optional[torch.Tensor] = None
             self._decode = kvpool.make_paged_decode(model, self._pax, self._sax)
         else:
             self.pool = None
@@ -229,9 +236,22 @@ class ServingEngine:
         self._batch_axes: Optional[Dict[str, int]] = None
         self._migration_warm = False
         self._collectives: Optional[List[Collective]] = None
-        # guards the bucket ladder against a swap committed from a control
-        # thread while step()/_admit() pick the prefill path
+        # guards the bucket ladder and the installed decode executable
+        # against a swap committed from a control thread while
+        # step()/_admit() pick their path
         self._exec_lock = threading.Lock()
+        self._decode_exec: Optional[DecodeExecutable] = None
+        # page_tables changed since the executable's table buffer was written
+        self._tables_dirty = True
+        # executables replaced by a swap, freed at the next step: outside
+        # the swap window, after the device is done with them
+        self._retired: List[DecodeExecutable] = []
+        #: decode-path counts: steps run eagerly (every step on the CPU, the
+        #: first on the card) and graph replays; captures (the first step's
+        #: and PREPARE's) and their seconds; PREPARE executables a swap
+        #: installed or discarded (bound to a pool the swap replaced)
+        self.decode_stats = {"eager": 0, "replays": 0, "captures": 0,
+                             "capture_s": 0.0, "installs": 0, "discards": 0}
 
     @property
     def role(self) -> str:
@@ -275,11 +295,16 @@ class ServingEngine:
                 `plan_to_placement`. The cache moves there (a no-op on its
                 own device); the params, which engines may share, are never
                 copied or cast, so they must already live there.
-            executables: ``{"prefill": prompt lengths warmed,
-                "prefill_buckets": bucket lengths, "collectives": the decode
-                step's}`` from `prepare_executables`; a non-empty bucket
-                list turns on padded prefill over those buckets, and the
-                collectives become `decode_collectives`.
+            executables: ``{"decode": DecodeExecutable, "prefill": prompt
+                lengths warmed, "prefill_buckets": bucket lengths,
+                "collectives": the decode step's}`` from
+                `prepare_executables`; the decode executable is installed
+                when it is bound to the pool as it stands after the
+                placement, else discarded (counted in `decode_stats`) and
+                the next step captures anew; a non-empty bucket list turns
+                on padded prefill over those buckets, and the collectives
+                become `decode_collectives`. Nothing is captured or
+                compiled here: the window stays a pointer swap.
 
         Returns:
             The bytes the placement covers — params + cache whenever a
@@ -304,13 +329,22 @@ class ServingEngine:
             sync(self.device)
             self._migration_warm = False
             self._collectives = None
-            if self.paged:
-                self._tables_dev = None
+        # an executable over a pool that is no longer the engine's is
+        # stale: the next step captures anew
+        if self._decode_exec is not None and not self._decode_exec.bound_to(self.cache):
+            self._install(None)
         if executables:
             with self._exec_lock:
                 buckets = executables.get("prefill_buckets")
                 if buckets:
                     self._bucket_lengths = sorted(buckets)
+            decode = executables.get("decode")
+            if decode is not None and decode.bound_to(self.cache):
+                self._install(decode)
+                self.decode_stats["installs"] += 1
+            elif decode is not None:
+                self._retired.append(decode)
+                self.decode_stats["discards"] += 1
             if "collectives" in executables:
                 self._collectives = list(executables["collectives"])
         if plan is not None:
@@ -320,6 +354,21 @@ class ServingEngine:
     def resume(self) -> None:
         """Leave the paused state and serve again (idempotent)."""
         self.paused = False
+
+    @property
+    def decode_executable(self) -> Optional[DecodeExecutable]:
+        """The installed decode executable that `step` runs, if any."""
+        with self._exec_lock:
+            return self._decode_exec
+
+    def _install(self, exe: Optional[DecodeExecutable]) -> None:
+        """Make ``exe`` the executable `step` runs; the one it replaces is
+        freed at the next step. Its table buffer is written at that step."""
+        with self._exec_lock:
+            old, self._decode_exec = self._decode_exec, exe
+        if old is not None and old is not exe:
+            self._retired.append(old)
+        self._tables_dirty = True
 
     # ------------------------------------------------------------------
     # PREPARE (runs while serving continues)
@@ -372,12 +421,15 @@ class ServingEngine:
                             prefill_lengths: Sequence[int] = (), *,
                             prefill_buckets: bool = False,
                             ) -> Tuple[Dict[str, Any], int]:
-        """The PREPARE phase (the reference's ``aot_executables``): warm
-        prefill at each prompt length (and each bucket) and one decode step
-        at the live batch shape, on scratch inputs on the placement's
-        device, then synchronise. PyTorch has nothing to compile ahead;
-        the warm-up builds the kernels' library at first use and grows the
-        allocator and library handles before the swap window.
+        """The PREPARE phase (the reference's ``aot_executables``): one
+        decode step at the live batch shape on scratch state, then the
+        decode executable (`DecodeExecutable`) built over the live pool, on
+        the card captured as a CUDA graph without running it; then prefill
+        warmed at each prompt length (and each bucket) on scratch inputs,
+        and a synchronisation. Runs beside serving: the live pool is never
+        written. Prefill stays eager, so its warm-up only builds the
+        kernels' library at first use and grows the allocator and library
+        handles before the swap window.
 
         Args:
             placement: the target ``{"params": ..., "cache": ...}``.
@@ -393,6 +445,7 @@ class ServingEngine:
 
         Raises:
             ValueError: the placement is not this engine's device.
+            RuntimeError: the decode step could not be captured.
         """
         dev = torch.device(placement.get("cache", self.device))
         if dev != self.device:
@@ -409,6 +462,7 @@ class ServingEngine:
         else:
             step()
             collectives = []
+        decode = self._capture(DecodeExecutable(self))
         for S in lengths:
             self.model.prefill({"tokens": torch.zeros(
                 (1, S), dtype=torch.long, device=self.device)})
@@ -416,9 +470,19 @@ class ServingEngine:
             self.model.prefill({"tokens": torch.zeros(
                 (1, S), dtype=torch.long, device=self.device), "true_len": 1})
         sync(self.device)
-        return ({"prefill": tuple(lengths), "prefill_buckets": tuple(buckets),
-                 "collectives": tuple(collectives)},
+        return ({"decode": decode, "prefill": tuple(lengths),
+                 "prefill_buckets": tuple(buckets), "collectives": tuple(collectives)},
                 1 + len(lengths) + len(buckets))
+
+    def _capture(self, exe: DecodeExecutable) -> DecodeExecutable:
+        """Capture ``exe``'s graph (on the card), counted in `decode_stats`."""
+        t0 = time.perf_counter()
+        if exe.capture(lambda: self._scratch_decode_inputs()()):
+            dt = time.perf_counter() - t0
+            with self._exec_lock:
+                self.decode_stats["captures"] += 1
+                self.decode_stats["capture_s"] += dt
+        return exe
 
     def decode_collectives(self) -> List["Collective"]:
         """The collectives one decode step issues (the reference's
@@ -587,7 +651,7 @@ class ServingEngine:
                 kvpool.write_pages(self.cache, cache1, row, self._pax, self._sax)
                 self.page_tables[slot] = row
                 self.slot_pages[slot] = pages
-                self._tables_dev = None
+                self._tables_dirty = True
             else:
                 _write_slot(self.cache, cache1, slot)
             self.slot_req[slot] = req
@@ -602,7 +666,7 @@ class ServingEngine:
             self.pool.free(self.slot_pages[slot])
             self.slot_pages[slot] = []
             self.page_tables[slot] = kvpool.SCRATCH_PAGE
-            self._tables_dev = None
+            self._tables_dirty = True
 
     def _compact(self) -> None:
         """Pack active requests into the lowest decode lanes; the page-table
@@ -621,7 +685,7 @@ class ServingEngine:
         self.slot_pages = pages + [[] for _ in range(self.n_slots - n)]
         self.page_tables[:] = kvpool.SCRATCH_PAGE
         self.page_tables[:n] = tables
-        self._tables_dev = None
+        self._tables_dirty = True
 
     # ------------------------------------------------------------------
     # live migration (export / import one request's state)
@@ -749,7 +813,7 @@ class ServingEngine:
             kvpool.write_pages(self.cache, single, row, self._pax, self._sax)
             self.page_tables[slot] = row
             self.slot_pages[slot] = pages
-            self._tables_dev = None
+            self._tables_dirty = True
         else:
             migration.write_single(self.cache, single, self._migration_axes(), slot)
         sync(self.device)
@@ -761,13 +825,20 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """Admit queued requests (prefill), then run one decode step over
-        all active lanes. Returns the number of lanes that decoded.
+        all active lanes through the installed `DecodeExecutable`: its
+        replay on the card. With none installed the step runs eagerly and
+        the executable is built after it (on the card, its graph
+        captured). Returns the number of lanes that decoded.
 
         Raises:
             EngineStateError: if the engine is paused.
+            RuntimeError: the installed executable is bound to a pool that
+                is no longer the engine's, or its capture or replay failed.
         """
         if self.paused:
             raise EngineStateError("engine is paused (resume() to serve)")
+        while self._retired:
+            self._retired.pop().release()
         self._admit()
         if self.paged:
             self._compact()
@@ -777,22 +848,31 @@ class ServingEngine:
         tokens = np.zeros((self.n_slots, 1), dtype=np.int64)
         for i in active:
             tokens[i, 0] = self.slot_req[i].tokens_out[-1]
+        with self._exec_lock:
+            exe = self._decode_exec
+        first = exe is None
+        if first:
+            exe = DecodeExecutable(self)
+        elif not exe.bound_to(self.cache):
+            raise RuntimeError("the installed decode executable is bound to a "
+                               "pool this engine no longer holds")
         # inactive lanes sit at position 0 (of the scratch page, or of a free
         # slot, which its next admission overwrites)
-        pos = torch.as_tensor(self.slot_pos, device=self.device)
-        tokens = torch.as_tensor(tokens, device=self.device)
-        if self.paged:
-            if self._tables_dev is None:
-                self._tables_dev = torch.as_tensor(self.page_tables, device=self.device)
-            logits, self.cache = self._decode(tokens, self.cache, pos, self._tables_dev)
+        exe.load(tokens, self.slot_pos,
+                 self.page_tables if self.paged and (first or self._tables_dirty) else None)
+        self._tables_dirty = False
+        if first:
+            exe.forward()
+            self.decode_stats["eager"] += 1
         else:
-            logits, self.cache = self.model.decode_step(tokens, self.cache, pos)
-        logits = logits[:, : self.vocab].float().cpu().numpy()
+            exe.run()
+            self.decode_stats["replays" if exe.graph is not None else "eager"] += 1
+        picks = exe.next_tok.cpu().numpy()
         now = time.time()
         rec = obs_events.RECORDER
         for i in active:
             req = self.slot_req[i]
-            req.tokens_out.append(int(np.argmax(logits[i])))
+            req.tokens_out.append(int(picks[i]))
             self.slot_pos[i] += 1
             if (len(req.tokens_out) >= req.max_new_tokens
                     or self.slot_pos[i] >= self.s_max - 1):
@@ -808,6 +888,8 @@ class ServingEngine:
         if rec is not None and self.steps % rec.decode_stride == 0:
             rec.emit("engine.decode", engine=self.obs_name, step=self.steps,
                      active=len(active))
+        if first:       # after the step's bookkeeping: a failed capture loses no token
+            self._install(self._capture(exe))
         return len(active)
 
     def run(self, max_steps: int = 10_000) -> None:

@@ -1,13 +1,14 @@
-"""Concurrent PREPARE: background warm-up overlapped with serving (a copy
-of `repro.serving.prepare`'s ticket state machine and worker).
+"""Concurrent PREPARE: background preparation overlapped with serving (a
+copy of `repro.serving.prepare`'s ticket state machine and worker).
 
 In the reference, PREPARE compiles the target plan's executables ahead of
-the swap. PyTorch compiles nothing ahead, so the port's PREPARE warms
-instead (`ServingEngine.prepare_executables`): it runs prefill at each
-live prompt length and bucket and one decode step at the live batch shape
-on scratch state, so the kernels' library, the allocator's blocks and the
-library handles exist before the swap, and the blocking SWAP window
-(pause, drain, install, resume) pays none of them.
+the swap. The port's PREPARE (`ServingEngine.prepare_executables`) builds
+the decode executable at the live batch shape, on the card a CUDA graph
+captured over the live pool (`serving/executable.py`), and warms prefill at
+each live prompt length and bucket on scratch state (prefill stays eager),
+so the graph, the kernels' library, the allocator's blocks and the library
+handles exist before the swap, and the blocking SWAP window (pause, drain,
+install, resume) pays none of them.
 
     PrepareTicket   the per-request handle of the pending-swap state
                     machine:
@@ -69,7 +70,7 @@ class PrepareTicket:
         engine: target engine name.
         kind: ``"reconfigure"`` | ``"spawn"``.
         plan: the target `ShardingPlan`.
-        prepare_s: background PREPARE (warm-up) time, set when the worker finishes.
+        prepare_s: background PREPARE time, set when the worker finishes.
         report: the committed swap's `DowntimeReport` (state SWAPPED).
         error: the exception that failed the ticket (state FAILED), or a
             post-commit verification error recorded after SWAPPED (the

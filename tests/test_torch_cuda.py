@@ -252,3 +252,202 @@ def test_swap_plan_and_prepare_on_the_card(gen):
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+# ---------------------------------------------------------------------------
+# the decode step as a CUDA graph (`serving/executable.py`)
+# ---------------------------------------------------------------------------
+
+
+def _card_requests(prompts, new=8):
+    """Uneven requests: lanes free at different steps."""
+    from repro_torch.serving import Request
+    return [Request(i, p, max_new_tokens=new + i % 3) for i, p in enumerate(prompts)]
+
+
+def _serve_card(eng, prompts):
+    reqs = _card_requests(prompts)
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return {r.rid: r.tokens_out for r in reqs}
+
+
+def _eager_streams(model, prompts, **kw):
+    """The streams of an engine whose every decode step runs eagerly: the
+    oracle the graph is held to (a switch of this test, not of the
+    package)."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.executable import DecodeExecutable
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(DecodeExecutable, "capture", lambda self, warm_up: False)
+        m.setattr(DecodeExecutable, "run", DecodeExecutable.forward)
+        eng = ServingEngine(model, **kw)
+        streams = _serve_card(eng, prompts)
+    assert eng.decode_stats["eager"] == eng.steps and eng.decode_stats["captures"] == 0
+    return streams
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "mamba2_370m"], ids=["qwen_paged", "mamba2_slot"])
+def test_graph_streams_equal_eager_streams(gen, arch):
+    """Six uneven requests over three lanes: the first decode step runs
+    eagerly and captures, every later one replays the graph; the streams
+    equal the eager steps'."""
+    from repro_torch.serving import ServingEngine
+    model = _card_model(arch)
+    prompts = _card_prompts(model.cfg, sizes=(5, 9, 17, 12, 3, 7))
+    kw = {"n_slots": 3, "s_max": 64}
+    want = _eager_streams(model, prompts, **kw)
+    eng = ServingEngine(model, **kw)
+    assert _serve_card(eng, prompts) == want
+    stats = eng.decode_stats
+    assert eng.paged == (arch != "mamba2_370m")
+    assert stats["eager"] == 1 and stats["captures"] == 1 and stats["capture_s"] > 0
+    assert stats["replays"] == eng.steps - 1
+    assert eng.decode_executable.pool_bytes() > 0
+
+
+def test_prepare_captures_on_a_worker_beside_serving(gen):
+    """PREPARE captures on a worker thread while the main thread steps the
+    same engine; the swap installs that graph and the streams are the eager
+    steps'."""
+    import threading
+
+    from repro_torch.serving import ServingEngine
+    model = _card_model("qwen2_moe_a2_7b")
+    prompts = _card_prompts(model.cfg, sizes=(5, 9, 17, 12, 3, 7))
+    kw = {"n_slots": 3, "s_max": 64}
+    want = _eager_streams(model, prompts, **kw)
+    eng = ServingEngine(model, **kw)
+    reqs = _card_requests(prompts)
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    out = {}
+    worker = threading.Thread(target=lambda: out.update(execs=eng.prepare_executables(
+        {"params": eng.device, "cache": eng.device}, prefill_lengths=(5, 9))[0]))
+    worker.start()
+    for _ in range(6):                  # leave requests decoding for after the swap
+        if worker.is_alive():
+            eng.step()
+    worker.join(timeout=120)
+    assert not worker.is_alive() and out["execs"]["decode"].graph is not None
+    old = eng.decode_executable
+    eng.pause()
+    eng.swap_plan(placement={"params": eng.device, "cache": eng.device},
+                  executables=out["execs"])
+    eng.resume()
+    assert eng.decode_executable is out["execs"]["decode"]
+    assert old.graph is not None        # freed at the next step, outside the window
+    eng.step()
+    assert old.graph is None            # the replaced graph and its pool are freed
+    eng.run()
+    assert {r.rid: r.tokens_out for r in reqs} == want
+    assert eng.decode_stats["captures"] == 2 and eng.decode_stats["installs"] == 1
+    assert eng.decode_stats["replays"] == eng.steps - 1
+
+
+@pytest.mark.parametrize("arch", ["minitron_4b", "mamba2_370m"], ids=["paged", "slot"])
+def test_prepare_capture_leaves_the_live_pool_unchanged(gen, arch):
+    """The capture records against the live pool without running: every
+    live leaf, and the lanes, are as they were."""
+    from repro_torch.serving import Request, ServingEngine
+    model = _card_model(arch)
+    eng = ServingEngine(model, n_slots=2, s_max=64)
+    for i, p in enumerate(_card_prompts(model.cfg)[:2]):
+        eng.submit(Request(i, p, max_new_tokens=8))
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    live = {k: v.clone() for k, v in eng.cache.items()}
+    pos = eng.slot_pos.copy()
+    execs, _ = eng.prepare_executables({"params": eng.device, "cache": eng.device}, (5,))
+    torch.cuda.synchronize()
+    assert execs["decode"].graph is not None and execs["decode"].bound_to(eng.cache)
+    assert all(torch.equal(live[k], eng.cache[k]) for k in live)
+    assert (eng.slot_pos == pos).all()
+
+
+def test_swap_migration_and_handoff_on_graphs_equal_eager(gen):
+    """A cluster on the card: a swap that installs PREPARE's graph while two
+    requests decode, a two-request migration, and a prefill/decode pair
+    handing every request off at its first token; each run's streams equal
+    the eager steps' on one engine, and no graph is discarded."""
+    from repro_torch.serving import ServingCluster, ServingEngine
+    from repro_torch.sharding import ShardingPlan
+    model = _card_model("minitron_4b")
+    prompts = _card_prompts(model.cfg, sizes=(5, 9, 17, 12, 3, 7))
+    kw = {"n_slots": 4, "s_max": 64}
+    want = _eager_streams(model, prompts, **kw)
+    reqs = _card_requests(prompts)
+
+    cluster = ServingCluster()
+    cluster.register("a", ServingEngine(model, **kw))
+    cluster.register("b", ServingEngine(model, **kw))
+    for r in reqs:
+        cluster.engine("a").submit(r)
+    cluster.step()
+    cluster.step()
+    report = cluster.reconfigure("a", ShardingPlan(device_constraints=(("pod", 0),)),
+                                 prefill_lengths=(5,))
+    a = cluster.engine("a")
+    assert a.decode_stats["installs"] == 1 and a.decode_stats["discards"] == 0
+    assert report.compiled_in_prepare == 2
+    moving = [r.rid for r in a.slot_req if r is not None][:2]
+    cluster.migrate_requests("a", "b", moving)
+    cluster.run()
+    assert {r.rid: r.tokens_out for r in reqs} == want
+    for eng in (a, cluster.engine("b")):
+        assert eng.decode_stats["replays"] == eng.steps - eng.decode_stats["eager"] > 0
+
+    handoff = ServingCluster()
+    handoff.register("pf", ServingEngine(model, **kw), role="prefill")
+    handoff.register("dc", ServingEngine(model, **kw), role="decode")
+    hreqs = _card_requests(prompts)
+    for r in hreqs:
+        handoff.submit(r)
+    handoff.run()
+    assert {r.rid: r.tokens_out for r in hreqs} == want
+    dc = handoff.engine("dc")
+    assert dc.decode_stats["eager"] == 1 and dc.decode_stats["replays"] == dc.steps - 1
+
+
+def test_a_failed_capture_raises(gen):
+    """A capture that fails raises, from the executable and from the step
+    that captures; nothing falls back to the eager step, and the step's
+    token is kept."""
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.executable import DecodeExecutable
+
+    def failing(self, *args):
+        raise RuntimeError("capture failed")
+
+    model = _card_model("minitron_4b")
+    eng = ServingEngine(model, n_slots=2, s_max=64)
+    exe = DecodeExecutable(eng)
+    exe.forward = lambda: failing(exe)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        exe.capture(eng._scratch_decode_inputs())
+    assert exe.graph is None
+    with pytest.raises(RuntimeError, match="no CUDA graph"):
+        exe.run()
+    req = Request(0, _card_prompts(model.cfg)[0], max_new_tokens=8)
+    eng.submit(req)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(DecodeExecutable, "capture", failing)
+        with pytest.raises(RuntimeError, match="capture failed"):
+            eng.step()
+    assert eng.decode_executable is None and len(req.tokens_out) == 2
+
+
+def test_argmax_on_the_card_breaks_ties_at_the_first_index(gen):
+    """The decode pick on the card takes the first maximum, as np.argmax."""
+    import numpy as np
+    rows = torch.randn(64, 151936, generator=gen, device="cuda")
+    rows[::2, 1000] = rows[::2, 70000] = rows[::2, 150000] = 100.0   # ties at the top
+    rows[1::4] = 0.25                                              # all equal
+    for dtype in (torch.float32, torch.bfloat16):
+        picks = torch.argmax(rows.to(dtype), dim=-1).cpu().numpy()
+        want = np.argmax(rows.to(dtype).float().cpu().numpy(), axis=-1)
+        assert (picks == want).all()
+        assert (picks[::2] == 1000).all() and (picks[1::4] == 0).all()
