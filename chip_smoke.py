@@ -65,10 +65,29 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              against the unified engine over paired windows taken in turns
              (median and range of the ratios) beside its 10 % budget as
              ``within``, ``over`` or ``unresolved``; never a failure.
-9. ssm migrate — Mamba2-370m at full width and half depth on two
+9. scale   — the elastic control loop (`Autoscaler`, `ElasticPolicy`,
+             `WorkloadPlanner`) on the same Minitron-4B: the card's
+             calibrated profile and the decode step's counted features; a
+             seeded trace (`repro_torch.traffic`: 2 req/s over phi and
+             general for 24 logical seconds, a 4x flash crowd on phi) runs
+             once on a unified engine (the oracle), then twice on a cluster
+             of a phi and a general engine whose scaler spawns (PREPARE
+             beside serving) and retires: under the threshold
+             policy with the intent "... keep between one and three engines
+             for phi traffic", and under the planner with a TTFT target.
+             Streams equal the oracle; each run spawns during the burst and
+             retires after it; every report is finalized (the run ends by
+             retiring every engine); no request lands
+             on a draining engine; flash launches once per layer per prefill
+             (PREPARE's warm prefills included); device memory is back
+             within one KV page after the last retire. Prints engines per
+             label per tick, each spawn's and retire's times, TTFT/TPOT per
+             label, SLO attainment, engine-seconds, and the planner's
+             predicted TPOT against the measured one.
+10. ssm migrate — Mamba2-370m at full width and half depth on two
              slot-granular engines: two requests migrate mid-decode; streams equal the run without
              migration; the SSD scan launches once per layer per prefill.
-10. output — a ``{"kernels": [...]}`` JSON line, then, last, the result line
+11. output — a ``{"kernels": [...]}`` JSON line, then, last, the result line
              ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
@@ -1128,9 +1147,30 @@ def _paired_overhead(tag, serve_unified, serve_other, card):
     return out
 
 
-def phase_cluster(card):
+def cluster_model(card):
+    """Full-width Minitron-4B on the card (bf16, random weights from seed 0),
+    which the cluster and scale phases share."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    cfg = get_config(CLUSTER_ARCH)
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(model.params))
+    say(f"[cluster] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.2f} B parameters ({cfg.param_dtype}), random from seed 0 "
+        f"in {time.perf_counter() - t0:.1f} s; engines {CLUSTER_ENGINE}  [{card}]")
+    return model
+
+
+def phase_cluster(card, model):
     """The intent-driven cluster path on full-width Minitron-4B (bf16, random
-    weights from seed 0), every engine paged with `CLUSTER_ENGINE`, the
+    weights from seed 0; `cluster_model`), every engine paged with `CLUSTER_ENGINE`, the
     serve prompts with `SERVE_NEW_TOKENS` new tokens each:
 
     1. unified: one engine runs the batch twice; the streams agree and are
@@ -1148,16 +1188,14 @@ def phase_cluster(card):
     3. handoff: a prefill and a decode engine; every request hands off at
        its first token; streams equal the oracle; then the batch runs again
        on the pair, in turns with the unified engine.
-    Then `phase_ssm_migration`. Prints the swap's report and every pause
+    Then `phase_scale`, then `phase_ssm_migration`. Prints the swap's report and every pause
     with the paper's 50 ms budget, and the reconfigured pair's and the
     handoff pair's TTFT/TPOT against the unified engine with its 10 % budget
     over paired windows (`_paired_overhead`)."""
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import Orchestrator
     from repro_torch.kernels import ops
-    from repro_torch.models import Model
     from repro_torch.obs import Recorder, recording
     from repro_torch.serving import (
         PrepareWorker,
@@ -1168,16 +1206,7 @@ def phase_cluster(card):
         compute_metrics,
     )
 
-    cfg = get_config(CLUSTER_ARCH)
-    t0 = time.perf_counter()
-    model = Model(cfg, device="cuda", seed=0)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(model.params))
-    say(f"[cluster] {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV heads of "
-        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
-        f"{n_params / 1e9:.2f} B parameters ({cfg.param_dtype}), random from seed 0 "
-        f"in {time.perf_counter() - t0:.1f} s; engines {CLUSTER_ENGINE}")
+    cfg = model.cfg
     rng = np.random.default_rng(0)
     prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
                for n in SERVE_PROMPT_LENS]
@@ -1384,7 +1413,7 @@ def phase_cluster(card):
         if eng.steps:
             _check_graph_steps(f"[handoff] {name}", eng)
         graphs[f"handoff {name}"] = _graph_line("[handoff]", name, eng, card)
-    del cluster, unified, model
+    del cluster, unified
     free_device()
     return {"unified": base, "cluster_run": m_cluster,
             "handoff": m_handoff, "report_metrics_after": report.metrics_after,
@@ -1397,6 +1426,384 @@ def phase_cluster(card):
                             "batch": m.batch} for m in records],
             "handoff_pauses_s": hp, "steps_in_prepare": state["steps_in_prepare"],
             "graphs": graphs, "prepare_capture_s": state["prepare_capture_s"]}
+
+
+# ---------------------------------------------------------------------------
+# the elastic control loop
+# ---------------------------------------------------------------------------
+
+SCALE_LABELS = ("phi", "general")
+# the trace: 2 req/s over both labels for 24 logical seconds, a 4x flash
+# crowd on phi in [6, 14), prompts from the serve lengths, 12 new tokens on
+# average (capped at 16); seed 0
+SCALE_SECONDS = 24
+SCALE_RATE = 2.0
+SCALE_CROWD = {"t_start": 6.0, "duration_s": 8.0, "multiplier": 4.0, "label": "phi"}
+SCALE_NEW_MEAN, SCALE_NEW_CAP = 12.0, 16
+# one logical second is one tick, taken after that second's arrivals are
+# submitted and SCALE_STEPS cluster steps: 8 lanes x 4 steps serve about
+# 32 / 12 = 2.7 requests of phi a tick, above its 1 req/s outside the crowd
+# and below its 4 req/s inside it
+SCALE_STEPS = 4
+# at most this many quiet ticks after the trace, for the drain and the
+# scale-down
+SCALE_TAIL = 12
+# threshold mode: a hot label holds more than 4 requests (queued + resident,
+# EWMA) per engine for 2 ticks (phi's EWMA stays under 2.4 before the crowd
+# and passes 4 in its second second); a cold one sees <= 0.25 arrivals and
+# <= 0.5 requests a tick for 2 ticks; 2 ticks of cooldown after an action
+SCALE_POLICY = {"spawn_depth": 4.0, "retire_rate": 0.25, "retire_depth": 0.5,
+                "sustain": 2, "cooldown": 2}
+SCALE_INTENTS = ("Phi traffic must remain inside the pod, and keep between one and "
+                 "three engines for phi traffic.",
+                 "Keep at least one engine for general traffic.")
+SCALE_SLO_INTENT = "Keep TTFT under 2 seconds for phi traffic."
+SCALE_TTFT_TARGET_S = 2.0      # what SCALE_SLO_INTENT compiles to
+
+
+def held_bytes():
+    """`torch.cuda.memory_allocated` with cuBLAS's workspaces left out, read
+    where nothing runs: cuBLAS keeps one per (thread's handle, stream) for
+    the process (made anew at next use), and a run's first spawn is the
+    first cuBLAS work of its PREPARE worker thread. torch's own leak check
+    does the same. Returns (held, allocated before the workspaces went, the
+    held blocks counted by (size, memory pool))."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    raw = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    blocks = {}
+    for seg in torch.cuda.memory_snapshot():
+        for b in seg["blocks"]:
+            if b["state"] == "active_allocated":
+                key = (b["size"], str(tuple(seg.get("segment_pool_id", ()))))
+                blocks[key] = blocks.get(key, 0) + 1
+    return torch.cuda.memory_allocated(), raw, blocks
+
+
+def _scale_trace(vocab):
+    """The scale phase's trace (`generate_trace`) and a prompt per request
+    (token ids from seed 0)."""
+    from repro_torch.traffic import FlashCrowd, LabelProfile, TrafficPattern, generate_trace
+
+    profile = LabelProfile(prompt_buckets=SERVE_PROMPT_LENS, new_tokens_mean=SCALE_NEW_MEAN,
+                           new_tokens_cap=SCALE_NEW_CAP)
+    trace = generate_trace(TrafficPattern(
+        duration_s=float(SCALE_SECONDS), base_rate=SCALE_RATE,
+        labels={v: profile for v in SCALE_LABELS},
+        flash_crowds=(FlashCrowd(**SCALE_CROWD),), seed=0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, vocab, size=r.prompt_len).astype(np.int32) for r in trace]
+    return trace, prompts
+
+
+def _scale_run(mode, model, trace, prompts, card, profile=None):
+    """One run of the trace on a fresh cluster (``edge-phi``, ``edge-gen``)
+    under an `Autoscaler` in ``mode`` ("threshold": `ElasticPolicy`;
+    "planner": a `WorkloadPlanner` over the calibrated ``profile``), spawns
+    through `spawn_engine_async`. Checks what the phase checks and returns
+    the run's record."""
+    import torch
+
+    from repro_torch.core import Orchestrator
+    from repro_torch.kernels import ops
+    from repro_torch.planner import EngineSpec, LabelDemand, ResidualCalibration, \
+        WorkloadPlanner, estimate
+    from repro_torch.serving import (
+        METRIC_KEYS,
+        Autoscaler,
+        ElasticPolicy,
+        PrepareWorker,
+        Request,
+        ServingCluster,
+        ServingEngine,
+        compute_metrics,
+    )
+    from repro_torch.sharding import default_plan
+
+    tag = f"[scale {mode}]"
+    worker = PrepareWorker(max_workers=1)
+    try:
+        cluster = ServingCluster(prepare_worker=worker)
+        for name, label in (("edge-phi", "phi"), ("edge-gen", "general")):
+            cluster.register(name, ServingEngine(model, labels={"data-type": label},
+                                                 **CLUSTER_ENGINE))
+        page_bytes = sum(v.numel() * v.element_size() for v in
+                         cluster.engine("edge-phi").cache.values()) \
+            // cluster.engine("edge-phi").pool.store_batch
+        factory = lambda label: ServingEngine(model, **CLUSTER_ENGINE)  # noqa: E731
+        planner = None
+        if mode == "planner":
+            spec = EngineSpec(plan=default_plan(), n_slots=CLUSTER_ENGINE["n_slots"],
+                              s_max=CLUSTER_ENGINE["s_max"])
+            planner = WorkloadPlanner(
+                cluster, lambda s, label: ServingEngine(model, n_slots=s.n_slots,
+                                                        s_max=s.s_max, page_size=16),
+                specs=[spec], profiles=[profile], new_tokens=SCALE_NEW_MEAN,
+                max_engines_per_label=3)
+            feats = planner.features_for(spec)
+            est = estimate(feats, profile)
+            # one tick is SCALE_STEPS decode steps: in the estimator's time,
+            # SCALE_STEPS of its predicted step
+            planner.tick_s = SCALE_STEPS * est.step_s
+            scaler = Autoscaler(cluster, factory, planner=planner, async_spawn=True)
+        else:
+            scaler = Autoscaler(cluster, factory, policy=ElasticPolicy(**SCALE_POLICY),
+                                async_spawn=True)
+        reqs = [Request(r.rid, p, max_new_tokens=r.new_tokens,
+                        labels={"data-type": r.label}) for r, p in zip(trace, prompts)]
+        by_tick = {}
+        for r, req in zip(trace, reqs):
+            by_tick.setdefault(int(r.t), []).append(req)
+        log = {"ticks": [], "drain_s": {}, "retire_mode": {}, "stats": {}, "mem": None}
+        calib, windows = ResidualCalibration(), []
+
+        def drive():
+            torch.cuda.synchronize()
+            for text in SCALE_INTENTS + ((SCALE_SLO_INTENT,) if planner else ()):
+                res = Orchestrator().submit(text, apply_to=scaler)
+                check(res.success, f"{tag} intent {text!r}: {res.report.summary()}")
+            if planner is not None:
+                check(planner.slo_targets.get("phi", (None,))[0] == SCALE_TTFT_TARGET_S,
+                      f"{tag} SLO targets {planner.slo_targets}")
+            check(scaler.bounds.get("phi") == (1, 3) and scaler.bounds.get("general")
+                  == (1, None), f"{tag} bounds {scaler.bounds}")
+            draining_since = {}
+
+            def sample():
+                now = time.perf_counter()
+                for name in cluster.engines():
+                    log["stats"][name] = cluster.engine(name).decode_stats
+                for name in [n for n in draining_since if n not in cluster.engines()]:
+                    log["drain_s"][name] = now - draining_since.pop(name)
+
+            for tick in range(SCALE_SECONDS + SCALE_TAIL):
+                t0, t0_wall = time.perf_counter(), time.time()
+                if tick < SCALE_SECONDS:
+                    for req in by_tick.get(tick, []):
+                        draining = set(cluster.draining())
+                        name = cluster.submit(req)
+                        check(name not in draining,
+                              f"{tag} rid {req.rid} routed to draining {name}")
+                    for _ in range(SCALE_STEPS):
+                        cluster.step()
+                        sample()
+                else:
+                    # the quiet tail: serve out the queues and let spawns
+                    # still in PREPARE commit (a PREPARE outlasts many ticks
+                    # of an idle cluster), then tick, until scaled back
+                    cluster.run(wait_pending=True)
+                    sample()
+                    if not cluster.draining() and not scaler.pending_spawns() and all(
+                            len(cluster.engines_for_label(v)) == 1 for v in SCALE_LABELS):
+                        break
+                if not any(d.kind == "spawn" for t in log["ticks"] for d in t["decisions"]):
+                    log["mem"] = held_bytes()         # before the first spawn
+                decisions = scaler.tick(dt=1.0)
+                now = time.perf_counter()
+                for d in decisions:
+                    if d.kind != "retire":
+                        continue
+                    log["retire_mode"][d.engine] = d.mode
+                    if d.engine in cluster.engines():
+                        draining_since[d.engine] = now
+                    else:
+                        log["drain_s"][d.engine] = 0.0   # idle, or migrated: reaped at once
+                sample()
+                log["ticks"].append({
+                    "t": tick, "wall_s": now - t0, "decisions": decisions,
+                    "engines": {v: len(cluster.engines_for_label(v)) for v in SCALE_LABELS},
+                    "total": len(cluster.engines())})
+                if planner is not None:
+                    done = [r for r in reqs if r.t_done >= t0_wall
+                            and r.labels["data-type"] == "phi"]
+                    pred = planner.predicted_for("phi", LabelDemand(rate=0.0), calibrated=False)
+                    if done and pred is not None:
+                        m = compute_metrics(done)
+                        calib.observe("phi", predicted_ttft_s=pred.ttft_s,
+                                      predicted_tpot_s=pred.tpot_s,
+                                      measured_ttft_s=m["ttft_mean_s"],
+                                      measured_tpot_s=m["tpot_mean_s"])
+                        windows.append(m["tpot_mean_s"])
+            cluster.run(wait_pending=True)
+            torch.cuda.synchronize()
+
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        drive()
+        wall = time.perf_counter() - t_run
+        launches = dict(ops.LAUNCHES)
+        mem_end = held_bytes()
+        history = list(cluster.history)
+        pred = (planner.predicted_for("phi", LabelDemand(rate=0.0), calibrated=False)
+                if planner is not None else None)
+        # the end of the run retires every engine: a report stays open until
+        # its engine serves after the event or retires, and a spawn that
+        # joined after the traffic ended has served nothing
+        late = cluster.pending_reports()
+        for name in cluster.engines():
+            cluster.retire_engine(name)
+        cluster.run()
+
+        ticks = log["ticks"]
+        kinds = [(t["t"], d.kind) for t in ticks for d in t["decisions"]]
+        traj = " ".join(f"{t['t']}:{t['engines']['phi']}/{t['engines']['general']}"
+                        for t in ticks)
+        say(f"{tag} {len(reqs)} requests over {len(ticks)} ticks ({SCALE_STEPS} steps each) in "
+            f"{wall:.2f} s; engines phi/general per tick: {traj}  [{card}]")
+        for t in ticks:
+            for d in t["decisions"]:
+                say(f"{tag} tick {t['t']}: {d.kind} {d.label} {d.engine or ''} ({d.reason})")
+
+        # -- checks -----------------------------------------------------------
+        crowd_end = SCALE_CROWD["t_start"] + SCALE_CROWD["duration_s"]
+        check(any(k == "spawn" and SCALE_CROWD["t_start"] <= t < crowd_end for t, k in kinds),
+              f"{tag} no spawn during the burst: {kinds}")
+        check(any(k == "retire" and t >= crowd_end for t, k in kinds),
+              f"{tag} no retire after the burst: {kinds}")
+        check(scaler.failures == [], f"{tag} failed spawns {scaler.failures}")
+        check(all(r.t_done > 0 for r in reqs),
+              f"{tag} {sum(r.t_done == 0 for r in reqs)} requests did not complete")
+        check(cluster.engines() == [] and cluster.pending_reports() == []
+              and all(set(r.metrics_after) == set(METRIC_KEYS) for r in cluster.history),
+              f"{tag} reports pending {cluster.pending_reports()} after every engine retired")
+        spawns = [r for r in history if r.event == "spawn"]
+        check(len(spawns) == sum(k == "spawn" for _, k in kinds),
+              f"{tag} {len(spawns)} spawns committed of {kinds}")
+        for r in spawns:
+            st = log["stats"][r.engine]
+            check(st["installs"] == 1 and st["captures"] == 1 and st["discards"] == 0,
+                  f"{tag} {r.engine} {st}: the swap must install PREPARE's graph")
+        n_prefill = len(reqs) + sum(max(r.compiled_in_prepare - 1, 0) for r in history)
+        want = {k: model.cfg.num_layers * n_prefill if k == "flash_attention" else 0
+                for k in ops.LAUNCHES}
+        check(launches == want, f"{tag} launches {launches}, want {want} ({len(reqs)} requests "
+              f"+ {n_prefill - len(reqs)} warmed prefills)")
+        mem_delta = mem_end[0] - log["mem"][0]
+        check(abs(mem_delta) <= page_bytes,
+              f"{tag} memory held {mem_end} after the last retire, {log['mem']} before the "
+              f"first spawn (without, with cuBLAS's workspaces): {mem_delta:+d} bytes, more "
+              f"than a page ({page_bytes})")
+
+        # -- results (printed, not checked) -------------------------------------
+        say(f"{tag} reports still open after the scale-down, closed by the final retire of "
+            f"every engine: {late or 'none'}")
+        for r in history:
+            if r.event == "spawn":
+                say(f"{tag} spawn {r.engine}: prepare_s {r.prepare_s:.4f} beside serving, "
+                    f"capture {log['stats'][r.engine]['capture_s']:.4f} s, downtime_s "
+                    f"{r.downtime_s:.6f} ({budget(r.downtime_s, PAUSE_BUDGET_S)} the 50 ms "
+                    f"budget), {r.compiled_in_prepare - 1} prefills warmed  [{card}]")
+            elif r.event == "retire":
+                say(f"{tag} retire {r.engine} ({log['retire_mode'].get(r.engine)} mode): gone "
+                    f"{log['drain_s'].get(r.engine, float('nan')):.4f} s after the decision, "
+                    f"downtime_s {r.downtime_s:.6f}, {len(r.migrations)} requests migrated  "
+                    f"[{card}]")
+        out = {"wall_s": wall, "launches": launches, "ticks": len(ticks),
+               "trajectory": [t["engines"] for t in ticks],
+               "events": [(t, k) for t, k in kinds],
+               "spawns": [{"engine": r.engine, "prepare_s": r.prepare_s,
+                           "capture_s": log["stats"][r.engine]["capture_s"],
+                           "downtime_s": r.downtime_s} for r in spawns],
+               "drain_s": log["drain_s"], "mem_delta": mem_delta,
+               "mem_workspaces": [log["mem"][1] - log["mem"][0], mem_end[1] - mem_end[0]],
+               "page_bytes": page_bytes, "by_label": {}}
+        for v in SCALE_LABELS:
+            m = compute_metrics([r for r in reqs if r.labels["data-type"] == v])
+            out["by_label"][v] = m
+            say(f"{tag} {v}: {m['completed']} requests, TTFT mean {m['ttft_mean_s'] * 1e3:.1f} "
+                f"ms (p99 {m['ttft_p99_s'] * 1e3:.1f}), TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms "
+                f"(p99 {m['tpot_p99_s'] * 1e3:.2f})  [{card}]")
+        phi = [r for r in reqs if r.labels["data-type"] == "phi"]
+        out["slo_attainment"] = sum(r.ttft <= SCALE_TTFT_TARGET_S for r in phi) / len(phi)
+        out["engine_ticks"] = sum(t["total"] for t in ticks)
+        out["engine_s"] = sum(t["total"] * t["wall_s"] for t in ticks)
+        say(f"{tag} phi TTFT <= {SCALE_TTFT_TARGET_S:g} s for {100 * out['slo_attainment']:.1f} % "
+            f"of requests; {out['engine_ticks']} engine-ticks (logical seconds), "
+            f"{out['engine_s']:.2f} engine-seconds of wall time; launches {launches}; memory "
+            f"held after the last retire {mem_delta:+d} bytes against before the first spawn "
+            f"(a page is {page_bytes}; cuBLAS's workspaces {out['mem_workspaces']} bytes then "
+            f"and there, not counted)  [{card}]")
+        gone = {k: v for k, v in log["mem"][2].items() if mem_end[2].get(k, 0) < v}
+        new = {k: v for k, v in mem_end[2].items() if log["mem"][2].get(k, 0) < v}
+        if gone or new:
+            say(f"{tag} held blocks by (size, pool), counts before the first spawn and not "
+                f"after: {gone}; after the last retire and not before: {new}  [{card}]")
+        if planner is not None:
+            cal = calib.apply("phi", pred)
+            out["tpot_pred"] = {"analytical_s": pred.tpot_s, "calibrated_s": cal.tpot_s,
+                                "measured_s": out["by_label"]["phi"]["tpot_mean_s"],
+                                "windows": len(windows), "factors": calib.factors("phi")}
+            say(f"{tag} planner TPOT for phi: predicted {pred.tpot_s * 1e3:.3f} ms by the "
+                f"roofline ({est.bottleneck}-bound, features {feats.flops:.4g} FLOPs, "
+                f"{feats.bytes:.4g} B a step), {cal.tpot_s * 1e3:.3f} ms after "
+                f"ResidualCalibration folded {len(windows)} tick windows (factor "
+                f"{calib.factors('phi')[1]:.2f}); measured {out['tpot_pred']['measured_s'] * 1e3:.3f}"
+                f" ms; tick_s {planner.tick_s:.6f}  [{card}]")
+        return out, reqs
+    finally:
+        worker.shutdown()
+
+
+def phase_scale(card, model):
+    """The elastic control loop on full-width Minitron-4B (`cluster_model`),
+    every engine paged with `CLUSTER_ENGINE`: the calibrated profile of the
+    card and the decode step's features; a unified engine serves every
+    prompt of the trace (`_scale_trace`) with its budget (the oracle); then
+    the trace runs twice on a fresh cluster, once under the threshold policy
+    and once under the planner (`_scale_run`). In both runs every stream
+    equals the oracle's, a spawn comes during the burst and a retire after
+    it, every report is finalized, no request lands on a draining engine,
+    flash launches once per layer per prefill (PREPARE's warm prefills
+    included), and memory is back within one page after the last retire."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.planner import calibrate_host_profile, features_from_engine
+    from repro_torch.serving import Request, ServingEngine, compute_metrics
+
+    prof = calibrate_host_profile()
+    say(f"[scale] calibrated profile {prof.name}: {prof.peak_flops / 1e12:.2f} TFLOP/s "
+        f"(fp32 matmul, d=384), {prof.hbm_bw / 1e9:.1f} GB/s (x + 1 over 32 MiB), "
+        f"{prof.mem_bytes / 1e9:.2f} GB  [{card}]")
+    trace, prompts = _scale_trace(model.cfg.vocab_size)
+    oracle_engine = ServingEngine(model, **CLUSTER_ENGINE)
+    feats = features_from_engine(oracle_engine)
+    say(f"[scale] decode-step features of {CLUSTER_ENGINE}: {feats.flops:.6g} FLOPs, "
+        f"{feats.bytes:.6g} bytes, params {feats.param_bytes} B, KV pool {feats.kv_bytes} B, "
+        f"kv_tokens {feats.kv_tokens}, wire {feats.wire_bytes:g} B  [{card}]")
+    oracle_reqs = [Request(r.rid, p, max_new_tokens=r.new_tokens)
+                   for r, p in zip(trace, prompts)]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    for r in oracle_reqs:
+        oracle_engine.submit(r)
+    oracle_engine.run()
+    torch.cuda.synchronize()
+    check(ops.LAUNCHES["flash_attention"] == model.cfg.num_layers * len(trace),
+          f"[scale] oracle launches {dict(ops.LAUNCHES)}")
+    oracle = {r.rid: r.tokens_out for r in oracle_reqs}
+    m = compute_metrics(oracle_reqs)
+    n_phi = sum(r.label == "phi" for r in trace)
+    say(f"[scale] trace: {len(trace)} requests ({n_phi} phi, {len(trace) - n_phi} general) "
+        f"over {SCALE_SECONDS} s, flash crowd {SCALE_CROWD}; the unified oracle served them "
+        f"all (TTFT mean {m['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
+        f"{m['tpot_mean_s'] * 1e3:.2f} ms, all queued at once)  [{card}]")
+    del oracle_engine
+    free_device()
+    out = {"profile": {"peak_flops": prof.peak_flops, "hbm_bw": prof.hbm_bw,
+                       "mem_bytes": prof.mem_bytes},
+           "features": {"flops": feats.flops, "bytes": feats.bytes,
+                        "param_bytes": feats.param_bytes, "kv_bytes": feats.kv_bytes},
+           "requests": len(trace)}
+    for mode in ("threshold", "planner"):
+        out[mode], reqs = _scale_run(mode, model, trace, prompts, card, profile=prof)
+        check({r.rid: r.tokens_out for r in reqs} == oracle,
+              f"[scale {mode}] streams differ from the oracle's")
+        say(f"[scale {mode}] every stream equals the unified oracle's")
+        free_device()
+    return out
 
 
 def phase_ssm_migration(card):
@@ -1506,8 +1913,13 @@ def main() -> int:
     mark("ssm paths")
     del ssm_bf16
     free_device()
-    cluster = phase_cluster(card)
+    model = cluster_model(card)
+    cluster = phase_cluster(card, model)
     mark("cluster")
+    cluster["scale"] = phase_scale(card, model)
+    del model
+    free_device()
+    mark("scale")
     cluster["ssm_migration"] = phase_ssm_migration(card)
     mark("ssm migrate")
     phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}

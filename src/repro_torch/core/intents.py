@@ -95,9 +95,9 @@ class ScalingConstraint:
     """Φ_S (runtime extension): the serving fabric must keep between
     `min_engines` and `max_engines` engines able to serve the workload
     class matching `selector` ("keep at least two engines for phi
-    traffic"). Compiled into per-label scaling bounds
-    (`CompiledPolicy.scale_bounds`), which a scaler enforces (the
-    reference's `Autoscaler`; not ported yet)."""
+    traffic"). Compiled into per-label autoscaler bounds
+    (`CompiledPolicy.scale_bounds`) and enforced by
+    `repro_torch.serving.autoscaler.Autoscaler`."""
 
     selector: Tuple[Tuple[str, str], ...]     # component-label predicate
     min_engines: int = 0
@@ -124,9 +124,9 @@ class ServiceLevelConstraint:
     """Φ_L (runtime extension): the serving fabric must keep the latency
     of the workload class matching `selector` within the given targets
     ("keep TTFT under 200 ms for phi traffic"). Compiled into per-label
-    planner objectives (`CompiledPolicy.slo_targets`), which a planner
-    enforces by sizing capacity so the predicted TTFT/TPOT stay inside the
-    targets (the reference's `WorkloadPlanner`; not ported yet)."""
+    planner objectives (`CompiledPolicy.slo_targets`) and enforced by
+    `repro_torch.planner.WorkloadPlanner`, which sizes and places capacity
+    so the cost-model-predicted TTFT/TPOT stay inside the targets."""
 
     selector: Tuple[Tuple[str, str], ...]     # component-label predicate
     max_ttft_s: Optional[float] = None        # time-to-first-token target

@@ -1,5 +1,12 @@
 """Serving runtime of the port: the pools, the engine and its lifecycle,
-live migration, concurrent PREPARE, the cluster and its clock."""
+live migration, concurrent PREPARE, the cluster and its clock, and the
+elastic control loop (load tracking, scaling policy, autoscaler)."""
+from repro_torch.serving.autoscaler import (  # noqa: F401
+    Autoscaler,
+    ElasticPolicy,
+    LoadTracker,
+    ScaleDecision,
+)
 from repro_torch.serving.clock import (  # noqa: F401
     SYSTEM_CLOCK,
     FakeClock,

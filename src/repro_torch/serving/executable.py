@@ -32,7 +32,7 @@ by a swap that moves it.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,16 @@ from repro_torch.serving.kvpool import SCRATCH_PAGE
 # allocator and the cuBLAS handles of its thread, and PREPARE may capture on
 # a worker thread while the serving thread captures an engine's first step
 _CAPTURE_LOCK = threading.Lock()
+# two side streams per device, shared by every capture under the lock: one
+# for the warm-up, one for the capture. cuBLAS keeps a workspace (tens of
+# MiB, from the caching allocator) for each (handle, stream) it has run on,
+# for the life of the process, so new streams per capture would grow device
+# memory by a workspace per spawn. Nothing runs on the capture stream, so
+# its workspace is first asked for inside a capture and lands in that
+# graph's private pool; later graphs of the same thread's handle share it,
+# and only one thread replays graphs, one at a time. A warm-up on the
+# capture stream would run on that shared workspace beside a replay.
+_CAPTURE_STREAMS: Dict[torch.device, Tuple[torch.cuda.Stream, torch.cuda.Stream]] = {}
 
 
 class DecodeExecutable:
@@ -100,9 +110,10 @@ class DecodeExecutable:
         """Record the step as a CUDA graph (on the card; a no-op returning
         False on the CPU). ``warm_up`` (one decode step at the live batch
         shape on scratch state, never the live pool) runs first on the
-        capture's own side stream; the capture then records against the
-        live pool without running it, so the pool is unchanged.
-        ``thread_local`` capture lets another thread serve meanwhile.
+        device's warm-up stream; the capture then records, on the device's
+        capture stream, against the live pool without running it, so the
+        pool is unchanged. ``thread_local`` capture lets another thread
+        serve meanwhile.
 
         Raises:
             RuntimeError: the step cannot be captured (CUDA's error).
@@ -110,11 +121,16 @@ class DecodeExecutable:
         if self.device.type != "cuda":
             return False
         with _CAPTURE_LOCK, torch.cuda.device(self.device):
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
+            if self.device not in _CAPTURE_STREAMS:
+                _CAPTURE_STREAMS[self.device] = (torch.cuda.Stream(self.device),
+                                                 torch.cuda.Stream(self.device))
+            warm, side = _CAPTURE_STREAMS[self.device]
+            warm.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(warm):
+                warm_up()
+            side.wait_stream(warm)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.stream(side):
-                warm_up()
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     self.forward()

@@ -91,7 +91,10 @@ class PrepareTicket:
         self.report = None
         self.error: Optional[BaseException] = None
         self.superseded_by: Optional["PrepareTicket"] = None
-        # the not-yet-registered ServingEngine a spawn ticket carries
+        # the not-yet-registered ServingEngine a spawn ticket carries; let go
+        # at every terminal state (the cluster owns a committed engine), so
+        # a caller that keeps its tickets (`WorkloadPlanner.log`) does not
+        # keep a retired engine's pool and decode graph alive
         self._engine_obj = engine_obj
         self._emit_state(PREPARING)
 
@@ -173,6 +176,7 @@ class PrepareTicket:
                 return False
             self._state = CANCELLED
             self._payload = None           # payload discarded, provably
+            self._engine_obj = None
             self.superseded_by = superseded_by
             self._cond.notify_all()
         self._emit_state(CANCELLED, superseded=superseded_by is not None)
@@ -196,6 +200,7 @@ class PrepareTicket:
             self.error = error
             self._state = FAILED
             self._payload = None
+            self._engine_obj = None
             self._cond.notify_all()
         self._emit_state(FAILED, error=repr(error))
 
@@ -213,6 +218,7 @@ class PrepareTicket:
             self.report = report
             self._state = SWAPPED
             self._payload = None
+            self._engine_obj = None
             self._cond.notify_all()
         self._emit_state(SWAPPED,
                          downtime_s=getattr(report, "downtime_s", 0.0))
@@ -222,6 +228,7 @@ class PrepareTicket:
             self.error = error
             self._state = FAILED
             self._payload = None
+            self._engine_obj = None
             self._committing = False
             self._cond.notify_all()
         self._emit_state(FAILED, error=repr(error))
@@ -232,6 +239,7 @@ class PrepareTicket:
         with self._cond:
             self._state = CANCELLED
             self._payload = None
+            self._engine_obj = None
             self._committing = False
             self._cond.notify_all()
         self._emit_state(CANCELLED, abandoned=True)

@@ -451,3 +451,117 @@ def test_argmax_on_the_card_breaks_ties_at_the_first_index(gen):
         want = np.argmax(rows.to(dtype).float().cpu().numpy(), axis=-1)
         assert (picks == want).all()
         assert (picks[::2] == 1000).all() and (picks[1::4] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# the elastic control loop on the card (`planner/`, `serving/autoscaler.py`)
+# ---------------------------------------------------------------------------
+
+
+def test_host_calibration_on_the_card(gen):
+    from repro_torch.planner import calibrate_host_profile
+    prof = calibrate_host_profile()
+    assert prof.name == "host:cuda:0" and prof.peak_flops > 0 and prof.hbm_bw > 0
+    assert prof.link_bw == prof.hbm_bw
+    assert prof.mem_bytes == torch.cuda.get_device_properties(0).total_memory
+    assert calibrate_host_profile(device="cuda:0") is prof
+    cpu = calibrate_host_profile(device="cpu", repeats=1)
+    assert cpu is not prof and cpu.mem_bytes == 8 << 30
+
+
+@pytest.mark.parametrize("arch,kw", [("minitron_4b", {"n_slots": 4, "s_max": 64}),
+                                     ("minitron_4b", {"n_slots": 8, "s_max": 128,
+                                                      "page_size": 8}),
+                                     ("mamba2_370m", {"n_slots": 2, "s_max": 32})],
+                         ids=["paged", "paged_p8", "slot"])
+def test_features_on_the_card_equal_the_cpu_count(gen, arch, kw):
+    """The count runs on meta tensors of the engine's shapes: a card engine
+    and a CPU engine of the same shapes give the same features, and the
+    card's live pool is untouched."""
+    import dataclasses
+
+    from repro_torch.models import Model
+    from repro_torch.planner import features_from_engine
+    from repro_torch.serving import ServingEngine
+    card = _card_model(arch)
+    cpu = Model(card.cfg, {k: v for k, v in _to_cpu(card.params).items()}, device="cpu")
+    eng = ServingEngine(card, **kw)
+    before = {k: v.clone() for k, v in eng.cache.items()}
+    got = features_from_engine(eng)
+    want = features_from_engine(ServingEngine(cpu, device="cpu", **kw))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.flops > 0 and got.bytes > 0
+    assert all(torch.equal(eng.cache[k], v) for k, v in before.items())
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in tree.items()}
+
+
+def _held_bytes():
+    """`torch.cuda.memory_allocated` with cuBLAS's workspaces left out, read
+    where nothing runs: cuBLAS keeps one per (thread's handle, stream) for
+    the process (made anew at next use), and a spawn's PREPARE is the first
+    cuBLAS work of its worker thread. torch's own leak check does the same."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def test_spawn_retire_cycle_returns_the_memory(gen):
+    """A spawn (PREPARE captures the decode graph) that serves and then
+    retires leaves the memory the tensors hold (`_held_bytes`) within one
+    KV page of where it stood before the spawn, also through the planner,
+    whose log keeps the spawn's ticket; a second cycle holds it too."""
+    from repro_torch.planner import A100, EngineSpec, WorkloadPlanner
+    from repro_torch.serving import (
+        Autoscaler,
+        LoadTracker,
+        PrepareWorker,
+        Request,
+        ServingCluster,
+        ServingEngine,
+    )
+    from repro_torch.sharding import default_plan
+    model = _card_model("minitron_4b")
+    kw = {"n_slots": 4, "s_max": 64, "page_size": 16}
+    page = sum(v[:1].numel() * v.element_size() for v in
+               ServingEngine(model, **kw).cache.values())       # one page, every layer
+    prompts = _card_prompts(model.cfg)
+    worker = PrepareWorker(max_workers=1)
+    try:
+        cluster = ServingCluster(prepare_worker=worker)
+        cluster.register("base", ServingEngine(model, labels={"data-type": "general"}, **kw))
+        planner = WorkloadPlanner(
+            cluster, lambda spec, label: ServingEngine(model, **kw),
+            specs=[EngineSpec(plan=default_plan(), n_slots=4, s_max=64)], profiles=[A100],
+            dwell=0)
+        scaler = Autoscaler(cluster, lambda label: ServingEngine(model, **kw),
+                            planner=planner, async_spawn=True, tracker=LoadTracker(alpha=1.0))
+        planner.features_for(planner.specs[0])        # the probe engine, before the mark
+        start = _held_bytes()
+        scaler.set_bounds("general", 1, 1)            # "base" stays
+        for cycle in range(2):
+            scaler.set_bounds("phi", 1, 1)
+            for _ in range(3):
+                scaler.tick()
+                cluster.run(wait_pending=True)
+            (name,) = cluster.engines_for_label("phi")
+            reqs = [Request(i, p, max_new_tokens=6, labels={"data-type": "phi"})
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                cluster.submit(r)
+            cluster.run()
+            assert cluster.engine(name).decode_stats["replays"] > 0
+            assert all(len(r.tokens_out) == 6 for r in reqs)
+            scaler.set_bounds("phi", 0, 0)
+            for _ in range(3):
+                scaler.tick()
+                cluster.run()
+            assert [d.kind for d, _ in scaler.events] == ["spawn", "retire"] * (cycle + 1)
+            assert name not in cluster.engines()
+            assert abs(_held_bytes() - start) <= page, cycle
+    finally:
+        worker.shutdown()
