@@ -84,10 +84,25 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              label per tick, each spawn's and retire's times, TTFT/TPOT per
              label, SLO attainment, engine-seconds, and the planner's
              predicted TPOT against the measured one.
-10. ssm migrate — Mamba2-370m at full width and half depth on two
+10. replay — the discrete-event replay (`repro_torch.traffic.replay_trace`)
+             of the elastic loop on the same Minitron-4B, on a `FakeClock`
+             (tick 1 µs; one decode step is 20 ms of simulated time, the
+             unified engine's TPOT on the card): the scale phase's trace
+             through a `WorkloadPlanner` over the card's profile and an
+             `Autoscaler` with sync spawns, twice on fresh stacks: with the
+             flight recorder and the Watchtower `AlertEvaluator`, and with
+             recording off. Both runs' `ReplayStats` and decisions per tick
+             are equal; nothing is dropped; every stream equals the oracle's;
+             every report is finalized; flash launches once per layer per
+             prefill; `RequestLineage` conserves TTFT and TPOT within 1e-9;
+             the `SLOLedger`'s attainment is the replay's; the recorder
+             dropped nothing; the Chrome export validates; every debug bundle
+             round-trips; memory is back within one page. Prints the run's
+             figures and both runs' wall time (the recorder's cost).
+11. ssm migrate — Mamba2-370m at full width and half depth on two
              slot-granular engines: two requests migrate mid-decode; streams equal the run without
              migration; the SSD scan launches once per layer per prefill.
-11. output — a ``{"kernels": [...]}`` JSON line, then, last, the result line
+12. output — a ``{"kernels": [...]}`` JSON line, then, last, the result line
              ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
@@ -1803,6 +1818,257 @@ def phase_scale(card, model):
               f"[scale {mode}] streams differ from the oracle's")
         say(f"[scale {mode}] every stream equals the unified oracle's")
         free_device()
+    return out, oracle
+
+
+# the replay phase: `_scale_trace`'s trace through `replay_trace` on a
+# FakeClock. One simulated decode step is 20 ms: the unified Minitron-4B
+# engine's warm TPOT on the H100 with the decode graph was 20.20-20.88 ms
+# (PERF.md). A constant, never measured inside the run, so the replay stays
+# deterministic.
+REPLAY_STEP_TIME_S = 0.020
+REPLAY_BOUNDS = (1, 4)
+REPLAY_TICK = 1e-6
+REPLAY_CONSERVATION_TOL = 1e-9
+
+
+def _replay_run(model, trace, profile, record, bundle_dir):
+    """One replay of ``trace`` (`replay_trace`, prompt draws from seed 0, as
+    `_scale_trace` draws them) on a fresh stack, the stack `recorded_replay`
+    builds over `CLUSTER_ENGINE` engines: a `WorkloadPlanner` over the
+    card's ``profile`` with `ResidualCalibration(alpha=0.3)`, bounds
+    `REPLAY_BOUNDS` for phi and general, SLO targets 50x and 2x the step
+    time, sync spawns, windows of 4 ticks; with ``record``, the flight
+    recorder and an `AlertEvaluator` wired to the planner and the scaler.
+    Returns the run's record."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import AlertEvaluator, Recorder, recording
+    from repro_torch.planner import EngineSpec, ResidualCalibration, WorkloadPlanner
+    from repro_torch.serving import Autoscaler, FakeClock, LoadTracker, ServingCluster, \
+        ServingEngine, install_clock
+    from repro_torch.sharding import default_plan
+    from repro_torch.traffic import replay_trace
+
+    spec = EngineSpec(plan=default_plan(), n_slots=CLUSTER_ENGINE["n_slots"],
+                      s_max=CLUSTER_ENGINE["s_max"])
+    factory = lambda s, label: ServingEngine(model, **CLUSTER_ENGINE)  # noqa: E731
+    rec = Recorder() if record else None
+    clock = FakeClock(tick=REPLAY_TICK)
+    restore = install_clock(clock)
+    try:
+        with recording(rec) if record else contextlib.nullcontext():
+            cluster = ServingCluster()
+            planner = WorkloadPlanner(cluster, factory, specs=[spec], profiles=[profile],
+                                      dwell=0, calibration=ResidualCalibration(alpha=0.3),
+                                      clock=clock)
+            for label in SCALE_LABELS:
+                planner.bounds[label] = REPLAY_BOUNDS
+                planner.set_slo_target(label, 50 * REPLAY_STEP_TIME_S, 2 * REPLAY_STEP_TIME_S)
+            scaler = Autoscaler(cluster, lambda label: factory(spec, label), planner=planner,
+                                tracker=LoadTracker(alpha=0.5), async_spawn=False, clock=clock)
+            planner.execute(planner.plan({}), async_spawn=False)       # the floors
+            planner.attach_calibrated_profiles()
+            evaluator = (AlertEvaluator(rec, policy=planner, calibration=planner.calibration,
+                                        planner=planner, scaler=scaler, bundle_dir=bundle_dir)
+                         if record else None)
+            done, ticks = [], []
+            drain, tick = cluster.drain_completed, scaler.tick
+
+            def drain_kept():
+                out = drain()
+                done.extend(out)
+                return out
+
+            def tick_kept(dt=1.0):
+                out = tick(dt)
+                ticks.append([(d.kind, d.label, d.engine, d.mode) for d in out])
+                return out
+
+            cluster.drain_completed, scaler.tick = drain_kept, tick_kept
+            n_history = len(cluster.history)
+            torch.cuda.synchronize()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            stats = replay_trace(trace, cluster, scaler, clock, vocab_size=model.cfg.vocab_size,
+                                 step_time_s=REPLAY_STEP_TIME_S, tick_s=1.0, window_ticks=4,
+                                 seed=0, alert_evaluator=evaluator)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            history = list(cluster.history)
+            graphs = {n: dict(cluster.engine(n).decode_stats) for n in cluster.engines()}
+            trajectory = list(scaler.trajectory)
+            # close the run: retire every engine (a report stays open until
+            # its engine serves after the event or retires)
+            for name in cluster.engines():
+                cluster.retire_engine(name)
+            cluster.run()
+            closed = cluster.engines() == [] and cluster.pending_reports() == []
+    finally:
+        restore()
+    return {"stats": stats, "rec": rec, "planner": planner, "scaler": scaler,
+            "evaluator": evaluator, "done": done, "ticks": ticks, "wall_s": wall,
+            "launches": launches, "history": history, "replay_history": history[n_history:],
+            "graphs": graphs, "trajectory": trajectory, "closed": closed,
+            "closed_history": list(cluster.history)}
+
+
+def phase_replay(card, model, oracle):
+    """The discrete-event replay (`repro_torch.traffic.replay_trace`) of the
+    elastic loop on full-width Minitron-4B (`cluster_model`) on a simulated
+    clock, with the rest of observability: the scale phase's trace runs
+    twice on fresh stacks (`_replay_run`), recorded with the Watchtower
+    evaluator and with recording off. The two `ReplayStats` and their
+    decisions per tick are equal; nothing is dropped and every request
+    completes with the oracle's stream; every report is finalized; flash
+    launches once per layer per prefill (PREPARE's warm prefills included);
+    the lineage conserves TTFT and TPOT within 1e-9; the SLO ledger's
+    attainment is the replay's; the recorder dropped nothing; the Chrome
+    export with the lineage's flows validates; every debug bundle (each
+    alert's and one at the end) round-trips; memory is back within one page.
+    Prints the run's figures and the recorder's cost in wall time."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.obs import (
+        Alert,
+        RequestLineage,
+        SLOLedger,
+        load_bundle,
+        replay_ledger,
+        validate_chrome,
+    )
+    from repro_torch.planner import calibrate_host_profile
+    from repro_torch.serving import METRIC_KEYS, ServingEngine
+
+    tag = "[replay]"
+    profile = calibrate_host_profile()          # cached: the scale phase's, before any clock
+    trace, _ = _scale_trace(model.cfg.vocab_size)
+    probe = ServingEngine(model, **CLUSTER_ENGINE)
+    page_bytes = sum(v.numel() * v.element_size() for v in probe.cache.values()) \
+        // probe.pool.store_batch
+    del probe
+    free_device()
+    mem0 = held_bytes()
+    OUT.mkdir(exist_ok=True)
+    bundles_tmp = tempfile.TemporaryDirectory(prefix="replay-bundles-")
+    bundle_dir = bundles_tmp.name
+    runs = {}
+    for mode in ("recorded", "unrecorded"):
+        runs[mode] = run = _replay_run(model, trace, profile, mode == "recorded", bundle_dir)
+        stats = run["stats"]
+        check(stats.dropped == 0 and stats.completed == stats.submitted == len(trace),
+              f"{tag} {mode}: submitted {stats.submitted}, completed {stats.completed}, "
+              f"dropped {stats.dropped} of {len(trace)}")
+        check(stats.reports_finalized, f"{tag} {mode}: a report is not finalized at the end "
+              f"of the replay: {[(r.event, r.engine) for r in run['history']]}")
+        check(run["closed"] and all(set(r.metrics_after) == set(METRIC_KEYS)
+                                    for r in run["closed_history"]),
+              f"{tag} {mode}: reports pending after every engine retired")
+        check({r.rid: r.tokens_out for r in run["done"]} == oracle,
+              f"{tag} {mode}: streams differ from the unified oracle's")
+        n_prefill = len(trace) + sum(max(r.compiled_in_prepare - 1, 0)
+                                     for r in run["replay_history"])
+        want = {k: model.cfg.num_layers * n_prefill if k == "flash_attention" else 0
+                for k in run["launches"]}
+        check(run["launches"] == want, f"{tag} {mode}: launches {run['launches']}, want "
+              f"{want} ({len(trace)} requests + {n_prefill - len(trace)} warmed prefills)")
+        for name, st in run["graphs"].items():
+            check(st["eager"] <= 1 and st["discards"] == 0,
+                  f"{tag} {mode}: {name} decode {st}: every step after the first replays")
+        free_device()
+    rec_run, off_run = runs.pop("recorded"), runs.pop("unrecorded")
+    a, b = rec_run["stats"], off_run["stats"]
+    check(dataclasses.asdict(a) == dataclasses.asdict(b),
+          f"{tag} the recorded and the unrecorded ReplayStats differ")
+    check(rec_run["ticks"] == off_run["ticks"],
+          f"{tag} decisions per tick differ between the recorded and the unrecorded run")
+    rec, evaluator = rec_run["rec"], rec_run["evaluator"]
+    check(rec.bus.dropped == 0 and rec.trace.dropped == 0,
+          f"{tag} the recorder dropped {rec.bus.dropped} events, {rec.trace.dropped} spans")
+    lineage = RequestLineage.from_recorder(rec)
+    cons = lineage.conservation()
+    check(len(lineage) == a.completed and cons["n_partial"] == 0
+          and cons["ttft_max_rel_err"] <= REPLAY_CONSERVATION_TOL
+          and cons["tpot_max_rel_err"] <= REPLAY_CONSERVATION_TOL,
+          f"{tag} lineage conservation {cons}")
+    ledger = SLOLedger.from_policy(rec_run["planner"]).consume(rec.events())
+    check(ledger.attainment() == a.attainment,
+          f"{tag} SLO ledger attainment {ledger.attainment()} against the replay's "
+          f"{a.attainment}")
+    doc = rec.export_chrome(str(OUT / "replay.trace.json"), flows=lineage.chrome_flows())
+    n_chrome = validate_chrome(json.loads(json.dumps(doc)))
+    final = evaluator.capture_bundle(
+        Alert("replay.end", "warn", t=rec.events()[-1].ts, message="end of the replay"),
+        path=str(Path(bundle_dir) / "end.json"))
+    bundles = [x.bundle for x in evaluator.alerts if x.bundle] + [final]
+    for path in bundles:
+        bundle = load_bundle(path)
+        got = json.loads(json.dumps(replay_ledger(bundle).as_dict()))
+        check(len(bundle["events"]) > 0 and all(
+            got[k] == bundle["slo"][k] for k in ("attainment", "completed", "windows")),
+              f"{tag} bundle {path} does not round-trip")
+    bundles_tmp.cleanup()
+
+    # -- results (printed, not checked) -----------------------------------
+    err = a.prediction_error()
+    traj = " ".join(f"{i + 1}:{t.get('phi', 0)}/{t.get('general', 0)}"
+                    for i, t in enumerate(rec_run["trajectory"]))
+    decisions = [(i + 1, d) for i, ds in enumerate(rec_run["ticks"]) for d in ds]
+    extra = [d for d in decisions if d[1][0] == "spawn"]
+    say(f"{tag} {len(trace)} requests ({a.submitted} submitted, {a.completed} completed, "
+        f"{a.dropped} dropped) in {a.steps} steps of {REPLAY_STEP_TIME_S * 1e3:g} ms over "
+        f"{a.duration_s:.3f} simulated s; {a.engine_seconds:.3f} engine-seconds; engines peak "
+        f"{a.peak_engines}, final {a.final_engines}  [{card}]")
+    say(f"{tag} engines phi/general per tick: {traj}  [{card}]")
+    for t, (kind, label, engine, mode) in decisions:
+        say(f"{tag} tick {t}: {kind} {label} {engine} ({mode})  [{card}]")
+    if not extra:
+        say(f"{tag} the planner spawned nothing beyond its floors (bounds {REPLAY_BOUNDS}, "
+            f"SLO targets {50 * REPLAY_STEP_TIME_S:g} s / {2 * REPLAY_STEP_TIME_S:g} s)  [{card}]")
+    for label, v in sorted(a.attainment.items()):
+        m = a.per_label[label]
+        say(f"{tag} {label}: attainment {100 * v:.1f} % of {m['completed']} requests; TTFT mean "
+            f"{m['ttft_mean_s'] * 1e3:.1f} ms (p99 {m['ttft_p99_s'] * 1e3:.1f}), TPOT mean "
+            f"{m['tpot_mean_s'] * 1e3:.2f} ms, simulated  [{card}]")
+    say(f"{tag} {len(a.windows)} windows, {err['windows_scored']} predicted/measured TTFT and "
+        f"TPOT pairs scored: analytical MARE {err['analytical_mare']}, calibrated MARE "
+        f"{err['calibrated_mare']}  [{card}]")
+    say(f"{tag} alerts fired: {[(x.name, x.severity, x.label or x.engine) for x in evaluator.alerts] or 'none'}; "
+        f"{len(bundles)} bundles round-trip  [{card}]")
+    say(f"{tag} recorded {rec.bus.emitted} events, {rec.trace.added} spans (0 dropped); "
+        f"lineage of {len(lineage)} requests, max relative error TTFT "
+        f"{cons['ttft_max_rel_err']:.3g}, TPOT {cons['tpot_max_rel_err']:.3g}; Chrome export "
+        f"{n_chrome} events with {len(lineage.chrome_flows())} flow events  [{card}]")
+    ratio = rec_run["wall_s"] / off_run["wall_s"]
+    say(f"{tag} wall time of the replay loop: recorded {rec_run['wall_s']:.3f} s, unrecorded "
+        f"{off_run['wall_s']:.3f} s, ratio {ratio:.4f}; {a.steps / rec_run['wall_s']:.1f} and "
+        f"{a.steps / off_run['wall_s']:.1f} steps per wall second; launches "
+        f"{rec_run['launches']}  [{card}]")
+    out = {"requests": len(trace), "step_time_s": REPLAY_STEP_TIME_S,
+           "stats": {k: v for k, v in dataclasses.asdict(a).items() if k != "windows"},
+           "windows": len(a.windows), "prediction_error": err,
+           "decisions": [[t, list(d)] for t, d in decisions],
+           "trajectory": rec_run["trajectory"],
+           "alerts": [[x.name, x.severity, x.label, x.engine, x.t] for x in evaluator.alerts],
+           "events": rec.bus.emitted, "spans": rec.trace.added, "conservation": cons,
+           "wall_s": {"recorded": rec_run["wall_s"], "unrecorded": off_run["wall_s"],
+                      "ratio": ratio},
+           "steps_per_wall_s": [a.steps / rec_run["wall_s"], a.steps / off_run["wall_s"]],
+           "launches": rec_run["launches"], "bundles": len(bundles)}
+    del rec_run, off_run, rec, evaluator, lineage, ledger, doc
+    free_device()
+    mem1 = held_bytes()
+    out["mem_delta"] = mem_delta = mem1[0] - mem0[0]
+    check(abs(mem_delta) <= page_bytes,
+          f"{tag} memory held {mem1[:2]} after the phase, {mem0[:2]} before it: {mem_delta:+d} "
+          f"bytes, more than a page ({page_bytes})")
+    say(f"{tag} memory held after the phase {mem_delta:+d} bytes against before it (a page "
+        f"is {page_bytes})  [{card}]")
+    say(f"{tag} every stream equals the unified oracle's; both runs' ReplayStats and "
+        f"decisions equal")
     return out
 
 
@@ -1916,10 +2182,12 @@ def main() -> int:
     model = cluster_model(card)
     cluster = phase_cluster(card, model)
     mark("cluster")
-    cluster["scale"] = phase_scale(card, model)
+    cluster["scale"], oracle = phase_scale(card, model)
+    mark("scale")
+    cluster["replay"] = phase_replay(card, model, oracle)
     del model
     free_device()
-    mark("scale")
+    mark("replay")
     cluster["ssm_migration"] = phase_ssm_migration(card)
     mark("ssm migrate")
     phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}

@@ -105,6 +105,8 @@ CLOCKED_MODULE_NAMES = (
     "repro_torch.serving.migration",
     "repro_torch.serving.prepare",
     "repro_torch.obs.events",
+    "repro_torch.obs.lineage",
+    "repro_torch.obs.alerts",
 )
 
 

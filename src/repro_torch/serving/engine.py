@@ -59,6 +59,7 @@ from repro_torch.models.common import resolve_device
 from repro_torch.models.lm import POSITIONAL_LEAVES
 from repro_torch.obs import events as obs_events
 from repro_torch.serving import kvpool, migration
+from repro_torch.serving.clock import SYSTEM_CLOCK
 from repro_torch.serving.executable import DecodeExecutable
 from repro_torch.serving.migration import MigrationError, SlotSnapshot, sync
 from repro_torch.sharding.plan import ShardingPlan, default_plan
@@ -475,10 +476,16 @@ class ServingEngine:
                 1 + len(lengths) + len(buckets))
 
     def _capture(self, exe: DecodeExecutable) -> DecodeExecutable:
-        """Capture ``exe``'s graph (on the card), counted in `decode_stats`."""
-        t0 = time.perf_counter()
+        """Capture ``exe``'s graph (on the card), counted in `decode_stats`.
+
+        Timed on the wall clock (`SYSTEM_CLOCK`, which `install_clock`
+        never swaps): a capture is host work the reference's engine has no
+        counterpart of, so it must not advance a simulated clock — a replay
+        reads the installed clock as often, and in the same order, as the
+        reference's."""
+        t0 = SYSTEM_CLOCK.perf_counter()
         if exe.capture(lambda: self._scratch_decode_inputs()()):
-            dt = time.perf_counter() - t0
+            dt = SYSTEM_CLOCK.perf_counter() - t0
             with self._exec_lock:
                 self.decode_stats["captures"] += 1
                 self.decode_stats["capture_s"] += dt

@@ -138,6 +138,8 @@ def test_clock_discipline_of_the_ports_serving_and_obs():
             violations.append(f"{rel}: on the pause path but {mod} is not registered")
     assert violations == []
     assert {m for _, m, _ in scanned} >= registered
+    # the Watchtower modules read the clock (non-advancing) and are swapped
+    assert {"repro_torch.obs.lineage", "repro_torch.obs.alerts"} <= registered
 
 
 def test_clock_lint_patterns_catch_wall_clock_leaks():

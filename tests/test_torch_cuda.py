@@ -565,3 +565,43 @@ def test_spawn_retire_cycle_returns_the_memory(gen):
             assert abs(_held_bytes() - start) <= page, cycle
     finally:
         worker.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# the discrete-event replay on the card (`traffic/replay.py`)
+# ---------------------------------------------------------------------------
+
+
+def test_recorded_replay_on_the_card_equals_the_cpu(gen, monkeypatch):
+    """`recorded_replay` at the reduced config gives the same counts,
+    attainment, decisions and window records on the card as on the CPU
+    when both planners score one pinned profile, under which the phi flash
+    crowd spawns an engine and the tail retires it (token values do not enter
+    a replay's counts: a request stops at its budget). The decode steps
+    after an engine's first replay its graph."""
+    import dataclasses
+
+    import repro_torch.planner as planner_pkg
+    import repro_torch.planner.planner as planner_mod
+    from repro_torch.planner import DeviceProfile
+    from repro_torch.traffic.replay import recorded_replay
+    pinned = DeviceProfile("pinned", peak_flops=1e11, hbm_bw=5e8, mem_bytes=8 << 30,
+                           link_bw=5e8)
+    for mod in (planner_pkg, planner_mod):
+        monkeypatch.setattr(mod, "calibrate_host_profile", lambda **kw: pinned)
+    out = {}
+    for device in ("cuda", "cpu"):
+        stats, rec, planner = recorded_replay(2000, device=device)
+        decisions = [(e.data["action"], e.label, e.engine) for e in rec.events("scale.decision")]
+        out[device] = (dataclasses.asdict(stats), decisions, planner)
+    (card, card_decisions, card_planner), (cpu, cpu_decisions, _) = out["cuda"], out["cpu"]
+    for key in ("n_requests", "submitted", "completed", "dropped", "steps", "duration_s",
+                "engine_seconds", "peak_engines", "final_engines", "attainment",
+                "attainment_overall", "reports", "reports_finalized", "windows"):
+        assert card[key] == cpu[key], key
+    assert card_decisions == cpu_decisions
+    assert [d[0] for d in card_decisions] == ["spawn", "retire"]     # the crowd scales
+    assert card["dropped"] == 0 and card["completed"] == card["n_requests"]
+    for name in card_planner.cluster.engines():
+        stats = card_planner.cluster.engine(name).decode_stats
+        assert stats["eager"] <= 1 and stats["discards"] == 0
