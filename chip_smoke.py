@@ -8,7 +8,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 1. device  — the card's name and power limit (``nvidia-smi``); TF32 off.
 2. build   — compile the port's CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. kernels — each Hopper kernel against its plain PyTorch version on the
-             card, at the serving shapes, within the stated tolerances; times
+             card, at the serving shapes of every served model (Jamba's and
+             Qwen2-VL's GQA ratios and Jamba's SSD state width 16 included),
+             within the stated tolerances; times
              of the kernel, the plain version and one PyTorch library call for
              the same function where there is one (the yardstick; the port
              never calls it); and the launch floor, an empty kernel timed
@@ -102,7 +104,24 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 11. ssm migrate — Mamba2-370m at full width and half depth on two
              slot-granular engines: two requests migrate mid-decode; streams equal the run without
              migration; the SSD scan launches once per layer per prefill.
-12. output — a ``{"kernels": [...]}`` JSON line, then, last, the result line
+12. families — the other decoder families at full width (bf16, random
+             weights from seed 0), each freed before the next: Jamba-v0.1 cut
+             to 16 of its 32 layers (two hybrid periods; all 32 do not fit
+             one card) on the slot-granular pool, 8 requests over 4 slots at
+             the SSM prompt lengths, every prefill launching flash 2, MoE
+             top-k 8 and the SSD scan 14 times, with the profiled run; then
+             one period (8 layers) in fp32, kernel path against plain path
+             (router logits up to the first routing split, logits and every
+             Mamba layer's final state where routing never splits) and decode
+             continuity at the chunk boundaries; MiniCPM3-4B (MLA) paged over
+             its latent cache with the absorbed decode, no kernel launched;
+             Qwen2-VL-2B's text backbone (M-RoPE) paged, flash once per layer
+             per prefill. Each serve as in phase 4 without the profile (decode
+             graph replayed after the first step, run 2 equal to run 1, every
+             replay held to the eager plain decode step).
+13. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
+             its first serve path and on every serve path, and its times at
+             the other families' shapes), then, last, the result line
              ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
@@ -111,6 +130,7 @@ and the repository's ``src/`` beside this file. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import subprocess
@@ -158,8 +178,28 @@ SERVE_NEW_TOKENS = 16
 SSM_ARCH = "mamba2_370m"
 SSM_PROMPT_LENS = (17, 100, 255, 256, 257, 384, 512, 1000)
 SSM_CONTINUITY_LENS = (255, 256, 511)     # around the chunk boundary (256)
-# the kernels each served model's prefill runs, once per layer
-SERVE_KERNELS = {SERVE_ARCH: ("flash_attention", "moe_topk"), SSM_ARCH: ("ssd_scan",)}
+# the other decoder families. Jamba-v0.1 at full width is cut in depth to
+# fit one card: 16 of its 32 layers (two periods of eight) in bf16 for the
+# serve, one period in fp32 for the paths check; MiniCPM3-4B and Qwen2-VL-2B
+# run whole
+HYBRID_ARCH = "jamba_v0_1_52b"
+HYBRID_SERVE_LAYERS = 16
+HYBRID_PATH_LAYERS = 8
+MLA_ARCH = "minicpm3_4b"
+MROPE_ARCH = "qwen2_vl_2b"
+# launches of (flash, MoE top-k, SSD scan) per prefill, by model name and
+# depth, for every model this script builds, counted by hand from the
+# published layer layouts: `launches_per_prefill` derives them from the
+# port's `layer_kinds` and must agree
+PREFILL_LAUNCHES = {
+    ("qwen2-moe-a2.7b", 24): (24, 24, 0),
+    ("mamba2-370m", 48): (0, 0, 48),
+    ("mamba2-370m", 24): (0, 0, 24),
+    ("jamba-v0.1-52b", 16): (2, 8, 14),      # per period of 8: 1 attn, 4 MoE, 7 Mamba
+    ("jamba-v0.1-52b", 8): (1, 4, 7),
+    ("minicpm3-4b", 62): (0, 0, 0),          # MLA prefill is plain `sdpa`
+    ("qwen2-vl-2b", 28): (28, 0, 0),
+}
 
 
 def free_device() -> None:
@@ -298,6 +338,34 @@ def grid_note(blocks: int) -> str:
     return f"{blocks} blocks, {min(blocks, n_sm)} of {n_sm} SMs used"
 
 
+def _flash_timed(gen, S, Hq, Hkv, card, tag):
+    """Time flash at ``(1, S, Hq, Hkv, 128)`` bf16 causal: the kernel
+    (graph-timed and eager), its plain version, PyTorch's
+    `scaled_dot_product_attention` and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    q, k, v = _flash_case(gen, 1, S, Hq, Hkv, 128, torch.bfloat16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kernel = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    t = {"shape": f"B=1 S={S} Hq={Hq} Hkv={Hkv} D=128 bf16 causal",
+         "ms": time_ms(kernel),
+         "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, enable_gqa=True)),
+         "eager_ms": eager_ms(kernel)}
+    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()    # q, k, v read, out written
+    ops_ = 4 * Hq * 128 * S * (S + 1) // 2       # two products over the causal pairs
+    t["bound_ms"], t["bound_by"] = bound(nbytes, ops_, "bfloat16")
+    t["grid"] = grid_note(-(-S // fa.BF16_Q_TILE) * Hq)
+    say(f"[kernels] flash time {tag} S={S} Hq={Hq} Hkv={Hkv} bf16 causal: " + ", ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in t.items() if k != "shape") + f"  [{card}]")
+    return t
+
+
 def _flash_case(gen, B, S, Hq, Hkv, D, dtype):
     import torch
     mk = lambda H: torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)  # noqa: E731
@@ -327,10 +395,8 @@ def moe_tie_ids(E, k):
 
 def phase_kernels(card):
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_dispatch as moe
     from repro_torch.kernels import ssd_scan as ssd
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -345,6 +411,10 @@ def phase_kernels(card):
     flash_err = 0.0
     shapes = [(1, S, 16, 16, 128, "qwen") for S in (17, 128, 200, 384, 512)]
     shapes += [(1, S, 24, 8, 128, "minitron-gqa") for S in SERVE_PROMPT_LENS]
+    # the other families' prefills: Jamba's attention (32 over 8 heads) at
+    # the SSM prompt lengths, Qwen2-VL's (12 over 2) at the serve lengths
+    shapes += [(1, S, 32, 8, 128, "jamba-gqa") for S in SSM_PROMPT_LENS]
+    shapes += [(1, S, 12, 2, 128, "qwen2vl-gqa") for S in SERVE_PROMPT_LENS]
     shapes += [(2, S, 6, 2, D, "edge") for S in (17, 77, 200, 257) for D in (16, 32, 64)]
     for B, S, Hq, Hkv, D, tag in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -364,25 +434,11 @@ def phase_kernels(card):
                     flash_err = max(flash_err, err)
 
     # -- flash attention: time at the serve shapes (bf16, causal) ----------
-    flash_times = {}
-    for S in (128, 200, 384, 512):
-        q, k, v = _flash_case(gen, 1, S, 16, 16, 128, torch.bfloat16)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        kernel = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-        flash_times[S] = {
-            "ms": time_ms(kernel),
-            "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
-            "eager_ms": eager_ms(kernel),
-        }
-        nbytes = 4 * q.numel() * q.element_size()
-        ops_ = 4 * 16 * 128 * S * (S + 1) // 2       # two products over the causal pairs
-        flash_times[S]["bound_ms"], flash_times[S]["bound_by"] = bound(nbytes, ops_, "bfloat16")
-        flash_times[S]["grid"] = grid_note(-(-S // fa.BF16_Q_TILE) * 16)
-        say(f"[kernels] flash time S={S} bf16 causal: " + ", ".join(
-            f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in flash_times[S].items()) + f"  [{card}]")
+    # Qwen's, then the other families' longest prefills: Jamba's at S=1000,
+    # Qwen2-VL's at S=384
+    flash_times = {S: _flash_timed(gen, S, 16, 16, card, "qwen") for S in (128, 200, 384, 512)}
+    for tag, (S, Hq, Hkv) in (("jamba", (1000, 32, 8)), ("qwen2vl", (384, 12, 2))):
+        flash_times[tag] = _flash_timed(gen, S, Hq, Hkv, card, tag)
     t = flash_times[384]
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -390,7 +446,8 @@ def phase_kernels(card):
                  "launches": None, "max_abs_err": flash_err, "ms": t["ms"],
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                 "eager_ms": t["eager_ms"], "shape": "B=1 S=384 Hq=Hkv=16 D=128 bf16 causal"})
+                 "eager_ms": t["eager_ms"], "shape": "B=1 S=384 Hq=Hkv=16 D=128 bf16 causal",
+                 "other_shapes": [flash_times[k] for k in ("jamba", "qwen2vl")]})
 
     # -- MoE top-k: compare ------------------------------------------------
     # every (E, k) of the repo's MoE configs, fp32 and bf16 logits; T from
@@ -460,6 +517,8 @@ def phase_kernels(card):
     # chunks
     cases += [(2, S, 8, 2, 16, 128, chunk, "edge") for S in (17, 77, 255, 257)
               for chunk in (32, 256)]
+    # Jamba's Mamba layers: 128 heads, state width 16 (one 16-column tile)
+    cases += [(1, S, 128, 1, 64, 16, 256, "jamba") for S in (17, 256, 257, 1000)]
     for B, S, H, G, P, N, chunk, tag in cases:
         for dtype in (torch.float32, torch.bfloat16):
             inp = _ssd_case(gen, B, S, H, G, P, N, dtype)
@@ -480,21 +539,24 @@ def phase_kernels(card):
 
     # -- SSD scan: time at two serve prompt lengths (bf16) -----------------
     ssd_times = {}
-    for S in (512, 1000):
-        inp = _ssd_case(gen, 1, S, 32, 1, 64, 128, torch.bfloat16)
+    # two Mamba2 serve prompt lengths, then Jamba's longest (H=128, N=16)
+    for key, (S, H, N) in ((512, (512, 32, 128)), (1000, (1000, 32, 128)),
+                           ("jamba", (1000, 128, 16))):
+        inp = _ssd_case(gen, 1, S, H, 1, 64, N, torch.bfloat16)
         kernel = lambda: ops.ssd_scan(*inp, chunk=256)  # noqa: E731
-        ssd_times[S] = {
+        ssd_times[key] = {
+            "shape": f"B=1 S={S} H={H} G=1 P=64 N={N} chunk=256 bf16",
             "ms": time_ms(kernel),
             "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*inp, chunk=256)),
             "library_ms": None,          # no single PyTorch call computes the scan
             "eager_ms": eager_ms(kernel),
         }
-        ssd_times[S]["bound_ms"], ssd_times[S]["bound_by"] = bound(
-            *ssd_work(1, S, 32, 1, 64, 128, 256, 2), "bfloat16")
-        ssd_times[S]["grid"] = grid_note(32 * 64 // ssd.P_TILE)
-        say(f"[kernels] ssd_scan time S={S} H=32 P=64 N=128 chunk=256 bf16: " + ", ".join(
+        ssd_times[key]["bound_ms"], ssd_times[key]["bound_by"] = bound(
+            *ssd_work(1, S, H, 1, 64, N, 256, 2), "bfloat16")
+        ssd_times[key]["grid"] = grid_note(H * 64 // ssd.P_TILE)
+        say(f"[kernels] ssd_scan time S={S} H={H} P=64 N={N} chunk=256 bf16: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in ssd_times[S].items()) + f"  [{card}]")
+            for k, v in ssd_times[key].items() if k != "shape") + f"  [{card}]")
     t = ssd_times[1000]
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -503,7 +565,8 @@ def phase_kernels(card):
                  "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                  "bound_by": t["bound_by"], "library_ms": None,
                  "eager_ms": t["eager_ms"],
-                 "shape": "B=1 S=1000 H=32 G=1 P=64 N=128 chunk=256 bf16"})
+                 "shape": "B=1 S=1000 H=32 G=1 P=64 N=128 chunk=256 bf16",
+                 "other_shapes": [ssd_times["jamba"]]})
     return rows, {"flash": flash_times, "moe_topk": mt, "ssd_scan": ssd_times,
                   "launch_floor": floor}
 
@@ -566,24 +629,41 @@ def _serve_once(engine, prompts, Request):
     return reqs, wall
 
 
-def launches_per_prefill(arch, n):
-    """Launch counts a run of ``arch`` prefills must add: ``n`` for each
-    kernel its prefill runs, 0 for every other kernel."""
+def launches_per_prefill(cfg, n):
+    """Launch counts ``n`` prefills of ``cfg`` must add: flash once per GQA
+    attention layer (MLA prefill runs plain `sdpa`, as the reference's),
+    MoE top-k once per MoE layer, the SSD scan once per Mamba layer, over
+    every period of a hybrid model."""
     from repro_torch.kernels import ops
-    return {k: n if k in SERVE_KERNELS[arch] else 0 for k in ops.LAUNCHES}
+    from repro_torch.models.lm import layer_kinds, n_scan_steps
+    kinds = layer_kinds(cfg)
+    per_step = {"flash_attention": sum(m == "attn" for m, _ in kinds),
+                "moe_topk": sum(f == "moe" for _, f in kinds),
+                "ssd_scan": sum(m == "ssm" for m, _ in kinds)}
+    per_prefill = {k: n_scan_steps(cfg) * per_step[k] for k in ops.LAUNCHES}
+    key = (cfg.name, cfg.num_layers)
+    check(key in PREFILL_LAUNCHES, f"{key}: no hand-counted launches in PREFILL_LAUNCHES")
+    by_hand = dict(zip(("flash_attention", "moe_topk", "ssd_scan"), PREFILL_LAUNCHES[key]))
+    check(per_prefill == by_hand, f"{key}: the port's layer kinds give {per_prefill} "
+                                  f"launches per prefill, counted by hand {by_hand}")
+    return {k: n * v for k, v in per_prefill.items()}
 
 
-def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **engine_kw):
+def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged,
+                tag=None, layers=None, **engine_kw):
     """``ServingEngine`` over full-width ``arch`` (bf16, random weights from
-    seed 0) on the paged or the slot-granular pool (``paged``): run 1 with
-    the launch counters zeroed just before it and read just after it (its
-    first decode step runs eagerly and captures the decode graph, every
-    later step replays it), run 2 identical with each step's host time
-    recorded, then each prompt's prefill on each path (``path_fn``), whose
-    kernel-path argmax must be the engine's first token, a profiled run 3,
-    the host ops of one graph step against one eager ``decode_step``, and
-    run 4, each graph step held to the eager step (`_graph_vs_eager`).
+    seed 0; cut to ``layers`` when given) on the paged or the slot-granular
+    pool (``paged``): run 1 with the launch counters zeroed just before it
+    and read just after it (its first decode step runs eagerly and captures
+    the decode graph, every later step replays it), run 2 identical with
+    each step's host time recorded, then each prompt's prefill on each path
+    (``path_fn``), whose kernel-path argmax must be the engine's first
+    token, a profiled run 3 (when ``profile_kernels`` is not None), the host
+    ops of one graph step against one eager ``decode_step``, and run 4, each
+    graph step held to the eager (plain) decode step (`_graph_vs_eager`).
     Returns (launches of run 1, metrics, the per-prompt path outputs)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
@@ -591,10 +671,12 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **e
     from repro_torch.models import Model
     from repro_torch.serving import Request, ServingEngine, compute_metrics
 
-    tag = "[serve]" if paged else "[ssm serve]"
+    tag = tag or ("[serve]" if paged else "[ssm serve]")
     parts = [("start", time.perf_counter())]
     part = lambda name: parts.append((name, time.perf_counter()))  # noqa: E731
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = Model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     part("model")
@@ -615,7 +697,7 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **e
     reqs, wall = _serve_once(engine, prompts, Request)
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    want = launches_per_prefill(arch, cfg.num_layers * len(prompts))
+    want = launches_per_prefill(cfg, len(prompts))
     say(f"{tag} run 1: launches {launches} (want {want}), {len(engine.done)} done")
     check(launches == want,
           f"launch counts {launches} != {want} (one per layer per prefill)")
@@ -657,9 +739,11 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged, **e
               f"request {r.rid}: the engine's first token is not the prefill's argmax")
     part("paths")
 
-    profile = _profile_run(engine, prompts, Request, [r.tokens_out for r in reqs], card,
-                           profile_kernels)
-    part("profiled run 3")
+    profile = {}
+    if profile_kernels is not None:
+        profile = _profile_run(engine, prompts, Request, [r.tokens_out for r in reqs], card,
+                               profile_kernels)
+        part("profiled run 3")
     profile["decode_step_host_ops"] = n_ops = _decode_step_host_ops(model, engine.n_slots)
     profile["graph_step_host_ops"] = g_ops = _graph_step_host_ops(engine, prompts[0])
     say(f"{tag} one model.decode_step over {engine.n_slots} sequences issues {n_ops} "
@@ -817,31 +901,40 @@ def _decode_step_host_ops(model, batch):
 PATHS = {"kernel": None, "plain": {}, "plain_tiled": {"q_chunk": 64, "k_chunk": 64}}
 
 
-def _path_logits(model, prompt):
-    """One prompt's last-token logits (fp32, real vocab, on the host) and
-    MoE routing on each of `PATHS`, checking that each path launched what
-    it should: ``{path: (logits, routing)}``."""
+def _path_logits(model, prompt, paths=tuple(PATHS)):
+    """One prompt's last-token logits (fp32, real vocab, on the host), MoE
+    routing and every Mamba layer's final SSM state (fp32, on the host,
+    stacked in cache-key order; None without one) on each of ``paths`` (of
+    `PATHS`), checking that each path launched what it should: ``{path:
+    (logits, routing, states)}``."""
     import torch
 
     from repro_torch.kernels import ops, ref
     from repro_torch.models.common import padded_vocab
+    from repro_torch.models.lm import leaf_name
     cfg = model.cfg
     batch = {"tokens": torch.as_tensor(prompt, device="cuda")[None]}
+    n_moe = launches_per_prefill(cfg, 1)["moe_topk"]   # MoE layers
     out = {}
-    for name, chunks in PATHS.items():
+    for name in paths:
+        chunks = PATHS[name]
         before, routing = dict(ops.LAUNCHES), []
         with routed(ops, ref, chunks, routing):
-            logits, _ = model.prefill(batch)
+            logits, cache = model.prefill(batch)
         torch.cuda.synchronize()
-        want = launches_per_prefill(SERVE_ARCH, cfg.num_layers if chunks is None else 0)
+        want = launches_per_prefill(cfg, 1 if chunks is None else 0)
         want = {n: before[n] + k for n, k in want.items()}
         check(ops.LAUNCHES == want,
               f"the {name} path launched {ops.LAUNCHES} (before: {before}), want {want}")
+        ssm = [cache[k] for k in sorted(cache) if leaf_name(k) == "ssm"]
+        states = torch.cat(ssm).cpu() if ssm else None
         check(tuple(logits.shape) == (1, padded_vocab(cfg.vocab_size))
-              and bool(torch.isfinite(logits).all()),
+              and bool(torch.isfinite(logits).all())
+              and (states is None or bool(torch.isfinite(states).all())),
               f"{name} prefill logits: shape {tuple(logits.shape)}, or not finite")
-        check(len(routing) == cfg.num_layers, f"{name} path: {len(routing)} MoE layers routed")
-        out[name] = (logits[0, :cfg.vocab_size].float().cpu(), routing)
+        check(len(routing) == n_moe, f"{name} path: {len(routing)} MoE layers routed, "
+                                     f"want {n_moe}")
+        out[name] = (logits[0, :cfg.vocab_size].float().cpu(), routing, states)
     return out
 
 
@@ -970,29 +1063,9 @@ def phase_paths(card, bf16):
 def _ssm_path_outputs(model, prompt):
     """One Mamba2 prompt's last-token logits (fp32, real vocab, on the host)
     and every layer's final SSM state ``(L, 1, H, P, N)`` fp32 on the kernel
-    and the plain path, checking that each path launched what it should:
-    ``{path: (logits, states)}``."""
-    import torch
-
-    from repro_torch.kernels import ops, ref
-    from repro_torch.models.common import padded_vocab
-    cfg = model.cfg
-    batch = {"tokens": torch.as_tensor(prompt, device="cuda")[None]}
-    out = {}
-    for name, chunks in (("kernel", None), ("plain", {})):
-        before = dict(ops.LAUNCHES)
-        with routed(ops, ref, chunks, []):
-            logits, cache = model.prefill(batch)
-        torch.cuda.synchronize()
-        want = launches_per_prefill(SSM_ARCH, cfg.num_layers if chunks is None else 0)
-        want = {n: before[n] + k for n, k in want.items()}
-        check(ops.LAUNCHES == want,
-              f"the {name} path launched {ops.LAUNCHES} (before: {before}), want {want}")
-        check(tuple(logits.shape) == (1, padded_vocab(cfg.vocab_size))
-              and bool(torch.isfinite(logits).all()) and bool(torch.isfinite(cache["ssm"]).all()),
-              f"{name} prefill: logits shape {tuple(logits.shape)}, or not finite")
-        out[name] = (logits[0, :cfg.vocab_size].float().cpu(), cache["ssm"])
-    return out
+    and the plain path (`_path_logits`): ``{path: (logits, states)}``."""
+    return {name: (lg, states) for name, (lg, _, states)
+            in _path_logits(model, prompt, ("kernel", "plain")).items()}
 
 
 def phase_ssm_paths(card, bf16):
@@ -1069,6 +1142,184 @@ def phase_ssm_paths(card, bf16):
         check(diff <= SSM_PATH_TOL, f"decode after prefill({S}) parts from prefill({S + 1})")
     return {"prompts": rows, "bf16_rms_vs_fp32": dev, "bf16_mean_rms_vs_fp32": mean,
             "bf16_kernel_limit": limit, "decode_continuity_max_diff": continuity}
+
+
+def phase_hybrid_paths(card):
+    """Jamba at full width, cut to `HYBRID_PATH_LAYERS` (one period), in
+    fp32 (random weights from seed 0): every SSM serve prompt's prefill,
+    kernel path against plain path. Up to the first layer whose MoE routing
+    differs the router logits agree within `ROUTER_TOL`; where routing never
+    differs the logits agree within `PATH_LOGITS_TOL` with the same top-1
+    and every Mamba layer's final state within atol = rtol =
+    `SSM_PATH_TOL`. Then decode continuity on the kernel path: prefill(S)
+    and one decode step of token S (the prefill's cache written into a slot
+    with room for it) give prefill(S + 1)'s logits within `SSM_PATH_TOL`,
+    for S around the chunk boundary (both MoE groups drop no token). Last,
+    the weights rounded to bf16 in place, every prompt on each of `PATHS`
+    in bf16 (the kernels' bf16 variants, the SSD scan's at N = 16 among
+    them): the router logits within `ROUTER_TOL` up to the routing split,
+    and, held to the fp32 plain logits, the kernel path strays at most
+    `BF16_PATH_RATIO` times as far as the plain paths do."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.lm import Leaf, param_layout
+    from repro_torch.serving.engine import _write_slot
+
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), num_layers=HYBRID_PATH_LAYERS,
+                              param_dtype="float32", activ_dtype="float32")
+    t0 = time.perf_counter()
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(model.params))
+    say(f"[hybrid paths] {cfg.name}: {cfg.num_layers} layers (one period), "
+        f"{n_params / 1e9:.2f} B parameters (float32), random from seed 0 in "
+        f"{time.perf_counter() - t0:.1f} s; per prompt, kernel vs plain path  [{card}]")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SSM_PROMPT_LENS]
+    rows, fp32, ok = [], [], True
+    for S, prompt in zip(SSM_PROMPT_LENS, prompts):
+        out = _path_logits(model, prompt, ("kernel", "plain"))
+        (lk, rk, hk), (lp, rp, hp) = out["kernel"], out["plain"]
+        fp32.append(lp)
+        layer, rdiff, n, gap = routing_split(rk, rp)
+        s_ok, s_diff = within(hk, hp, SSM_PATH_TOL)
+        row = {"S": S, "split_layer": layer, "split_tokens": n, "split_gap": gap,
+               "router_max_diff": rdiff, "logits_max_diff": (lk - lp).abs().max().item(),
+               "states_max_diff": s_diff, "top1_kernel": int(lk.argmax()),
+               "top1_plain": int(lp.argmax())}
+        row["ok"] = rdiff <= ROUTER_TOL["float32"] and (layer is not None or (
+            s_ok and row["top1_kernel"] == row["top1_plain"]
+            and row["logits_max_diff"] <= PATH_LOGITS_TOL["float32"]))
+        ok &= row["ok"]
+        rows.append(row)
+        split = "none" if layer is None else f"layer {layer}, {n} tokens, gap {gap:.2e}"
+        say(f"[hybrid paths] float32 S={S}: split {split}; router {rdiff:.2e} "
+            f"(tol {ROUTER_TOL['float32']}); logits max|diff| {row['logits_max_diff']:.3e} "
+            f"(tol {PATH_LOGITS_TOL['float32']}), {hk.shape[0]} final states max|diff| "
+            f"{s_diff:.3e} (tol {SSM_PATH_TOL}), top-1 {row['top1_kernel']} vs "
+            f"{row['top1_plain']}  {'ok' if row['ok'] else 'FAIL'}  [{card}]")
+    check(ok, "full-width fp32 Jamba prefill: the kernel path disagrees with the plain path")
+
+    toks = torch.as_tensor(prompts[-1], device="cuda")[None].long()
+    continuity = {}
+    for S in SSM_CONTINUITY_LENS:
+        _, cache = model.prefill({"tokens": toks[:, :S]})
+        pool = model.init_cache(1, S + 1, dtype=torch.float32)
+        _write_slot(pool, cache, 0)
+        stepped, _ = model.decode_step(toks[:, S:S + 1], pool, torch.tensor(S, device="cuda"))
+        full, _ = model.prefill({"tokens": toks[:, :S + 1]})
+        diff = (stepped - full)[0, :cfg.vocab_size].abs().max().item()
+        continuity[S] = diff
+        say(f"[hybrid paths] decode continuity fp32: prefill({S}) + decode_step(token {S}) vs "
+            f"prefill({S + 1}): logits max|diff| {diff:.3e} (tol {SSM_PATH_TOL})  "
+            f"{'ok' if diff <= SSM_PATH_TOL else 'FAIL'}  [{card}]")
+        check(diff <= SSM_PATH_TOL, f"Jamba decode after prefill({S}) parts from "
+                                    f"prefill({S + 1})")
+    del cache, pool, stepped, full
+
+    # the same weights rounded to bf16, one leaf at a time (the fp32 leaf
+    # freed as its copy is made, so the two models never share the card)
+    cfg16 = dataclasses.replace(cfg, param_dtype="bfloat16", activ_dtype="bfloat16")
+
+    def rounded(tree, layout):
+        for key, spec in layout.items():
+            if isinstance(spec, Leaf):
+                tree[key] = tree[key].to(spec.dtype)
+            else:
+                rounded(tree[key], spec)
+
+    rounded(model.params, param_layout(cfg16))
+    model.cfg = cfg16
+    bf16 = [_path_logits(model, p) for p in prompts]
+    check_bf16 = _bf16_router_check("[hybrid paths]", SSM_PROMPT_LENS, bf16, card)
+    rms = lambda a, b: (a - b).pow(2).mean().sqrt().item()   # noqa: E731
+    dev = {name: [rms(l16[name][0], l32) for l16, l32 in zip(bf16, fp32)] for name in PATHS}
+    mean = {name: float(np.mean(v)) for name, v in dev.items()}
+    limit = BF16_PATH_RATIO * max(mean["plain"], mean["plain_tiled"])
+    for name in PATHS:
+        say(f"[hybrid paths] bf16 {name} path vs fp32 plain logits, rms per prompt: "
+            + " ".join(f"{v:.4f}" for v in dev[name]) + f"; mean {mean[name]:.4f}")
+    say(f"[hybrid paths] bf16 kernel path mean rms {mean['kernel']:.4f} vs limit {limit:.4f} "
+        f"({BF16_PATH_RATIO} x the plain paths')  [{card}]")
+    check(mean["kernel"] <= limit, "full-width bf16 Jamba prefill: the kernel path strays "
+                                   "further from fp32 than the plain paths do")
+    del model
+    free_device()
+    return {"layers": cfg.num_layers, "params": n_params, "prompts": rows,
+            "decode_continuity_max_diff": continuity, "bf16_prompts": check_bf16,
+            "bf16_rms_vs_fp32": dev, "bf16_mean_rms_vs_fp32": mean, "bf16_kernel_limit": limit}
+
+
+def _bf16_router_check(tag, prompt_lens, paths, card):
+    """bf16 prefills, kernel path against plain path, per prompt: up to the
+    first layer whose MoE routing differs (every layer where it never does)
+    the router logits agree within `ROUTER_TOL`. The final logits and SSM
+    states are shown beside it: in bf16 they part for any routing split and
+    for a rounding carried on through the Mamba layers, so only the rms
+    against fp32 (`phase_hybrid_paths`) holds them."""
+    rows, ok = [], True
+    for S, lg in zip(prompt_lens, paths):
+        (lk, rk, hk), (lp, rp, hp) = lg["kernel"], lg["plain"]
+        layer, rdiff, n, gap = routing_split(rk, rp)
+        row = {"dtype": "bfloat16", "S": S, "split_layer": layer, "split_tokens": n,
+               "split_gap": gap, "router_max_diff": rdiff,
+               "logits_max_diff": (lk - lp).abs().max().item(),
+               "states_max_diff": (hk - hp).abs().max().item(),
+               "top1_kernel": int(lk.argmax()), "top1_plain": int(lp.argmax()),
+               "ok": rdiff <= ROUTER_TOL["bfloat16"]}
+        ok &= row["ok"]
+        rows.append(row)
+        split = "none" if layer is None else f"layer {layer}, {n} tokens, gap {gap:.2e}"
+        say(f"{tag} bfloat16 S={S}: split {split}; router {rdiff:.2e} "
+            f"(tol {ROUTER_TOL['bfloat16']}); logits max|diff| {row['logits_max_diff']:.3e}, "
+            f"{hk.shape[0]} final states max|diff| {row['states_max_diff']:.3e}, top-1 "
+            f"{row['top1_kernel']} vs {row['top1_plain']}  {'ok' if row['ok'] else 'FAIL'}  "
+            f"[{card}]")
+    check(ok, f"{tag} bf16 prefill: the router logits of the kernel path part from the "
+              "plain path's before the routing does")
+    return rows
+
+
+def phase_families(card):
+    """The other decoder families served at full width (bf16, random
+    weights from seed 0), each freed before the next is built:
+
+    - Jamba-v0.1 (`HYBRID_SERVE_LAYERS` of 32 layers) on the slot-granular
+      pool, 8 requests over 4 slots at the SSM prompt lengths: flash, MoE
+      top-k and the SSD scan at their per-period counts in every prefill,
+      the profiled run, each prompt's bf16 kernel path held to its plain
+      path (`_bf16_router_check`); then `phase_hybrid_paths`;
+    - MiniCPM3-4B (MLA) on the paged pool over its latent cache: absorbed
+      decode through the decode graph, no kernel launched;
+    - Qwen2-VL-2B's text backbone (M-RoPE) on the paged pool: flash once
+      per layer per prefill.
+
+    Each as `phase_serve` (decode graph replayed after the first step, run
+    2 equal to run 1, run 4 held to the eager plain decode step)."""
+    out = {}
+    launches, out[HYBRID_ARCH], paths = phase_serve(
+        card, HYBRID_ARCH, SSM_PROMPT_LENS, functools.partial(_path_logits,
+                                                              paths=("kernel", "plain")),
+        ("flash_fwd_kernel", "moe_topk_kernel", "ssd_scan_kernel"), paged=False,
+        tag="[hybrid serve]", layers=HYBRID_SERVE_LAYERS, n_slots=4, s_max=1024)
+    out[HYBRID_ARCH]["launches"] = launches
+    out[HYBRID_ARCH]["bf16_paths"] = _bf16_router_check("[hybrid serve]", SSM_PROMPT_LENS,
+                                                        paths, card)
+    del paths
+    free_device()
+    out[HYBRID_ARCH]["paths"] = phase_hybrid_paths(card)
+    for arch, tag in ((MLA_ARCH, "[mla serve]"), (MROPE_ARCH, "[mrope serve]")):
+        launches, out[arch], _ = phase_serve(
+            card, arch, SERVE_PROMPT_LENS, functools.partial(_path_logits, paths=("kernel",)),
+            None, paged=True, tag=tag, n_slots=8, s_max=512, page_size=16)
+        out[arch]["launches"] = launches
+        free_device()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2113,7 +2364,7 @@ def phase_ssm_migration(card):
 
     _, launches = _zeroed_launches(drive)
     records = state["records"]
-    want_l = launches_per_prefill(SSM_ARCH, cfg.num_layers * len(prompts))
+    want_l = launches_per_prefill(cfg, len(prompts))
     check(launches == want_l, f"ssm migration: launches {launches}, want {want_l}")
     check({r.rid: r.tokens_out for r in reqs} == want,
           "the migrated Mamba2 streams differ from the run without migration")
@@ -2190,15 +2441,22 @@ def main() -> int:
     mark("replay")
     cluster["ssm_migration"] = phase_ssm_migration(card)
     mark("ssm migrate")
+    families = phase_families(card)
+    mark("families")
     phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
+    # each kernel's launches on the first serve path that runs it (Qwen's for
+    # flash and MoE top-k, Mamba2's for the scan), and on every serve path
+    by_path = {"qwen serve": launches, "mamba2 serve": ssm_launches,
+               **{f"{name} serve": f["launches"] for name, f in families.items()}}
     for row in rows:
-        runs = launches if row["name"] in SERVE_KERNELS[SERVE_ARCH] else ssm_launches
-        row["launches"] = runs[row["name"]]
+        row["launches"] = (launches if launches[row["name"]] else ssm_launches)[row["name"]]
+        row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": rows, "kernel_times": kernel_times, "serve": serve,
-         "ssm_serve": ssm, "cluster": cluster, "phase_s": phase_s}, indent=1))
+         "ssm_serve": ssm, "cluster": cluster, "families": families, "phase_s": phase_s},
+        indent=1))
     say(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' "
         f"build included; by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f" s  [{card}]")

@@ -2,8 +2,8 @@
 
 Each ported architecture lives in its own module exposing ``CONFIG`` (the
 published configuration) and ``reduced()`` (a tiny same-family config for
-CPU tests). The reference's other architectures are known by name and raise
-`KeyError` until their families are ported.
+CPU tests). The reference's enc-dec architecture is known by name and raises
+`KeyError` until its family is ported.
 """
 from __future__ import annotations
 
@@ -35,8 +35,19 @@ ARCH_IDS: List[str] = [
     "mamba2_370m",
 ]
 
-#: the architectures this port can build
-PORTED: List[str] = ["minitron_4b", "qwen2_moe_a2_7b", "mamba2_370m"]
+#: the architectures this port can build: every decoder-only one (the
+#: enc-dec ``whisper_large_v3`` is not ported yet)
+PORTED: List[str] = [
+    "minicpm3_4b",
+    "nemotron_4_340b",
+    "minitron_4b",
+    "deepseek_coder_33b",
+    "qwen2_vl_2b",
+    "qwen2_moe_a2_7b",
+    "moonshot_v1_16b_a3b",
+    "jamba_v0_1_52b",
+    "mamba2_370m",
+]
 
 _ALIASES: Dict[str, str] = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({

@@ -38,6 +38,10 @@ class Model:
 
     # ---- serving ----
     def prefill(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, lm.Cache]:
+        """``batch``: ``tokens (B, S)``; optionally ``true_len`` (a padded
+        bucket, see `lm.prefill`) and ``positions``: ``(S,)`` or ``(B, S)``,
+        or ``(3, B, S)`` M-RoPE streams for an M-RoPE model (the token
+        positions on all three streams when omitted)."""
         return lm.prefill(self.cfg, self.params, batch)
 
     def decode_step(self, tokens: torch.Tensor, cache: lm.Cache,

@@ -1,13 +1,19 @@
-"""GQA attention (MHA included) with an explicit KV cache.
+"""Attention variants with an explicit cache: GQA (MHA included; RoPE or
+Qwen2-VL's M-RoPE) and MLA (multi-head latent attention, MiniCPM3 /
+DeepSeek-V2 style).
 
-Cache per layer: ``{"k": (B, S_max, Hkv, Dh), "v": (B, S_max, Hkv, Dh)}``.
+Cache per layer:
+  GQA : ``{"k": (B, S_max, Hkv, Dh), "v": (B, S_max, Hkv, Dh)}``
+  MLA : ``{"ckv": (B, S_max, R), "kpe": (B, S_max, Dr)}`` (the latent)
 
 Modes:
-  prefill — full-sequence causal attention through the flash kernel,
-            returns the new K/V
+  prefill — full-sequence causal attention, returns the new cache: GQA
+            through the flash kernel; MLA in the expanded form through plain
+            `sdpa`, as the reference (its qk head dim is not the v head dim)
   decode  — q_len == 1 at per-row (or one shared) position ``pos``; writes
-            the new K/V into the cache IN PLACE and attends over it with
-            `sdpa` (the reference has no decode kernel either)
+            the new entry into the cache IN PLACE and attends over it in
+            plain ops (the reference has no decode kernel either); MLA in the
+            absorbed form
 """
 from __future__ import annotations
 
@@ -16,11 +22,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.common import apply_rope, rope_cos_sin
+from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.models.common import apply_rope, mrope_cos_sin, rmsnorm, rope_cos_sin
 
 Cache = Dict[str, torch.Tensor]
+
+# from this sequence length on, MLA prefill attends chunk by chunk (the
+# reference's threshold; it never materialises S x S logits)
+FLASH_THRESHOLD = 8192
 
 
 def _full_attn(q, k, v, *, scale, causal):
@@ -94,12 +105,22 @@ def gqa_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[fl
     }
 
 
+def _positional_cos_sin(cfg: ModelConfig, positions: torch.Tensor
+                        ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    hd = cfg.resolved_head_dim
+    if cfg.pos_type == "rope":            # positions (S,) or (B, S)
+        return rope_cos_sin(positions, hd, cfg.rope_theta)
+    if cfg.pos_type == "mrope":           # positions (3, B, S)
+        return mrope_cos_sin(positions, hd, cfg.rope_theta, cfg.mrope_sections)
+    return None
+
+
 def gqa_attention(
     cfg: ModelConfig,
     p: dict,
     x: torch.Tensor,                    # (B, S, d)
     *,
-    positions: torch.Tensor,            # (S,) or (B, S)
+    positions: torch.Tensor,            # rope: (S,) or (B, S); mrope: (3, B, S)
     mode: str = "prefill",              # prefill | decode
     causal: bool = True,
     cache: Optional[Cache] = None,
@@ -112,11 +133,10 @@ def gqa_attention(
     k = (x @ p["wk"]).reshape(B, S, hkv, hd)
     v = (x @ p["wv"]).reshape(B, S, hkv, hd)
 
-    if cfg.pos_type != "rope":
-        raise NotImplementedError(f"pos_type {cfg.pos_type!r} is not ported yet")
-    cos, sin = rope_cos_sin(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    cs = _positional_cos_sin(cfg, positions)
+    if cs is not None:
+        q = apply_rope(q, *cs)
+        k = apply_rope(k, *cs)
 
     scale = hd ** -0.5
     if mode == "prefill":
@@ -141,3 +161,129 @@ def gqa_attention(
 
     out = out.reshape(B, S, hq * hd) @ p["wo"]
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], object]]:
+    """Per-layer ``{name: (shape, std)}`` in the reference's key order
+    (``init_mla``); std None is the fan-in rule, "norm" a norm's ``(dim,)``."""
+    m = cfg.mla or MLAConfig()
+    d, hq = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": ((d, m.q_lora_rank), None),
+        "q_norm": ((m.q_lora_rank,), "norm"),
+        "w_uq": ((m.q_lora_rank, hq * qk_head), None),
+        "w_dkv": ((d, m.kv_lora_rank + m.qk_rope_head_dim), None),
+        "kv_norm": ((m.kv_lora_rank,), "norm"),
+        "w_uk": ((m.kv_lora_rank, hq * m.qk_nope_head_dim), None),
+        "w_uv": ((m.kv_lora_rank, hq * m.v_head_dim), None),
+        "wo": ((hq * m.v_head_dim, d),
+               (hq * m.v_head_dim) ** -0.5 / math.sqrt(2 * cfg.num_layers)),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
+    m = cfg.mla or MLAConfig()
+    B, S, _ = x.shape
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    q_lat = rmsnorm(x @ p["w_dq"], p["q_norm"]["scale"], cfg.norm_eps)
+    q = (q_lat @ p["w_uq"]).reshape(B, S, cfg.num_heads, qk_head)
+    q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, apply_rope(q_pe, cos, sin)
+
+
+def _mla_latent_kv(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
+    m = cfg.mla or MLAConfig()
+    ckv_kpe = x @ p["w_dkv"]
+    ckv = rmsnorm(ckv_kpe[..., : m.kv_lora_rank], p["kv_norm"]["scale"], cfg.norm_eps)
+    kpe = apply_rope(ckv_kpe[..., m.kv_lora_rank:][:, :, None, :], cos, sin)[:, :, 0, :]
+    return ckv, kpe                       # kpe: one rotary head shared by all
+
+
+def _mla_expand(cfg: ModelConfig, p: dict, q_nope, q_pe, ckv, kpe):
+    """The expanded form: per-head K (nope | shared rope part) and V from
+    the latent, and Q as (nope | rope)."""
+    m = cfg.mla or MLAConfig()
+    B, S = ckv.shape[:2]
+    hq = cfg.num_heads
+    k_nope = (ckv @ p["w_uk"]).reshape(B, S, hq, m.qk_nope_head_dim)
+    v = (ckv @ p["w_uv"]).reshape(B, S, hq, m.v_head_dim)
+    k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, S, hq, m.qk_rope_head_dim)], dim=-1)
+    return torch.cat([q_nope, q_pe], dim=-1), k, v
+
+
+def mla_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,                    # (B, S, d)
+    *,
+    positions: torch.Tensor,            # (S,) or (B, S)
+    mode: str = "prefill",              # prefill | decode
+    cache: Optional[Cache] = None,
+    pos: Optional[torch.Tensor] = None,  # decode write position: scalar or (B,)
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """MLA with a latent-compressed cache. Prefill uses the expanded form
+    (materialised K/V) through plain `sdpa`, chunked from `FLASH_THRESHOLD`
+    on; it returns the latent ``ckv``/``kpe``. Decode writes the new latent
+    entry into ``cache`` IN PLACE and runs the *absorbed* form:
+    the query is projected into the latent space and attends over the
+    ``R + Dr``-wide cache directly (no per-step K/V re-expansion)."""
+    m = cfg.mla or MLAConfig()
+    B, S, _ = x.shape
+    hq = cfg.num_heads
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    # rotary over the whole qk_rope_head_dim
+    cos, sin = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_pe = _mla_q(cfg, p, x, cos, sin)
+
+    if mode == "prefill":
+        ckv, kpe = _mla_latent_kv(cfg, p, x, cos, sin)
+        q, k, v = _mla_expand(cfg, p, q_nope, q_pe, ckv, kpe)
+        if S >= FLASH_THRESHOLD:
+            # v's head dim differs from q's: pad it for the chunked path
+            dv = m.v_head_dim
+            v_pad = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
+            out = flash_attention_ref(q, k, v_pad, causal=True, scale=scale)[..., :dv]
+        else:
+            out = sdpa(q, k, v, scale=scale, causal=True)
+        new_cache: Optional[Cache] = {"ckv": ckv, "kpe": kpe}
+    elif mode == "decode":
+        if cache is None or pos is None or S != 1:
+            raise ValueError("decode needs a cache, a position and one token per row")
+        ckv_new, kpe_new = _mla_latent_kv(cfg, p, x, cos, sin)
+        pos = torch.as_tensor(pos, device=x.device)
+        ckv, kpe = cache["ckv"], cache["kpe"]
+        S_max = ckv.shape[1]
+        steps = torch.arange(S_max, device=x.device)
+        if pos.dim() == 0:      # one position for the whole batch
+            ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
+            kpe[:, pos] = kpe_new[:, 0].to(kpe.dtype)
+            valid = (steps <= pos)[None, None, None, :]
+        else:                   # per-slot positions (serving engine)
+            bidx = torch.arange(B, device=x.device)
+            ckv[bidx, pos] = ckv_new[:, 0].to(ckv.dtype)
+            kpe[bidx, pos] = kpe_new[:, 0].to(kpe.dtype)
+            valid = (steps[None, :] <= pos[:, None])[:, None, None, :]    # (B,1,1,S)
+        new_cache = cache
+        if ckv.dtype != x.dtype:    # low-precision cache: upcast for the math
+            ckv, kpe = ckv.to(x.dtype), kpe.to(x.dtype)
+        # q_nope (B,1,H,Dn) through w_uk per head -> latent query (B,1,H,R)
+        w_uk = p["w_uk"].reshape(m.kv_lora_rank, hq, m.qk_nope_head_dim)
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+        logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+                  + torch.einsum("bqhd,bsd->bhqs", q_pe, kpe)).float() * scale
+        logits = torch.where(valid, logits, -1e30)
+        w = torch.softmax(logits, dim=-1).to(ckv.dtype)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)                # (B,1,H,R)
+        w_uv = p["w_uv"].reshape(m.kv_lora_rank, hq, m.v_head_dim)
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)
+    else:
+        raise ValueError(f"unknown mode {mode!r} (prefill | decode)")
+
+    out = out.reshape(B, S, hq * m.v_head_dim)
+    return out @ p["wo"], new_cache

@@ -131,6 +131,25 @@ def rope_cos_sin(positions: torch.Tensor, rot_dim: int, theta: float
     return torch.cos(angles), torch.sin(angles)
 
 
+def mrope_cos_sin(positions: torch.Tensor, rot_dim: int, theta: float,
+                  sections: Tuple[int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE over ``(3, B, S)`` position streams (temporal,
+    height, width): frequency index ``i`` takes the stream of its section.
+    Returns cos/sin ``(B, S, rot_dim/2)``, fp32.
+
+    Raises:
+        ValueError: the sections do not cover ``rot_dim / 2`` frequencies.
+    """
+    if sum(sections) != rot_dim // 2:
+        raise ValueError(f"sections {sections} do not sum to rot_dim/2 = {rot_dim // 2}")
+    inv = rope_freqs(rot_dim, theta, device=positions.device)
+    sec_ids = torch.cat([torch.full((s,), i, dtype=torch.long, device=positions.device)
+                         for i, s in enumerate(sections)])          # (rot/2,)
+    pos_sel = positions.index_select(0, sec_ids).movedim(0, -1)    # (B, S, rot/2)
+    angles = pos_sel.float() * inv
+    return torch.cos(angles), torch.sin(angles)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """x ``(B, S, H, D)`` with rotary applied to the leading ``2 *
     cos.shape[-1]`` dims of D; cos/sin ``(B, S, rot/2)`` or ``(S, rot/2)``."""

@@ -1,8 +1,17 @@
-"""Decoder-only LM assembly (dense, MoE and SSM families).
+"""Decoder-only LM assembly (dense, MoE, SSM and hybrid families; GQA or
+MLA attention).
 
 Layer parameters and caches keep the reference's scan-stacked layout: every
-layer leaf has a leading ``L`` dim, and `forward` is a Python loop over it.
-Parameters are nested dicts of tensors with the reference's keys.
+layer leaf has a leading dim of `n_scan_steps`, and `forward` is a Python
+loop over it. Parameters are nested dicts of tensors with the reference's
+keys. A hybrid (Jamba) model scans over *periods*: one step holds
+``hybrid_period`` sub-layers, each under its ``pos{off}`` key (attention at
+``hybrid_attn_offsets``, Mamba elsewhere, MoE per the MoEConfig cadence), so
+its leading dim is ``num_layers / hybrid_period``.
+
+The cache is one flat dict of tensors: a leaf is named by its own name
+(``"k"``, ``"ckv"``, ``"ssm"``, ...), prefixed with ``"pos{off}/"`` in a
+hybrid model (`leaf_name` strips the prefix).
 """
 from __future__ import annotations
 
@@ -29,23 +38,63 @@ Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
 # ---------------------------------------------------------------------------
-# per-layer kinds
+# per-position layer kinds
 # ---------------------------------------------------------------------------
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
-    """(mixer_kind, ffn_kind) of the one repeated layer. The port has the
-    dense and MoE families with GQA attention, and the attention-free SSM
-    family (Mamba2); hybrid periods, MLA and enc-dec are not ported yet."""
-    if cfg.family == "ssm" and not cfg.hybrid_period:
-        return (("ssm", "none"),)
-    if cfg.family not in ("dense", "moe") or cfg.hybrid_period or cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} / attention {cfg.attn_type!r} "
-            "is not ported yet")
-    if cfg.moe is not None and (0 % cfg.moe.every_k_layers == cfg.moe.offset):
-        return (("attn", "moe"),)
-    return (("attn", "mlp"),)
+    """(mixer_kind, ffn_kind) for each in-period position (or the single
+    repeated layer of a homogeneous model): mixers "attn", "mla", "ssm";
+    ffns "mlp", "moe", "none".
+
+    Raises:
+        NotImplementedError: an enc-dec model (not ported yet).
+    """
+    if cfg.encdec is not None:
+        raise NotImplementedError(f"{cfg.name}: the enc-dec family is not ported yet")
+    period = cfg.hybrid_period or 1
+    kinds = []
+    for off in range(period):
+        if cfg.family == "ssm":
+            mixer = "ssm"
+        elif cfg.hybrid_period:
+            mixer = "attn" if off in cfg.hybrid_attn_offsets else "ssm"
+        else:
+            mixer = "mla" if cfg.attn_type == "mla" else "attn"
+        if cfg.family == "ssm":
+            f = "none"
+        elif cfg.moe is not None and off % cfg.moe.every_k_layers == cfg.moe.offset:
+            f = "moe"
+        else:
+            f = "mlp"
+        kinds.append((mixer, f))
+    return tuple(kinds)
+
+
+def n_scan_steps(cfg: ModelConfig) -> int:
+    """The stacked leading dim: layers, or periods of a hybrid model.
+
+    Raises:
+        ValueError: the layers are not a whole number of periods.
+    """
+    period = cfg.hybrid_period or 1
+    if cfg.num_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not whole "
+                         f"periods of {period}")
+    return cfg.num_layers // period
+
+
+def sub_prefixes(cfg: ModelConfig) -> Tuple[str, ...]:
+    """Each in-period position's key prefix: ``"pos{off}/"`` in a hybrid
+    model, ``""`` for the one layer of a homogeneous model."""
+    if cfg.hybrid_period:
+        return tuple(f"pos{off}/" for off in range(cfg.hybrid_period))
+    return ("",)
+
+
+def leaf_name(key: str) -> str:
+    """A cache key's leaf name, without its ``pos{off}/`` prefix."""
+    return key.rsplit("/", 1)[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -55,8 +104,8 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
-    """One parameter: its full shape (with the leading ``L`` for layer
-    leaves), dtype and init: a std, ``None`` for the fan-in rule on the
+    """One parameter: its full shape (with the leading `n_scan_steps` dim
+    for layer leaves), dtype and init: a std, ``None`` for the fan-in rule on the
     per-layer shape, or "ones" / "zeros" / "embed" / "a_log" (the Mamba2
     ``A_log``, `ssm.a_log_init`)."""
 
@@ -68,38 +117,49 @@ class Leaf:
 
 def param_layout(cfg: ModelConfig) -> Params:
     """The parameter tree as `Leaf` specs, key for key the reference's
-    ``lm.init_params`` pytree (padded vocab and experts included)."""
+    ``lm.init_params`` pytree (padded vocab and experts included; a hybrid
+    model's sub-layers under ``layers/pos{off}``)."""
     pd = param_dtype_of(cfg)
-    L, d = cfg.num_layers, cfg.d_model
-    mixer, f = layer_kinds(cfg)[0]
+    steps, d = n_scan_steps(cfg), cfg.d_model
 
     def layer(shape, init, dtype=pd):
-        return Leaf((L,) + tuple(shape), dtype, init, stacked=True)
+        return Leaf((steps,) + tuple(shape), dtype, init, stacked=True)
 
     def norm(dim):
         return {k: layer(s, "ones" if k == "scale" else "zeros")
                 for k, s in norm_shapes(cfg, dim).items()}
 
-    layers: Params = {"mixer_norm": norm(d)}
-    if mixer == "ssm":
-        layers["mixer"] = {k: layer(s, init, dtype or pd)
-                           for k, (s, init, dtype) in ssd.ssm_shapes(cfg).items()}
+    def sublayer(mixer, f):
+        out: Params = {"mixer_norm": norm(d)}
+        if mixer == "ssm":
+            out["mixer"] = {k: layer(s, init, dtype or pd)
+                            for k, (s, init, dtype) in ssd.ssm_shapes(cfg).items()}
+        elif mixer == "mla":
+            out["mixer"] = {k: norm(s[0]) if std == "norm" else layer(s, std)
+                            for k, (s, std) in attn.mla_shapes(cfg).items()}
+        else:
+            out["mixer"] = {k: layer(s, std) for k, (s, std) in attn.gqa_shapes(cfg).items()}
+        if f != "none":
+            out["ffn_norm"] = norm(d)
+        if f == "moe":
+            m = cfg.moe
+            e_pad = ffn.padded_experts(m.num_experts)
+            moe = {"router": layer((d, m.num_experts), 0.02, torch.float32)}
+            moe.update({k: layer(s, std) for k, (s, std)
+                        in ffn.mlp_shapes(cfg, m.d_expert, lead=(e_pad,)).items()})
+            if m.num_shared_experts:
+                moe["shared"] = {k: layer(s, std) for k, (s, std)
+                                 in ffn.mlp_shapes(cfg, m.d_shared).items()}
+            out["ffn"] = moe
+        elif f == "mlp":
+            out["ffn"] = {k: layer(s, std) for k, (s, std) in ffn.mlp_shapes(cfg).items()}
+        return out
+
+    kinds = layer_kinds(cfg)
+    if cfg.hybrid_period:
+        layers = {f"pos{off}": sublayer(*kind) for off, kind in enumerate(kinds)}
     else:
-        layers["mixer"] = {k: layer(s, std) for k, (s, std) in attn.gqa_shapes(cfg).items()}
-    if f != "none":
-        layers["ffn_norm"] = norm(d)
-    if f == "moe":
-        m = cfg.moe
-        e_pad = ffn.padded_experts(m.num_experts)
-        moe = {"router": layer((d, m.num_experts), 0.02, torch.float32)}
-        moe.update({k: layer(s, std) for k, (s, std)
-                    in ffn.mlp_shapes(cfg, m.d_expert, lead=(e_pad,)).items()})
-        if m.num_shared_experts:
-            moe["shared"] = {k: layer(s, std) for k, (s, std)
-                             in ffn.mlp_shapes(cfg, m.d_shared).items()}
-        layers["ffn"] = moe
-    elif f == "mlp":
-        layers["ffn"] = {k: layer(s, std) for k, (s, std) in ffn.mlp_shapes(cfg).items()}
+        layers = sublayer(*kinds[0])
 
     v_pad = padded_vocab(cfg.vocab_size)
     tree: Params = {
@@ -162,20 +222,39 @@ def layer_params(layers: Params, i: int) -> Params:
 # ---------------------------------------------------------------------------
 
 
-#: the cache leaves with a sequence axis (axis 2, after ``L`` and the batch)
-POSITIONAL_LEAVES = ("k", "v")
+#: the cache leaves with a sequence axis (axis 2, after the stacked dim and
+#: the batch), by leaf name (`leaf_name`)
+POSITIONAL_LEAVES = ("k", "v", "ckv", "kpe")
+
+
+def is_positional(key: str) -> bool:
+    """Whether cache leaf ``key`` has a sequence axis (axis 2)."""
+    return leaf_name(key) in POSITIONAL_LEAVES
+
+
+def _mixer_cache_shape(cfg: ModelConfig, mixer: str, batch: int, s_max: int
+                       ) -> Dict[str, Tuple[int, ...]]:
+    if mixer == "ssm":
+        return ssd.state_shapes(cfg, batch)
+    if mixer == "mla":
+        m = cfg.mla
+        return {"ckv": (batch, s_max, m.kv_lora_rank),
+                "kpe": (batch, s_max, m.qk_rope_head_dim)}
+    shape = (batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": shape, "v": shape}
 
 
 def cache_shape(cfg: ModelConfig, batch: int, s_max: int) -> Dict[str, Tuple[int, ...]]:
-    """Shape of each cache leaf, stacked over layers: attention ``k``/``v``
-    ``(L, batch, s_max, Hkv, Dh)``; SSM ``conv_x``/``conv_B``/``conv_C``
-    ``(L, batch, K-1, C)`` and ``ssm`` ``(L, batch, H, P, N)``, which have
-    no sequence axis (``s_max`` does not size them)."""
-    L = cfg.num_layers
-    if layer_kinds(cfg)[0][0] == "ssm":
-        return {k: (L,) + s for k, s in ssd.state_shapes(cfg, batch).items()}
-    shape = (L, batch, s_max, cfg.num_kv_heads, cfg.resolved_head_dim)
-    return {"k": shape, "v": shape}
+    """Shape of each cache leaf, stacked over `n_scan_steps`: attention
+    ``k``/``v`` ``(L, batch, s_max, Hkv, Dh)``; MLA ``ckv`` ``(L, batch,
+    s_max, R)`` and ``kpe`` ``(L, batch, s_max, Dr)``; SSM
+    ``conv_x``/``conv_B``/``conv_C`` ``(L, batch, K-1, C)`` and ``ssm``
+    ``(L, batch, H, P, N)``, which have no sequence axis (``s_max`` does not
+    size them). A hybrid model's leaves are keyed ``pos{off}/<leaf>``."""
+    steps = n_scan_steps(cfg)
+    return {pre + k: (steps,) + s
+            for pre, (mixer, _) in zip(sub_prefixes(cfg), layer_kinds(cfg))
+            for k, s in _mixer_cache_shape(cfg, mixer, batch, s_max).items()}
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
@@ -183,7 +262,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
     """Zeroed decode cache, stacked over layers. bf16 by default, as in the
     reference, whatever the activation dtype; the SSM ``ssm`` state is fp32
     always."""
-    return {k: torch.zeros(s, dtype=ssd.state_dtype(k, dtype), device=device)
+    return {k: torch.zeros(s, dtype=ssd.state_dtype(leaf_name(k), dtype), device=device)
             for k, s in cache_shape(cfg, batch, s_max).items()}
 
 
@@ -197,6 +276,9 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
     h = apply_norm(cfg, p["mixer_norm"], x)
     if mixer == "ssm":
         out, new_cache = ssd.ssm_block(cfg, p["mixer"], h, mode=mode, state=cache)
+    elif mixer == "mla":
+        out, new_cache = attn.mla_attention(
+            cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
     else:
         out, new_cache = attn.gqa_attention(
             cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
@@ -222,13 +304,16 @@ def forward(
     pos: Optional[torch.Tensor] = None,   # decode position: scalar or (B,)
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Returns (hidden (B, S, d), cache). Prefill returns a new cache
-    stacked over layers: ``(L, B, S, Hkv, Dh)`` K/V in the activation dtype,
-    or the SSM state after the prompt (conv histories in the activation
-    dtype, ``ssm`` fp32). Decode writes into ``cache`` in place and returns
-    it. The MoE aux loss is a training term and the port serves only, so it
-    is not computed."""
+    stacked over the scan steps: ``(L, B, S, Hkv, Dh)`` K/V (or the MLA
+    latent) in the activation dtype, or the SSM state after the prompt
+    (conv histories in the activation dtype, ``ssm`` fp32). Decode writes
+    into ``cache`` in place and returns it. ``positions`` defaults to the
+    token positions (``pos`` in decode), as three equal streams ``(3, B,
+    S)`` for M-RoPE. The MoE aux loss is a training term and the port
+    serves only, so it is not computed."""
     B, S = tokens.shape
-    kind = layer_kinds(cfg)[0]
+    kinds = layer_kinds(cfg)
+    prefixes = sub_prefixes(cfg)
     x = params["embed"][tokens].to(dtype_of(cfg))
     if positions is None:
         if mode == "decode":
@@ -236,16 +321,23 @@ def forward(
             positions = p.expand(B)[:, None] if p.dim() == 0 else p[:, None]
         else:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        if cfg.pos_type == "mrope":
+            positions = positions.expand(3, B, S)
 
-    per_layer = []
-    for i in range(cfg.num_layers):
-        lc = {k: v[i] for k, v in cache.items()} if mode == "decode" else None
-        x, new_lc = _run_layer(cfg, layer_params(params["layers"], i), kind, x,
-                               positions=positions, mode=mode, cache=lc, pos=pos)
-        if mode == "prefill":
-            per_layer.append(new_lc)
+    per_step = []
+    for i in range(n_scan_steps(cfg)):
+        lp = layer_params(params["layers"], i)
+        new_lc: Cache = {}
+        for pre, kind in zip(prefixes, kinds):
+            sc = ({k[len(pre):]: v[i] for k, v in cache.items() if k.startswith(pre)}
+                  if mode == "decode" else None)
+            x, out = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
+                                positions=positions, mode=mode, cache=sc, pos=pos)
+            if mode == "prefill":
+                new_lc.update({pre + k: v for k, v in out.items()})
+        per_step.append(new_lc)
     new_cache = cache if mode == "decode" else {
-        k: torch.stack([lc[k] for lc in per_layer]) for k in per_layer[0]}
+        k: torch.stack([lc[k] for lc in per_step]) for k in per_step[0]}
     x = apply_norm(cfg, params["final_norm"], x)
     return x, new_cache
 

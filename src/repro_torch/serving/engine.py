@@ -56,7 +56,7 @@ import torch
 
 from repro_torch.models import Model
 from repro_torch.models.common import resolve_device
-from repro_torch.models.lm import POSITIONAL_LEAVES
+from repro_torch.models.lm import is_positional
 from repro_torch.obs import events as obs_events
 from repro_torch.serving import kvpool, migration
 from repro_torch.serving.clock import SYSTEM_CLOCK
@@ -376,9 +376,9 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def supports_padded_prefill(self) -> bool:
         """Whether bucket-padded prefill is sound for this model: every
-        mixer must be attention (causal attention never reads the padding),
-        the condition under which the cache can be paged too. An SSM mixer
-        folds the whole padded sequence into its state."""
+        mixer must be attention, GQA or MLA (causal attention never reads
+        the padding), the condition under which the cache can be paged too.
+        An SSM mixer folds the whole padded sequence into its state."""
         return kvpool.supports_paging(self.model)
 
     def recent_prompt_lengths(self, cap: Optional[int] = None) -> Tuple[int, ...]:
@@ -632,6 +632,9 @@ class ServingEngine:
             S = len(req.prompt)
             prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                      device=self.device)[None, :]
+            # no positions: the model's default is the token positions (on
+            # all three streams for M-RoPE), the text-only positions the
+            # reference's engine passes
             batch: Dict[str, Any] = {"tokens": prompt}
             with self._exec_lock:
                 bucket = next((b for b in self._bucket_lengths if b >= S), None)
@@ -992,10 +995,11 @@ def _write_slot(pool: Dict[str, torch.Tensor], single: Dict[str, torch.Tensor],
     shapes and finds none when the pool has one slot). A positional leaf's
     sequence axis (axis 2) is zero-padded up to the pool's ``s_max``; every
     leaf is cast to the pool's dtype (the bf16 conv histories of an fp32
-    model round here, as in the reference)."""
+    model round here, as in the reference). A hybrid model's leaves are
+    matched by their ``pos{off}/`` keys and their leaf names."""
     for name, dst in pool.items():
         src = single[name][:, 0]
-        if name in POSITIONAL_LEAVES:
+        if is_positional(name):
             n = src.shape[1]
             dst[:, slot, :n].copy_(src)
             dst[:, slot, n:].zero_()

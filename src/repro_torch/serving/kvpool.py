@@ -48,15 +48,17 @@ class PoolOOM(RuntimeError):
 
 def supports_paging(model) -> bool:
     """Whether the model's KV cache can be paged: every layer's cache must
-    be positional (GQA attention). An SSM state has no sequence axis to
-    page, so SSM models serve on the slot-granular pool."""
-    return all(mixer == "attn" for mixer, _ in layer_kinds(model.cfg))
+    be positional (GQA attention or the MLA latent). An SSM state has no
+    sequence axis to page, so SSM and hybrid models serve on the
+    slot-granular pool."""
+    return all(mixer in ("attn", "mla") for mixer, _ in layer_kinds(model.cfg))
 
 
 def page_axes(model) -> Tuple[Axes, Axes]:
-    """Per-leaf ``(page_axis, seq_axis)`` of the cache layout ``(L, B, S,
-    Hkv, Dh)``: the batch axis holds the pages and the sequence axis follows
-    it, read off the layout the port defines (`Model.cache_shapes`).
+    """Per-leaf ``(page_axis, seq_axis)`` of the cache layout: ``(L, B, S,
+    Hkv, Dh)`` K/V, ``(L, B, S, R)`` / ``(L, B, S, Dr)`` MLA latent. The
+    batch axis holds the pages and the sequence axis follows it, read off
+    the layout the port defines (`Model.cache_shapes`).
 
     Raises:
         ValueError: the model cannot be paged (see `supports_paging`).

@@ -30,9 +30,12 @@ def gen():
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
 @pytest.mark.parametrize("shape", [(1, 200, 16, 16, 128), (2, 77, 6, 2, 64),
                                    (2, 17, 6, 2, 16), (2, 257, 6, 2, 32),
-                                   (2, 200, 6, 2, 64), (1, 257, 4, 4, 128), (1, 1, 4, 2, 64)],
+                                   (2, 200, 6, 2, 64), (1, 257, 4, 4, 128), (1, 1, 4, 2, 64),
+                                   (1, 17, 32, 8, 128), (1, 1000, 32, 8, 128),
+                                   (1, 100, 12, 2, 128), (1, 384, 12, 2, 128)],
                          ids=["qwen_ragged", "gqa_d64", "gqa_s17_d16", "gqa_s257_d32",
-                              "gqa_s200_d64", "s257_d128", "s1"])
+                              "gqa_s200_d64", "s257_d128", "s1", "jamba_s17", "jamba_s1000",
+                              "qwen2vl_s100", "qwen2vl_s384"])
 def test_flash_kernel_matches_plain(gen, shape, causal, dtype, tol):
     B, S, Hq, Hkv, D = shape
     q = torch.randn(B, S, Hq, D, generator=gen, device="cuda").to(dtype)
@@ -114,10 +117,13 @@ def _ssd_case(gen, B, S, H, G, P, N, dtype):
                                    (1, 255, 32, 1, 64, 128, 256), (2, 77, 8, 1, 16, 128, 32),
                                    (1, 257, 8, 2, 16, 64, 256), (1, 200, 4, 1, 32, 32, 80),
                                    (1, 300, 4, 1, 32, 48, 128), (1, 1100, 4, 1, 32, 128, 1024),
-                                   (1, 1, 4, 1, 16, 16, 16)],
+                                   (1, 1, 4, 1, 16, 16, 16), (1, 17, 128, 1, 64, 16, 256),
+                                   (1, 256, 128, 1, 64, 16, 256), (1, 257, 128, 1, 64, 16, 256),
+                                   (1, 1000, 128, 1, 64, 16, 256)],
                          ids=["mamba2_ragged257", "grouped", "mamba2_reduced", "mamba2_s17",
                               "mamba2_s255", "p16_s77_chunk32", "grouped_p16_s257",
-                              "chunk80_partial_tile", "n48_padded", "chunk1024", "s1"])
+                              "chunk80_partial_tile", "n48_padded", "chunk1024", "s1",
+                              "jamba_s17", "jamba_s256", "jamba_s257", "jamba_s1000"])
 def test_ssd_scan_kernel_matches_plain(gen, shape, dtype, tol_y, tol_h):
     B, S, H, G, P, N, chunk = shape
     inp = _ssd_case(gen, B, S, H, G, P, N, dtype)
@@ -175,8 +181,9 @@ def _card_prompts(cfg, sizes=(5, 9, 17, 12)):
 
 
 @pytest.mark.parametrize("arch,paged", [("minitron_4b", True), ("minitron_4b", False),
-                                        ("mamba2_370m", False)],
-                         ids=["paged", "attn_slot", "ssm_slot"])
+                                        ("mamba2_370m", False), ("minicpm3_4b", True),
+                                        ("jamba_v0_1_52b", False)],
+                         ids=["paged", "attn_slot", "ssm_slot", "mla_paged", "hybrid_slot"])
 def test_export_import_on_the_card(gen, arch, paged):
     """Two requests move mid-decode between two engines on the card: the
     streams equal one engine's, every export and import leaves no queued
@@ -288,7 +295,10 @@ def _eager_streams(model, prompts, **kw):
     return streams
 
 
-@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "mamba2_370m"], ids=["qwen_paged", "mamba2_slot"])
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "mamba2_370m", "minicpm3_4b", "qwen2_vl_2b",
+                                  "jamba_v0_1_52b"],
+                         ids=["qwen_paged", "mamba2_slot", "mla_paged", "mrope_paged",
+                              "hybrid_slot"])
 def test_graph_streams_equal_eager_streams(gen, arch):
     """Six uneven requests over three lanes: the first decode step runs
     eagerly and captures, every later one replays the graph; the streams
@@ -301,7 +311,7 @@ def test_graph_streams_equal_eager_streams(gen, arch):
     eng = ServingEngine(model, **kw)
     assert _serve_card(eng, prompts) == want
     stats = eng.decode_stats
-    assert eng.paged == (arch != "mamba2_370m")
+    assert eng.paged == (arch not in ("mamba2_370m", "jamba_v0_1_52b"))
     assert stats["eager"] == 1 and stats["captures"] == 1 and stats["capture_s"] > 0
     assert stats["replays"] == eng.steps - 1
     assert eng.decode_executable.pool_bytes() > 0
