@@ -119,10 +119,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              per prefill. Each serve as in phase 4 without the profile (decode
              graph replayed after the first step, run 2 equal to run 1, every
              replay held to the eager plain decode step).
-13. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
-             its first serve path and on every serve path, and its times at
-             the other families' shapes), then, last, the result line
-             ``{"ok": true, "device": {...}}``.
+13. train — the training side at full width (bf16 params, fp32 AdamW
+             moments, random weights from seed 0), each model freed before the
+             next: Minitron-4B (32 layers) through `make_train_step` driven
+             directly, B=2 x S=1024, loss chunk 256 (step time, tokens/s, model
+             FLOPs against the bf16 peak, peak memory; the loss must fall),
+             then one step each under remat "dots" and "nothing" in parts
+             (what the forward saves, the peaks, a profiled loss-and-gradients
+             each); Mamba2-370m
+             (48 layers) through `TrainRunner` under deterministic algorithms:
+             a run without failure, then one with a checkpoint every 5 steps,
+             a straggler and a failure at step 6, recovered from the
+             checkpoint at 5 (the restored state equal to the saved one and
+             the recovered losses equal to the run without failure, bit for
+             bit; the straggler flagged; save and restore timed); then
+             Whisper-large-v3 (32 + 32 layers, 1500 frames): a few train steps
+             (the loss must fall), a bf16 prefill + greedy decode twice (flash
+             once per decoder layer a prefill, never in decode, run 2 equal to
+             run 1), and in fp32 the prefill's kernel path held to its plain
+             path. The kernel wrappers refuse autograd, so training runs the
+             reference's plain ops, as the reference's does.
+14. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
+             its first serve path and on every serve path, Whisper's prefill
+             included, and its times at the other families' shapes), then,
+             last, the result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
 and the repository's ``src/`` beside this file. Imports nothing of JAX.
@@ -338,8 +358,8 @@ def grid_note(blocks: int) -> str:
     return f"{blocks} blocks, {min(blocks, n_sm)} of {n_sm} SMs used"
 
 
-def _flash_timed(gen, S, Hq, Hkv, card, tag):
-    """Time flash at ``(1, S, Hq, Hkv, 128)`` bf16 causal: the kernel
+def _flash_timed(gen, S, Hq, Hkv, card, tag, D=128):
+    """Time flash at ``(1, S, Hq, Hkv, D)`` bf16 causal: the kernel
     (graph-timed and eager), its plain version, PyTorch's
     `scaled_dot_product_attention` and the bound."""
     import torch
@@ -347,20 +367,20 @@ def _flash_timed(gen, S, Hq, Hkv, card, tag):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
-    q, k, v = _flash_case(gen, 1, S, Hq, Hkv, 128, torch.bfloat16)
+    q, k, v = _flash_case(gen, 1, S, Hq, Hkv, D, torch.bfloat16)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     kernel = lambda: ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    t = {"shape": f"B=1 S={S} Hq={Hq} Hkv={Hkv} D=128 bf16 causal",
+    t = {"shape": f"B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal",
          "ms": time_ms(kernel),
          "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
          "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
              qt, kt, vt, is_causal=True, enable_gqa=True)),
          "eager_ms": eager_ms(kernel)}
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()    # q, k, v read, out written
-    ops_ = 4 * Hq * 128 * S * (S + 1) // 2       # two products over the causal pairs
+    ops_ = 4 * Hq * D * S * (S + 1) // 2       # two products over the causal pairs
     t["bound_ms"], t["bound_by"] = bound(nbytes, ops_, "bfloat16")
     t["grid"] = grid_note(-(-S // fa.BF16_Q_TILE) * Hq)
-    say(f"[kernels] flash time {tag} S={S} Hq={Hq} Hkv={Hkv} bf16 causal: " + ", ".join(
+    say(f"[kernels] flash time {tag} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16 causal: " + ", ".join(
         f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in t.items() if k != "shape") + f"  [{card}]")
     return t
@@ -415,6 +435,9 @@ def phase_kernels(card):
     # the SSM prompt lengths, Qwen2-VL's (12 over 2) at the serve lengths
     shapes += [(1, S, 32, 8, 128, "jamba-gqa") for S in SSM_PROMPT_LENS]
     shapes += [(1, S, 12, 2, 128, "qwen2vl-gqa") for S in SERVE_PROMPT_LENS]
+    # Whisper's decoder prefill (20 over 20 heads of 64) at the train phase's
+    # prompt length, and at one partial tile and its 448-token context
+    shapes += [(1, S, 20, 20, 64, "whisper") for S in (17, WHISPER_PROMPT_LEN, 448)]
     shapes += [(2, S, 6, 2, D, "edge") for S in (17, 77, 200, 257) for D in (16, 32, 64)]
     for B, S, Hq, Hkv, D, tag in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2387,6 +2410,457 @@ def phase_ssm_migration(card):
                             "batch": m.batch} for m in records]}
 
 
+# ---------------------------------------------------------------------------
+# the training side
+# ---------------------------------------------------------------------------
+
+# Constant AdamW LRs under which a handful of steps shows each model's loss
+# falling from its random start (`tools/train_first_steps.py` sweeps 1e-5,
+# 3e-5, 1e-4 and the reference example's warmup_cosine(3e-4, 20, 100) over
+# 8 steps). Adam's first step moves every weight by ~lr sign(g); at
+# Minitron's init it sends the loss from ~13 to 31-38 at every LR of the
+# sweep, and the next steps bring it back below its start.
+TRAIN_LR = {"minitron_4b": 1e-4, "mamba2_370m": 1e-4, "whisper_large_v3": 1e-5}
+TRAIN_ARCH = "minitron_4b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOSS_CHUNK = 2, 1024, 256
+TRAIN_STEPS = 8                 # the first is the warm-up; the rest are timed
+SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 1024
+# Mamba2's run: 8 steps, a checkpoint every 5, a failure at step 6 (after the
+# checkpoint at 5), a straggler at step 4 slowed by 4x the warm step time:
+# three saves in all (the uninterrupted run's final, the failed run's 5 and 8)
+SSM_TRAIN_STEPS, SSM_CKPT_EVERY, SSM_FAIL_AT = 8, 5, 6
+SSM_SLOW_STEP, SSM_SLOW_FACTOR = 4, 4.0
+WHISPER_ARCH = "whisper_large_v3"
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_STEPS = 2, 448, 6
+WHISPER_PROMPT_LEN, WHISPER_NEW_TOKENS = 128, 8
+WHISPER_PATH_TOL = 1e-3         # fp32 prefill logits, kernel vs plain (atol = rtol)
+
+
+def train_flops(cfg, B, S):
+    """Model FLOPs of one train step over ``B x S`` target tokens: three
+    forwards (the backward costs two), recompute not counted. A forward:
+    2 x tokens x each matmul weight (the depthwise conv's too), the tied or
+    untied logits, the attention products (two per pair, causal pairs only
+    where causal), the SSD scan's products (`ssd_work`); an enc-dec model's
+    encoder and cross K/V run over the ``F`` frames."""
+    import math
+
+    from repro_torch import tree as tree_util
+    from repro_torch.models import encdec, lm, ssm
+    from repro_torch.models.common import padded_vocab
+
+    def weights(tree, keep=lambda path: True):
+        return sum(math.prod(leaf.shape) for path, leaf in tree_util.items(tree)
+                   if leaf.stacked and len(leaf.shape) == 3 and keep(path))
+
+    H, D = cfg.num_heads, cfg.resolved_head_dim
+    fwd = 2 * B * S * cfg.d_model * padded_vocab(cfg.vocab_size)
+    if cfg.encdec is not None:
+        F_enc, L_enc = cfg.encdec.encoder_seq_len, cfg.encdec.num_encoder_layers
+        lay = encdec.param_layout(cfg)
+        cross_kv = weights(lay["dec_layers"], lambda p: p in ("cross_attn/wk", "cross_attn/wv"))
+        fwd += 2 * B * (F_enc * (weights(lay["enc_layers"]) + cross_kv)
+                        + S * (weights(lay["dec_layers"]) - cross_kv))
+        fwd += B * H * D * (4 * L_enc * F_enc * F_enc
+                            + cfg.num_layers * (2 * S * (S + 1) + 4 * S * F_enc))
+        return 3 * fwd
+    fwd += 2 * B * S * weights(lm.param_layout(cfg)["layers"])
+    kinds, steps = lm.layer_kinds(cfg), lm.n_scan_steps(cfg)
+    fwd += steps * sum(m == "attn" for m, _ in kinds) * 2 * B * H * D * S * (S + 1)
+    n_ssm = steps * sum(m == "ssm" for m, _ in kinds)
+    if n_ssm:
+        _, Hs, P, N, _ = ssm.ssm_dims(cfg)
+        fwd += n_ssm * ssd_work(B, S, Hs, cfg.ssm.n_groups, P, N, cfg.ssm.chunk_size, 2)[1]
+    return 3 * fwd
+
+
+def _train_setup(arch, **model_kw):
+    """Full-width ``arch`` (bf16, random weights from seed 0), AdamW with
+    fp32 moments, and the train step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    model = Model(get_config(arch), device="cuda", seed=0, **model_kw)
+    opt = AdamW(lr=TRAIN_LR[arch])
+    return model, opt.init(model.params), make_train_step(model, opt)
+
+
+def _timed_steps(step_fn, params, opt_state, batches):
+    """Drive ``step_fn`` over ``batches`` (made before the clock starts):
+    (losses, wall seconds per step, each ending in the loss's host read)."""
+    import torch
+    losses, times = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss, _ = step_fn(params, opt_state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def _profiled_step(tag, step_fn, params, opt_state, batch, card, top=5):
+    """One more train step under `torch.profiler`: its wall time, the
+    device's busy share of it and the kernels that took the most device
+    time (the profiler's own host work is inside the wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, loss, _ = step_fn(params, opt_state, batch)
+        float(loss)
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    say(f"{tag} profiled step: wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+        f"({100 * busy / wall:.1f} %, idle {100 * (1 - busy / wall):.1f} %), "
+        f"{sum(r[1] for r in rows)} kernels; top: " + "; ".join(
+            f"{d / 1e3:.1f} ms {c}x {k[:48]}" for d, c, k in rows[:top]) + f"  [{card}]")
+    return {"wall_s": wall, "device_busy_s": busy, "kernels": sum(r[1] for r in rows),
+            "top": [{"device_ms": d / 1e3, "calls": c, "name": k} for d, c, k in rows[:top]]}
+
+
+def _train_figures(tag, cfg, B, S, losses, times, peak, card):
+    """Print and return a run's step time (median of the warm steps),
+    tokens/s, model FLOPs against the card's bf16 peak and peak memory."""
+    step_s = float(np.median(times[1:]))
+    flops = train_flops(cfg, B, S)
+    fig = {"losses": losses, "step_s": times, "warm_step_s": step_s,
+           "tokens_per_s": B * S / step_s, "model_flops": flops,
+           "flops_share": flops / step_s / PEAK_OPS_PER_S["bfloat16"], "peak_bytes": peak}
+    say(f"{tag} {cfg.name} B={B} S={S}: warm step {step_s * 1e3:.1f} ms (median of "
+        f"{len(times) - 1}; all " + " ".join(f"{t * 1e3:.1f}" for t in times)
+        + f" ms), {fig['tokens_per_s']:.0f} tokens/s, model FLOPs {flops:.3e} a step = "
+        f"{100 * fig['flops_share']:.1f} % of the bf16 peak, peak memory "
+        f"{peak / 1e9:.2f} GB; losses " + " ".join(f"{x:.4f}" for x in losses) + f"  [{card}]")
+    check(all(np.isfinite(losses)), f"{tag} a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"{tag} the loss did not fall: {losses}")
+    return fig
+
+
+def _train_dense(card):
+    """(a) Minitron-4B, all 32 layers: `TRAIN_STEPS` steps of the train step
+    driven directly (a runner's final save would write ~50 GB), remat
+    "nothing"; then one step under "dots" and one under "nothing" again,
+    each in parts with its own peaks, and a profiled loss-and-gradients
+    under each; then a profiled step."""
+    import torch
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    model, opt_state, step_fn = _train_setup(TRAIN_ARCH, loss_chunk=TRAIN_LOSS_CHUNK)
+    cfg = model.cfg
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0, device=model.device)
+    state_bytes = sum(t.numel() * t.element_size() for t in _leaves(model.params)) + sum(
+        t.numel() * t.element_size() for t in _leaves(opt_state))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = _timed_steps(step_fn, model.params, opt_state,
+                                 [ds.batch_at(i) for i in range(TRAIN_STEPS)])
+    fig = _train_figures("[train dense]", cfg, TRAIN_BATCH, TRAIN_SEQ, losses, times,
+                         torch.cuda.max_memory_allocated(), card)
+    fig["state_bytes"] = state_bytes
+    # one more step under each remat policy, in its two parts: loss and
+    # gradients, then AdamW (its fp32 copies of a leaf set the step's peak,
+    # the same under both). What a policy saves is held at the end of the
+    # forward (above the state held before it); the gradients, all alive at
+    # the end of the backward, set that part's peak. Then one profiled
+    # loss-and-gradients each
+    from repro_torch import tree as tree_util
+    from repro_torch.launch.steps import _loss_and_grads
+    policies = {}
+    opt = AdamW(lr=TRAIN_LR[TRAIN_ARCH])
+    for i, policy in enumerate(("dots", "nothing")):
+        other = Model(cfg, model.params, device=model.device, remat_policy=policy,
+                      loss_chunk=TRAIN_LOSS_CHUNK)
+        batch = ds.batch_at(TRAIN_STEPS + i)
+        free_device()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = [p.detach().requires_grad_(True) for p in tree_util.leaves(model.params)]
+        with torch.enable_grad():
+            loss, _ = other.train_loss(batch, params=tree_util.like(model.params, leaves))
+            saved = torch.cuda.memory_allocated() - held
+            grads = torch.autograd.grad(loss, leaves)
+        del leaves
+        loss = float(loss)
+        t1 = time.perf_counter()
+        grads_peak = torch.cuda.max_memory_allocated()
+        opt.update(tree_util.like(model.params, grads), opt_state, model.params)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del grads
+        check(np.isfinite(loss), f"[train dense] remat {policy}: loss {loss}")
+        policies[policy] = {"loss": loss, "loss_and_grads_s": t1 - t0, "adamw_s": t2 - t1,
+                            "step_s": t2 - t0, "held_bytes": held, "saved_bytes": saved,
+                            "grads_peak_bytes": grads_peak,
+                            "peak_bytes": torch.cuda.max_memory_allocated()}
+    for i, policy in enumerate(("dots", "nothing")):
+        other = Model(cfg, model.params, device=model.device, remat_policy=policy,
+                      loss_chunk=TRAIN_LOSS_CHUNK)
+        policies[policy]["profile"] = _profiled_step(
+            f"[train dense] remat {policy} (loss and gradients only)",
+            lambda p, s, b, m=other: (p, s, _loss_and_grads(m, p, b)[0], None),
+            model.params, opt_state, ds.batch_at(TRAIN_STEPS + 2 + i), card)
+        free_device()
+    say(f"[train dense] state (params bf16 + fp32 m, v) {state_bytes / 1e9:.2f} GB; one step "
+        "each in parts, remat " + "; ".join(
+            f"{p}: loss and gradients {v['loss_and_grads_s'] * 1e3:.1f} ms, "
+            f"{v['saved_bytes'] / 1e9:.2f} GB saved by the forward and a peak "
+            f"{(v['grads_peak_bytes'] - v['held_bytes']) / 1e9:.2f} GB, both above the "
+            f"{v['held_bytes'] / 1e9:.2f} GB held; AdamW in place {v['adamw_s'] * 1e3:.1f} ms, "
+            f"step peak {v['peak_bytes'] / 1e9:.2f} GB" for p, v in policies.items())
+        + f"  [{card}]")
+    fig["remat"] = policies
+    fig["parts_s"] = {"loss_and_grads": policies["nothing"]["loss_and_grads_s"],
+                      "adamw": policies["nothing"]["adamw_s"]}
+    fig["profile"] = _profiled_step("[train dense]", step_fn, model.params, opt_state,
+                                    ds.batch_at(TRAIN_STEPS + 4), card)
+    del model, opt_state, step_fn
+    free_device()
+    return fig
+
+
+def _host_copy(tree):
+    from repro_torch import tree as tree_util
+    return {name: t.detach().cpu().clone() for name, t in tree_util.items(tree)}
+
+
+def _train_recovery(card):
+    """(b) Mamba2-370m, all 48 layers, under deterministic algorithms: an
+    uninterrupted `TrainRunner` run, then a fresh one that checkpoints,
+    meets a straggler and fails mid-run, and `recover_and_run`s from its
+    last periodic checkpoint. The restored state must equal the saved one
+    bit for bit, the recovered losses the uninterrupted run's, and the
+    straggler must be flagged."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime import TrainRunner
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        def runner(ckpt_dir, ckpt_every):
+            model, opt_state, step_fn = _train_setup(SSM_ARCH, loss_chunk=TRAIN_LOSS_CHUNK)
+            ds = SyntheticLM(model.cfg.vocab_size, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, seed=0,
+                             device=model.device)
+            return model.cfg, TrainRunner(step_fn=step_fn, params=model.params,
+                                          opt_state=opt_state, dataset=ds,
+                                          ckpt_dir=root / ckpt_dir, ckpt_every=ckpt_every)
+
+        cfg, plain = runner("plain", 10 * SSM_TRAIN_STEPS)
+        step_times, observe = [], plain.monitor.observe
+        plain.monitor.observe = lambda step, dt: observe(step, step_times.append(dt) or dt)
+        torch.cuda.reset_peak_memory_stats()
+        plain.run(SSM_TRAIN_STEPS)
+        fig = _train_figures("[train ssm]", cfg, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, plain.losses,
+                             step_times, torch.cuda.max_memory_allocated(), card)
+        warm = fig["warm_step_s"]
+        del plain
+        gc.collect()
+
+        cfg, failing = runner("failing", SSM_CKPT_EVERY)
+        saved, timings = {}, {"save_s": [], "restore_s": []}
+        save, restore = failing._save, failing.try_restore
+
+        def timed_save():
+            if failing.step == SSM_CKPT_EVERY:
+                saved["params"], saved["opt"] = (_host_copy(failing.params),
+                                                 _host_copy(failing.opt_state))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save()
+            timings["save_s"].append(time.perf_counter() - t)
+
+        def timed_restore():
+            t = time.perf_counter()
+            ok = restore()
+            torch.cuda.synchronize()
+            timings["restore_s"].append(time.perf_counter() - t)
+            check(ok and failing.step == SSM_CKPT_EVERY,
+                  f"[train ssm] restored step {failing.step}, want {SSM_CKPT_EVERY}")
+            for key, tree in (("params", failing.params), ("opt", failing.opt_state)):
+                for name, t in tree_util.items(tree):
+                    check(torch.equal(t.cpu(), saved[key][name]),
+                          f"[train ssm] restored {key}/{name} differs from the saved state")
+            return ok
+
+        failing._save, failing.try_restore = timed_save, timed_restore
+        slow = {SSM_SLOW_STEP: SSM_SLOW_FACTOR * warm}
+        try:
+            failing.run(SSM_TRAIN_STEPS, fail_at=SSM_FAIL_AT, slow_steps=slow)
+            check(False, "[train ssm] the injected failure did not raise")
+        except RuntimeError as e:
+            check("simulated node failure" in str(e), f"[train ssm] {e}")
+        check(latest_step(failing.ckpt_dir) == SSM_CKPT_EVERY,
+              f"[train ssm] last checkpoint {latest_step(failing.ckpt_dir)}, "
+              f"want {SSM_CKPT_EVERY}")
+        out = failing.recover_and_run(SSM_TRAIN_STEPS)
+        last = failing.ckpt_dir / f"step_{SSM_TRAIN_STEPS:08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in last.iterdir())
+        check(out["steps"] == SSM_TRAIN_STEPS and out["restarts"] == 1, f"[train ssm] {out}")
+        # the failed run's losses: steps 0 .. FAIL_AT-1, then CKPT_EVERY .. end again
+        first, resumed = failing.losses[:SSM_FAIL_AT], failing.losses[SSM_FAIL_AT:]
+        want = fig["losses"]
+        check(first == want[:SSM_FAIL_AT] and resumed == want[SSM_CKPT_EVERY:],
+              f"[train ssm] losses {failing.losses} differ from the uninterrupted run's {want}")
+        flagged = [r for r in failing.monitor.flagged if r.step == SSM_SLOW_STEP]
+        check(bool(flagged), f"[train ssm] the straggler at step {SSM_SLOW_STEP} was not "
+                             f"flagged: {failing.monitor.flagged}")
+        rep = flagged[0]
+        say(f"[train ssm] failure at step {SSM_FAIL_AT}, resumed from checkpoint "
+            f"{SSM_CKPT_EVERY}: restored state equals the saved state bit for bit; the "
+            f"recovered losses equal the uninterrupted run's bit for bit (deterministic "
+            f"algorithms); a checkpoint {ckpt_bytes / 1e9:.2f} GB on disk, saves "
+            + " ".join(f"{t:.2f}" for t in timings["save_s"]) + " s, restore "
+            + " ".join(f"{t:.2f}" for t in timings["restore_s"]) + f" s; straggler at step "
+            f"{rep.step}: {rep.step_time_s:.3f} s against an EWMA of {rep.ewma_s:.3f} s "
+            f"({rep.slowdown:.1f}x)  [{card}]")
+        fig["profile"] = _profiled_step("[train ssm]", failing.step_fn, failing.params,
+                                        failing.opt_state,
+                                        failing.dataset.batch_at(SSM_TRAIN_STEPS), card)
+        fig.update(timings, checkpoint_bytes=ckpt_bytes, restarts=out["restarts"],
+                   straggler={"step": rep.step, "step_s": rep.step_time_s,
+                              "ewma_s": rep.ewma_s, "slowdown": rep.slowdown},
+                   disk_free_bytes=shutil.disk_usage(root).free)
+        del failing
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+        free_device()
+    return fig
+
+
+def _whisper_greedy(model, batch, n_new):
+    """Prefill ``batch`` and decode ``n_new`` greedy tokens from a bf16
+    cache: (prefill logits, every step's logits, the tokens, the launches
+    of the prefill and of the decode)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    ops.reset_launches()
+    logits, pre = model.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_launches = dict(ops.LAUNCHES)
+    cache = model.init_cache(1, S + n_new, enc_len=batch["frames"].shape[1])
+    for key, t in pre.items():
+        cache[key][:, :, :t.shape[2]] = t
+    ops.reset_launches()
+    steps, out = [logits], []
+    for i in range(n_new):
+        nxt = steps[-1].argmax(dim=-1, keepdim=True).to(torch.int32)
+        out.append(int(nxt[0, 0]))
+        lg, cache = model.decode_step(nxt, cache, torch.tensor(S + i, device=model.device))
+        steps.append(lg)
+    torch.cuda.synchronize()
+    return logits, torch.stack(steps), out, prefill_launches, dict(ops.LAUNCHES)
+
+
+def _train_whisper(card):
+    """(c) Whisper-large-v3 (32 + 32 layers, d 1280; 1500 frames): a few
+    train steps with the loss falling; then a bf16 prefill and greedy
+    decode, twice: flash launches once per decoder layer per prefill (the
+    decoder's causal self-attention; the encoder and cross-attention are
+    bidirectional, plain `sdpa`), never in decode, and run 2 equals run 1;
+    then the weights in fp32, the prefill's kernel path held to its plain
+    path (logits within `WHISPER_PATH_TOL`)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import Model
+    from repro_torch.models.common import padded_vocab
+    model, opt_state, step_fn = _train_setup(WHISPER_ARCH)
+    cfg = model.cfg
+    cell = ShapeCell("whisper_train", "train", WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = _timed_steps(step_fn, model.params, opt_state,
+                                 [make_batch(cfg, cell, step=i, device=model.device)
+                                  for i in range(WHISPER_TRAIN_STEPS)])
+    fig = _train_figures("[train whisper]", cfg, WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ,
+                         losses, times, torch.cuda.max_memory_allocated(), card)
+    fig["profile"] = _profiled_step("[train whisper]", step_fn, model.params, opt_state,
+                                    make_batch(cfg, cell, step=WHISPER_TRAIN_STEPS,
+                                               device=model.device), card)
+    del opt_state, step_fn
+    free_device()
+
+    prompt = make_batch(cfg, ShapeCell("whisper_prompt", "prefill", WHISPER_PROMPT_LEN, 1),
+                        step=0, seed=1, device=model.device)
+    batch = {"frames": prompt["frames"], "tokens": prompt["tokens"][:, :WHISPER_PROMPT_LEN]}
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            runs.append(_whisper_greedy(model, batch, WHISPER_NEW_TOKENS))
+    (lg1, steps1, toks1, pre1, dec1), (lg2, steps2, toks2, _, _) = runs
+    want = {"flash_attention": cfg.num_layers, "moe_topk": 0, "ssd_scan": 0}
+    check(pre1 == want, f"[whisper] prefill launched {pre1}, want {want}")
+    check(not any(dec1.values()), f"[whisper] decode launched {dec1}")
+    V = padded_vocab(cfg.vocab_size)
+    check(tuple(steps1.shape) == (WHISPER_NEW_TOKENS + 1, 1, V)
+          and bool(torch.isfinite(steps1).all()), "[whisper] logits: shape or not finite")
+    check(toks1 == toks2 and torch.equal(steps1, steps2), "[whisper] run 2 differs from run 1")
+    say(f"[whisper] bf16 prefill of {WHISPER_PROMPT_LEN} tokens over {cfg.encdec.encoder_seq_len} "
+        f"frames + {WHISPER_NEW_TOKENS} greedy tokens {toks1}: launches {pre1} a prefill, "
+        f"{dec1} in decode; run 2 equals run 1 (tokens, logits)  [{card}]")
+    fig.update(prefill_launches=pre1, tokens=toks1)
+    fig["flash_time"] = _flash_timed(torch.Generator(device=model.device).manual_seed(0),
+                                     WHISPER_PROMPT_LEN, cfg.num_heads, cfg.num_kv_heads,
+                                     card, "whisper", D=cfg.resolved_head_dim)
+    del model, runs, lg1, lg2, steps1, steps2
+    free_device()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", activ_dtype="float32")
+    model = Model(cfg32, device="cuda", seed=0)
+    paths = {}
+    with torch.no_grad():
+        for name in ("kernel", "plain"):
+            chunks = None if name == "kernel" else {}
+            before = dict(ops.LAUNCHES)
+            with routed(ops, ref, chunks, []):
+                logits, _ = model.prefill(batch)
+            torch.cuda.synchronize()
+            n = ops.LAUNCHES["flash_attention"] - before["flash_attention"]
+            check(n == (cfg.num_layers if chunks is None else 0),
+                  f"[whisper paths] the {name} path launched flash {n} times")
+            paths[name] = logits[0, :cfg.vocab_size].float()
+    ok, err = within(paths["kernel"], paths["plain"], WHISPER_PATH_TOL)
+    say(f"[whisper paths] fp32 prefill, kernel vs plain path: logits max|diff| {err:.3e} "
+        f"(atol = rtol {WHISPER_PATH_TOL}), top-1 {int(paths['kernel'].argmax())} vs "
+        f"{int(paths['plain'].argmax())}  {'ok' if ok else 'FAIL'}  [{card}]")
+    check(ok, "[whisper paths] the kernel path disagrees with the plain path")
+    fig["paths_max_diff"] = err
+    del model, paths
+    free_device()
+    return fig
+
+
+def phase_train(card):
+    """The training side at full width: (a) Minitron-4B, (b) Mamba2-370m
+    with a failure, recovery and a straggler, (c) Whisper-large-v3 with its
+    prefill and decode; each freed before the next."""
+    return {TRAIN_ARCH: _train_dense(card), SSM_ARCH: _train_recovery(card),
+            WHISPER_ARCH: _train_whisper(card)}
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2443,11 +2917,14 @@ def main() -> int:
     mark("ssm migrate")
     families = phase_families(card)
     mark("families")
+    train = phase_train(card)
+    mark("train")
     phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     # each kernel's launches on the first serve path that runs it (Qwen's for
     # flash and MoE top-k, Mamba2's for the scan), and on every serve path
     by_path = {"qwen serve": launches, "mamba2 serve": ssm_launches,
-               **{f"{name} serve": f["launches"] for name, f in families.items()}}
+               **{f"{name} serve": f["launches"] for name, f in families.items()},
+               "whisper prefill": train[WHISPER_ARCH]["prefill_launches"]}
     for row in rows:
         row["launches"] = (launches if launches[row["name"]] else ssm_launches)[row["name"]]
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
@@ -2455,7 +2932,8 @@ def main() -> int:
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": rows, "kernel_times": kernel_times, "serve": serve,
-         "ssm_serve": ssm, "cluster": cluster, "families": families, "phase_s": phase_s},
+         "ssm_serve": ssm, "cluster": cluster, "families": families, "train": train,
+         "phase_s": phase_s},
         indent=1))
     say(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' "
         f"build included; by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

@@ -1,9 +1,7 @@
 """Architecture config registry of the port.
 
-Each ported architecture lives in its own module exposing ``CONFIG`` (the
-published configuration) and ``reduced()`` (a tiny same-family config for
-CPU tests). The reference's enc-dec architecture is known by name and raises
-`KeyError` until its family is ported.
+Each architecture lives in its own module exposing ``CONFIG`` (the published
+configuration) and ``reduced()`` (a tiny same-family config for CPU tests).
 """
 from __future__ import annotations
 
@@ -35,19 +33,8 @@ ARCH_IDS: List[str] = [
     "mamba2_370m",
 ]
 
-#: the architectures this port can build: every decoder-only one (the
-#: enc-dec ``whisper_large_v3`` is not ported yet)
-PORTED: List[str] = [
-    "minicpm3_4b",
-    "nemotron_4_340b",
-    "minitron_4b",
-    "deepseek_coder_33b",
-    "qwen2_vl_2b",
-    "qwen2_moe_a2_7b",
-    "moonshot_v1_16b_a3b",
-    "jamba_v0_1_52b",
-    "mamba2_370m",
-]
+#: the architectures this port can build: all of the reference's
+PORTED: List[str] = list(ARCH_IDS)
 
 _ALIASES: Dict[str, str] = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({
@@ -60,8 +47,6 @@ def _module(arch: str):
     key = _ALIASES.get(arch, arch.replace("-", "_").replace(".", "_"))
     if key not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch!r}; known: {sorted(_ALIASES)}")
-    if key not in PORTED:
-        raise KeyError(f"architecture {arch!r} is not ported yet; ported: {PORTED}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 
 

@@ -2,7 +2,11 @@
 
 A CPU tensor takes the kernel's plain PyTorch version (`kernels.ref`). A
 CUDA tensor launches the hand-written Hopper kernel, or raises on what the
-kernel does not take; nothing falls back. `LAUNCHES` counts, per kernel, the
+kernel does not take; nothing falls back. The Hopper kernels are forward
+only, as the reference's Pallas kernels are (none defines a VJP): they fill
+their output through ctypes, where autograd would see a constant, so a
+wrapper raises on a CUDA input that requires grad while grad mode is on,
+rather than give a silent zero gradient. `LAUNCHES` counts, per kernel, the
 launches made through these wrappers, so a run can show that its path went
 through the kernels. A PREPARE worker thread launches kernels while the
 serving thread does, so a count is raised under a lock.
@@ -34,6 +38,13 @@ def _count(name: str) -> None:
         LAUNCHES[name] += 1
 
 
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the Hopper kernels are forward-only, as the reference's Pallas "
+            "kernels are; differentiate through the plain ops (the models' train mode)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -41,6 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, Sq, Hq, D)`` in q's dtype (replaces Pallas `flash_attention`)."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    _refuse_autograd("flash_attention", q, k, v)
     out = _fa.flash_attention(q, k, v, causal=causal, scale=scale)
     _count("flash_attention")
     return out
@@ -52,6 +64,7 @@ def moe_topk(logits: torch.Tensor, k: int, *, norm_topk: bool = False
     int32) (replaces Pallas `moe_topk`)."""
     if logits.device.type == "cpu":
         return ref.moe_topk_ref(logits, k, norm_topk=norm_topk)
+    _refuse_autograd("moe_topk", logits)
     out = _moe.moe_topk(logits, k, norm_topk=norm_topk)
     _count("moe_topk")
     return out
@@ -66,6 +79,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Pallas `ssd_scan`)."""
     if x.device.type == "cpu":
         return ref.ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=chunk)
+    _refuse_autograd("ssd_scan", x, dt, A, B_mat, C_mat)
     out = _ssd.ssd_scan(x, dt, A, B_mat, C_mat, chunk=chunk)
     _count("ssd_scan")
     return out

@@ -1,12 +1,17 @@
-"""Attention variants with an explicit cache: GQA (MHA included; RoPE or
-Qwen2-VL's M-RoPE) and MLA (multi-head latent attention, MiniCPM3 /
-DeepSeek-V2 style).
+"""Attention variants with an explicit cache: GQA (MHA included; RoPE,
+Qwen2-VL's M-RoPE, or none for learned positions), MLA (multi-head latent
+attention, MiniCPM3 / DeepSeek-V2 style) and the Whisper decoder's
+cross-attention.
 
 Cache per layer:
-  GQA : ``{"k": (B, S_max, Hkv, Dh), "v": (B, S_max, Hkv, Dh)}``
-  MLA : ``{"ckv": (B, S_max, R), "kpe": (B, S_max, Dr)}`` (the latent)
+  GQA   : ``{"k": (B, S_max, Hkv, Dh), "v": (B, S_max, Hkv, Dh)}``
+  MLA   : ``{"ckv": (B, S_max, R), "kpe": (B, S_max, Dr)}`` (the latent)
+  cross : ``{"k": (B, S_enc, Hkv, Dh), "v": (B, S_enc, Hkv, Dh)}``
 
 Modes:
+  train   — full-sequence causal (or bidirectional) attention, no cache, in
+            the reference's plain ops only (no kernel has a backward): plain
+            `sdpa`, chunked `flash_attention_ref` from `FLASH_THRESHOLD` on
   prefill — full-sequence causal attention, returns the new cache: GQA
             through the flash kernel; MLA in the expanded form through plain
             `sdpa`, as the reference (its qk head dim is not the v head dim)
@@ -29,17 +34,26 @@ from repro_torch.models.common import apply_rope, mrope_cos_sin, rmsnorm, rope_c
 
 Cache = Dict[str, torch.Tensor]
 
-# from this sequence length on, MLA prefill attends chunk by chunk (the
-# reference's threshold; it never materialises S x S logits)
+# from this sequence length on, causal attention in train mode (and MLA
+# prefill) attends chunk by chunk (the reference's threshold; it never
+# materialises S x S logits)
 FLASH_THRESHOLD = 8192
 
 
 def _full_attn(q, k, v, *, scale, causal):
-    """Causal attention goes to the flash kernel (its plain version on the
-    CPU); bidirectional attention to `sdpa`."""
+    """Prefill: causal attention goes to the flash kernel (its plain version
+    on the CPU); bidirectional attention to `sdpa`."""
     if causal:
         return kops.flash_attention(q, k, v, causal=True, scale=scale)
     return sdpa(q, k, v, scale=scale, causal=False)
+
+
+def _train_attn(q, k, v, *, scale, causal):
+    """Train mode, the reference's plain ops: `sdpa`, or the chunked
+    online-softmax `flash_attention_ref` for long causal sequences."""
+    if causal and q.shape[1] >= FLASH_THRESHOLD:
+        return flash_attention_ref(q, k, v, causal=True, scale=scale)
+    return sdpa(q, k, v, scale=scale, causal=causal)
 
 
 # ---------------------------------------------------------------------------
@@ -121,7 +135,7 @@ def gqa_attention(
     x: torch.Tensor,                    # (B, S, d)
     *,
     positions: torch.Tensor,            # rope: (S,) or (B, S); mrope: (3, B, S)
-    mode: str = "prefill",              # prefill | decode
+    mode: str = "prefill",              # train | prefill | decode
     causal: bool = True,
     cache: Optional[Cache] = None,
     pos: Optional[torch.Tensor] = None,  # decode write position: scalar or (B,)
@@ -139,8 +153,11 @@ def gqa_attention(
         k = apply_rope(k, *cs)
 
     scale = hd ** -0.5
-    if mode == "prefill":
-        new_cache: Optional[Cache] = {"k": k, "v": v}
+    if mode == "train":
+        new_cache: Optional[Cache] = None
+        out = _train_attn(q, k, v, scale=scale, causal=causal)
+    elif mode == "prefill":
+        new_cache = {"k": k, "v": v}
         out = _full_attn(q, k, v, scale=scale, causal=causal)
     elif mode == "decode":
         if cache is None or pos is None or S != 1:
@@ -157,10 +174,51 @@ def gqa_attention(
         new_cache = cache
         out = sdpa(q, k_cache, v_cache, scale=scale, causal=False, kv_len=pos + 1)
     else:
-        raise ValueError(f"unknown mode {mode!r} (prefill | decode)")
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
 
     out = out.reshape(B, S, hq * hd) @ p["wo"]
     return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (the Whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Optional[float]]]:
+    """The reference's ``init_cross_attn``: a GQA layer's projections."""
+    return gqa_shapes(cfg)
+
+
+def cross_attention(
+    cfg: ModelConfig,
+    p: dict,
+    x: torch.Tensor,                            # (B, S_dec, d)
+    *,
+    enc_out: Optional[torch.Tensor] = None,     # (B, S_enc, d): train, prefill
+    cache: Optional[Cache] = None,              # decode: the encoder's K/V
+) -> Tuple[torch.Tensor, Cache]:
+    """Bidirectional attention of the decoder over the encoder output, in
+    plain `sdpa`. Without ``cache`` it projects ``enc_out`` to K/V and
+    returns them as the new cache (computed once, at prefill); with one it
+    reads the cached K/V and returns the cache as it is.
+
+    Raises:
+        ValueError: neither ``enc_out`` nor ``cache`` is given.
+    """
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, hq, hd)
+    if cache is None:
+        if enc_out is None:
+            raise ValueError("cross-attention needs the encoder output or its cache")
+        F_enc = enc_out.shape[1]
+        k = (enc_out @ p["wk"]).reshape(B, F_enc, hkv, hd)
+        v = (enc_out @ p["wv"]).reshape(B, F_enc, hkv, hd)
+        cache = {"k": k, "v": v}
+    out = sdpa(q, cache["k"], cache["v"], scale=hd ** -0.5, causal=False)
+    return out.reshape(B, S, hq * hd) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------
@@ -223,13 +281,14 @@ def mla_attention(
     x: torch.Tensor,                    # (B, S, d)
     *,
     positions: torch.Tensor,            # (S,) or (B, S)
-    mode: str = "prefill",              # prefill | decode
+    mode: str = "prefill",              # train | prefill | decode
     cache: Optional[Cache] = None,
     pos: Optional[torch.Tensor] = None,  # decode write position: scalar or (B,)
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """MLA with a latent-compressed cache. Prefill uses the expanded form
-    (materialised K/V) through plain `sdpa`, chunked from `FLASH_THRESHOLD`
-    on; it returns the latent ``ckv``/``kpe``. Decode writes the new latent
+    """MLA with a latent-compressed cache. Train and prefill use the
+    expanded form (materialised K/V) through plain `sdpa`, chunked from
+    `FLASH_THRESHOLD` on; prefill returns the latent ``ckv``/``kpe``, train
+    no cache. Decode writes the new latent
     entry into ``cache`` IN PLACE and runs the *absorbed* form:
     the query is projected into the latent space and attends over the
     ``R + Dr``-wide cache directly (no per-step K/V re-expansion)."""
@@ -241,7 +300,7 @@ def mla_attention(
     cos, sin = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)
     q_nope, q_pe = _mla_q(cfg, p, x, cos, sin)
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         ckv, kpe = _mla_latent_kv(cfg, p, x, cos, sin)
         q, k, v = _mla_expand(cfg, p, q_nope, q_pe, ckv, kpe)
         if S >= FLASH_THRESHOLD:
@@ -251,7 +310,7 @@ def mla_attention(
             out = flash_attention_ref(q, k, v_pad, causal=True, scale=scale)[..., :dv]
         else:
             out = sdpa(q, k, v, scale=scale, causal=True)
-        new_cache: Optional[Cache] = {"ckv": ckv, "kpe": kpe}
+        new_cache: Optional[Cache] = {"ckv": ckv, "kpe": kpe} if mode == "prefill" else None
     elif mode == "decode":
         if cache is None or pos is None or S != 1:
             raise ValueError("decode needs a cache, a position and one token per row")
@@ -283,7 +342,7 @@ def mla_attention(
         w_uv = p["w_uv"].reshape(m.kv_lora_rank, hq, m.v_head_dim)
         out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)
     else:
-        raise ValueError(f"unknown mode {mode!r} (prefill | decode)")
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
 
     out = out.reshape(B, S, hq * m.v_head_dim)
     return out @ p["wo"], new_cache

@@ -2,6 +2,7 @@
 included), activations, rotary embeddings and init."""
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -57,6 +58,12 @@ def padded_vocab(vocab_size: int) -> int:
     return (vocab_size + m - 1) // m * m
 
 
+def vocab_mask(vocab_size: int, padded: int, *, device=None) -> torch.Tensor:
+    """``(padded,)`` fp32 additive mask: 0 for real ids, -1e30 for padding."""
+    ids = torch.arange(padded, device=device)
+    return torch.where(ids < vocab_size, 0.0, -1e30).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # norms (fp32 accumulation, cast back to input dtype)
 # ---------------------------------------------------------------------------
@@ -107,9 +114,11 @@ def norm_shapes(cfg: ModelConfig, dim: int) -> dict:
 def act_fn(name: str):
     if name == "silu":
         return F.silu
+    if name == "gelu":           # jax.nn.gelu's default: the tanh approximation
+        return lambda x: F.gelu(x, approximate="tanh")
     if name == "relu2":
         return lambda x: F.relu(x).square()
-    raise ValueError(f"unknown activation {name!r} (the port has silu, relu2)")
+    raise ValueError(f"unknown activation {name!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +173,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     if x_pass.shape[-1]:
         out = torch.cat([out, x_pass], dim=-1)
     return out
+
+
+def sinusoidal_positions(length: int, dim: int, *, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings, ``(length, dim)`` fp32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=device) / (half - 1))
+    args = torch.arange(length, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

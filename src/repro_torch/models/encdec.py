@@ -1,0 +1,233 @@
+"""Whisper-style encoder-decoder backbone.
+
+The audio frontend (log-mel and conv) is a stub, as in the reference: the
+inputs are precomputed frame embeddings ``(B, F, d_model)``. The encoder adds
+sinusoidal positions and attends bidirectionally; the decoder adds learned
+positions and runs causal self-attention with a KV cache, then
+cross-attention whose K/V are computed from the encoder output once, at
+prefill, and cached.
+
+Parameters keep the reference's layout: ``enc_layers`` and ``dec_layers``
+stacked over their layers. The cache is one flat dict, as the decoder-only
+model's: ``self/k``, ``self/v`` ``(L, B, S_max, Hkv, Dh)`` and ``cross/k``,
+``cross/v`` ``(L, B, S_enc, Hkv, Dh)``. Causal prefill of the decoder goes
+through the flash kernel; the encoder, cross-attention, decode and training
+run plain ops, as the reference's do.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import lm
+from repro_torch.models import mlp as ffn
+from repro_torch.models.common import (
+    apply_norm,
+    dtype_of,
+    norm_shapes,
+    padded_vocab,
+    param_dtype_of,
+    sinusoidal_positions,
+)
+from repro_torch.models.lm import Cache, Leaf, Params
+
+
+def param_layout(cfg: ModelConfig, max_seq: Optional[int] = None) -> Params:
+    """The parameter tree as `Leaf` specs, key for key the reference's
+    ``encdec.init_params`` pytree; ``pos_embed`` has ``max_seq`` rows
+    (``min(max_seq_len, 32768)`` by default)."""
+    pd = param_dtype_of(cfg)
+    d = cfg.d_model
+    max_seq = max_seq or min(cfg.max_seq_len, 32_768)
+
+    def stack(n, shapes):
+        return {k: Leaf((n,) + tuple(s), pd, std, stacked=True) for k, (s, std) in shapes.items()}
+
+    def norm(n=None):
+        shapes = {k: (s, "ones" if k == "scale" else "zeros")
+                  for k, s in norm_shapes(cfg, d).items()}
+        if n is None:
+            return {k: Leaf(s, pd, init) for k, (s, init) in shapes.items()}
+        return stack(n, shapes)
+
+    L_enc, L_dec = cfg.encdec.num_encoder_layers, cfg.num_layers
+    return {
+        "embed": Leaf((padded_vocab(cfg.vocab_size), d), pd, "embed"),
+        "pos_embed": Leaf((max_seq, d), pd, "embed"),
+        "enc_layers": {
+            "attn_norm": norm(L_enc),
+            "attn": stack(L_enc, attn.gqa_shapes(cfg)),
+            "mlp_norm": norm(L_enc),
+            "mlp": stack(L_enc, ffn.mlp_shapes(cfg)),
+        },
+        "enc_norm": norm(),
+        "dec_layers": {
+            "self_norm": norm(L_dec),
+            "self_attn": stack(L_dec, attn.gqa_shapes(cfg)),
+            "cross_norm": norm(L_dec),
+            "cross_attn": stack(L_dec, attn.cross_attn_shapes(cfg)),
+            "mlp_norm": norm(L_dec),
+            "mlp": stack(L_dec, ffn.mlp_shapes(cfg)),
+        },
+        "dec_norm": norm(),
+    }
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *, device: torch.device,
+                max_seq: Optional[int] = None) -> Params:
+    return lm.init_layout(param_layout(cfg, max_seq), gen, device=device)
+
+
+def _checkpointed(fn, remat: bool):
+    """``fn`` recomputed in backward (nothing saved inside) when ``remat``."""
+    if not remat:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
+           remat: bool = True) -> torch.Tensor:
+    """Stub frame embeddings ``(B, F, d)`` -> encoder output ``(B, F, d)``."""
+    B, F_enc, d = frames.shape
+    x = frames.to(dtype_of(cfg))
+    x = x + sinusoidal_positions(F_enc, d, device=x.device).to(x.dtype)[None]
+    positions = torch.arange(F_enc, dtype=torch.int32, device=x.device)
+
+    def body(x, lp):
+        h = apply_norm(cfg, lp["attn_norm"], x)
+        out, _ = attn.gqa_attention(cfg, lp["attn"], h, positions=positions,
+                                    mode="train", causal=False)
+        x = x + out
+        h = apply_norm(cfg, lp["mlp_norm"], x)
+        return x + ffn.mlp(cfg, lp["mlp"], h)
+
+    body = _checkpointed(body, remat)
+    for lp in lm.unstack(params["enc_layers"]):
+        x = body(x, lp)
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+def _dec_layer(cfg, lp, x, *, positions, mode, self_cache, cross_cache, enc_out, pos):
+    h = apply_norm(cfg, lp["self_norm"], x)
+    out, new_self = attn.gqa_attention(cfg, lp["self_attn"], h, positions=positions,
+                                       mode=mode, cache=self_cache, pos=pos)
+    x = x + out
+    h = apply_norm(cfg, lp["cross_norm"], x)
+    out, new_cross = attn.cross_attention(cfg, lp["cross_attn"], h, enc_out=enc_out,
+                                          cache=cross_cache)
+    x = x + out
+    h = apply_norm(cfg, lp["mlp_norm"], x)
+    return x + ffn.mlp(cfg, lp["mlp"], h), new_self, new_cross
+
+
+def decode_stack(
+    cfg: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,                     # (B, S) int
+    *,
+    mode: str,                                # train | prefill | decode
+    enc_out: Optional[torch.Tensor] = None,   # train, prefill
+    cache: Optional[Cache] = None,            # decode
+    pos: Optional[torch.Tensor] = None,       # decode position: scalar or (B,)
+    remat: bool = True,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """The decoder over ``tokens``: returns (hidden after ``dec_norm``,
+    cache). Train mode returns no cache, each layer recomputed in backward
+    when ``remat``; prefill returns the new cache (self K/V of the prompt and
+    the cross K/V of ``enc_out``, in the activation dtype); decode writes
+    the new self K/V entry into ``cache`` IN PLACE and returns it."""
+    B, S = tokens.shape
+    x = params["embed"][tokens].to(dtype_of(cfg))
+    if mode == "decode":
+        p = torch.as_tensor(pos, device=x.device).long()
+        if p.dim() == 0:
+            pe = params["pos_embed"][p][None, None]          # (1, 1, d)
+            positions = p.expand(B)[:, None]
+        else:                                                # per-slot positions
+            pe = params["pos_embed"][p][:, None]             # (B, 1, d)
+            positions = p[:, None]
+        x = x + pe.to(x.dtype)
+    else:
+        x = x + params["pos_embed"][:S][None].to(x.dtype)
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+
+    def layer(x, lp, self_cache=None, cross_cache=None):
+        return _dec_layer(cfg, lp, x, positions=positions, mode=mode, self_cache=self_cache,
+                          cross_cache=cross_cache, enc_out=enc_out, pos=pos)
+
+    if mode == "train":
+        body = _checkpointed(lambda x, lp: layer(x, lp)[0], remat)
+        for lp in lm.unstack(params["dec_layers"]):
+            x = body(x, lp)
+        return apply_norm(cfg, params["dec_norm"], x), None
+
+    per_layer = []
+    for i, lp in enumerate(lm.unstack(params["dec_layers"])):
+        if mode == "decode":
+            x, _, _ = layer(x, lp, {k: cache[f"self/{k}"][i] for k in "kv"},
+                            {k: cache[f"cross/{k}"][i] for k in "kv"})
+        elif mode == "prefill":
+            x, new_self, new_cross = layer(x, lp)
+            per_layer.append({**{f"self/{k}": v for k, v in new_self.items()},
+                              **{f"cross/{k}": v for k, v in new_cross.items()}})
+        else:
+            raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
+    if mode == "prefill":
+        cache = {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]}
+    return apply_norm(cfg, params["dec_norm"], x), cache
+
+
+def cache_shape(cfg: ModelConfig, batch: int, s_max: int, enc_len: int
+                ) -> Dict[str, Tuple[int, ...]]:
+    L, hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    self_shape = (L, batch, s_max, hkv, hd)
+    cross_shape = (L, batch, enc_len, hkv, hd)
+    return {"self/k": self_shape, "self/v": self_shape,
+            "cross/k": cross_shape, "cross/v": cross_shape}
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, enc_len: int, *,
+               dtype: torch.dtype = torch.bfloat16, device: torch.device) -> Cache:
+    """Zeroed decode cache, bf16 by default, as in the reference."""
+    return {k: torch.zeros(s, dtype=dtype, device=device)
+            for k, s in cache_shape(cfg, batch, s_max, enc_len).items()}
+
+
+def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    return hidden @ params["embed"].T          # Whisper ties its embeddings
+
+
+def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
+               loss_chunk: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``batch``: ``frames (B, F, d)``, ``tokens (B, S + 1)``, optionally
+    ``loss_mask (B, S)``. Returns (ce, ``{"ce", "moe_aux"}``), the aux loss
+    a zero scalar."""
+    enc_out = encode(cfg, params, batch["frames"])
+    tokens = batch["tokens"]
+    hidden, _ = decode_stack(cfg, params, tokens[:, :-1], mode="train", enc_out=enc_out)
+    ce = lm.cross_entropy(cfg, params, hidden, tokens[:, 1:], mask=batch.get("loss_mask"),
+                          chunk=loss_chunk)
+    return ce, {"ce": ce, "moe_aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
+            ) -> Tuple[torch.Tensor, Cache]:
+    """``batch``: ``frames`` and ``tokens (B, S)``. Returns (last-token
+    logits ``(B, V_pad)``, cache)."""
+    enc_out = encode(cfg, params, batch["frames"], remat=False)
+    hidden, cache = decode_stack(cfg, params, batch["tokens"], mode="prefill",
+                                 enc_out=enc_out, remat=False)
+    return logits_fn(cfg, params, hidden[:, -1:, :])[:, 0, :], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor, cache: Cache,
+                pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+    """One step over ``tokens (B, 1)`` at ``pos``: returns (logits
+    ``(B, V_pad)``, cache updated in place)."""
+    hidden, cache = decode_stack(cfg, params, tokens, mode="decode", cache=cache, pos=pos,
+                                 remat=False)
+    return logits_fn(cfg, params, hidden[:, 0:1, :])[:, 0, :], cache

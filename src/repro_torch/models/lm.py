@@ -16,10 +16,14 @@ hybrid model (`leaf_name` strips the prefix).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts, noop_context_fn)
 
+from repro_torch import tree as tree_util
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as ffn
@@ -32,6 +36,7 @@ from repro_torch.models.common import (
     norm_shapes,
     padded_vocab,
     param_dtype_of,
+    vocab_mask,
 )
 
 Params = Dict[str, Any]
@@ -48,10 +53,11 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[Tuple[str, str], ...]:
     ffns "mlp", "moe", "none".
 
     Raises:
-        NotImplementedError: an enc-dec model (not ported yet).
+        ValueError: an enc-dec model (its stacks are `models.encdec`'s).
     """
     if cfg.encdec is not None:
-        raise NotImplementedError(f"{cfg.name}: the enc-dec family is not ported yet")
+        raise ValueError(f"{cfg.name}: an enc-dec model has no decoder-only layer "
+                         "kinds (see repro_torch.models.encdec)")
     period = cfg.hybrid_period or 1
     kinds = []
     for off in range(period):
@@ -186,11 +192,11 @@ def map_layout(fn, layout: Params, *trees: Params, path: str = "") -> Params:
     return out
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator, *,
-                device: torch.device) -> Params:
-    """Random weights made on ``device`` from ``gen``, with the reference's
-    std rules. A stacked leaf is drawn one layer at a time, so a full-width
-    model needs one layer's fp32 draw of scratch, not one leaf's."""
+def init_layout(layout: Params, gen: torch.Generator, *, device: torch.device) -> Params:
+    """Random weights for a `Leaf` layout, made on ``device`` from ``gen``,
+    with the reference's std rules. A stacked leaf is drawn one layer at a
+    time, so a full-width model needs one layer's fp32 draw of scratch, not
+    one leaf's."""
 
     def make(_, leaf: Leaf):
         if leaf.init == "ones":
@@ -208,7 +214,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
             out[i] = dense_init(gen, leaf.shape[1:], leaf.dtype, leaf.init, device=device)
         return out
 
-    return map_layout(make, param_layout(cfg))
+    return map_layout(make, layout)
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator, *,
+                device: torch.device) -> Params:
+    """Random weights of ``cfg``'s layout (`init_layout`)."""
+    return init_layout(param_layout(cfg), gen, device=device)
 
 
 def layer_params(layers: Params, i: int) -> Params:
@@ -272,6 +284,8 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
 
 
 def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
+    """One sub-layer: returns (x, its new cache (None in train mode), its
+    MoE aux loss (None unless a train-mode MoE layer))."""
     mixer, f = kind
     h = apply_norm(cfg, p["mixer_norm"], x)
     if mixer == "ssm":
@@ -284,13 +298,74 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
             cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
     x = x + out
     if f == "none":
-        return x, new_cache
+        return x, new_cache, None
     h = apply_norm(cfg, p["ffn_norm"], x)
+    aux = None
     if f == "moe":
-        out, _ = ffn.moe_ffn(cfg, p["ffn"], h, kernel=(mode == "prefill"))
+        out, aux = ffn.moe_ffn(cfg, p["ffn"], h, kernel=(mode == "prefill"),
+                               want_aux=(mode == "train"))
     else:
         out = ffn.mlp(cfg, p["ffn"], h)
-    return x + out, new_cache
+    return x + out, new_cache, aux
+
+
+def unstack(layers: Params) -> list:
+    """The stacked layer tree as one tree per scan step, each leaf a view
+    from one `unbind` of its stacked leaf, so autograd writes each stacked
+    gradient once (indexing each layer would add a full-size zero gradient
+    per layer)."""
+    views = tree_util.map_tree(lambda _, v: v.unbind(0), layers)
+    steps = len(tree_util.leaves(views)[0])
+    return [tree_util.map_tree(lambda _, vs: vs[i], views) for i in range(steps)]
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls without batch dims (``aten.mm``, which
+    every ``x @ w`` becomes), recompute everything else: the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(name: Optional[str]):
+    """The `torch.utils.checkpoint` context of a policy name.
+
+    "nothing" (or None, the baseline): save only each scan step's input,
+    recompute the step's whole forward in backward (~1.33x flops).
+    "dots": save matmul outputs too, less recompute, more memory.
+    """
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    if name in (None, "nothing"):
+        return noop_context_fn
+    raise ValueError(f"unknown remat policy {name!r}")
+
+
+def _train_layers(cfg, layers, x, positions, *, remat, remat_policy):
+    """The scan in train mode: no cache; each scan step recomputed in
+    backward under `torch.utils.checkpoint` when ``remat``. Returns (x, the
+    MoE aux loss summed over the layers)."""
+    kinds, prefixes = layer_kinds(cfg), sub_prefixes(cfg)
+    context_fn = _remat_context(remat_policy)
+
+    def step(x, lp):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pre, kind in zip(prefixes, kinds):
+            x, _, a = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
+                                 positions=positions, mode="train", cache=None, pos=None)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in unstack(layers):
+        if remat:
+            x, a = checkpoint(step, x, lp, use_reentrant=False, context_fn=context_fn)
+        else:
+            x, a = step(x, lp)
+        aux = aux + a
+    return x, aux
 
 
 def forward(
@@ -298,19 +373,23 @@ def forward(
     params: Params,
     tokens: torch.Tensor,                 # (B, S) int
     *,
-    mode: str = "prefill",                # prefill | decode
+    mode: str = "prefill",                # train | prefill | decode
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Cache] = None,
     pos: Optional[torch.Tensor] = None,   # decode position: scalar or (B,)
-) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Returns (hidden (B, S, d), cache). Prefill returns a new cache
-    stacked over the scan steps: ``(L, B, S, Hkv, Dh)`` K/V (or the MLA
-    latent) in the activation dtype, or the SSM state after the prompt
-    (conv histories in the activation dtype, ``ssm`` fp32). Decode writes
-    into ``cache`` in place and returns it. ``positions`` defaults to the
-    token positions (``pos`` in decode), as three equal streams ``(3, B,
-    S)`` for M-RoPE. The MoE aux loss is a training term and the port
-    serves only, so it is not computed."""
+    remat: bool = True,
+    remat_policy: Optional[str] = "nothing",
+) -> Tuple[torch.Tensor, Optional[Cache], Optional[torch.Tensor]]:
+    """Returns (hidden (B, S, d), cache, MoE aux loss). Train mode runs the
+    reference ops only (no kernel: none has a backward), with no cache, each
+    scan step under ``remat`` (`_remat_context`), and returns the MoE aux
+    loss summed over the layers (a zero scalar without MoE). Prefill returns
+    a new cache stacked over the scan steps: ``(L, B, S, Hkv, Dh)`` K/V (or
+    the MLA latent) in the activation dtype, or the SSM state after the
+    prompt (conv histories in the activation dtype, ``ssm`` fp32). Decode
+    writes into ``cache`` in place and returns it. Serving computes no aux
+    loss (None). ``positions`` defaults to the token positions (``pos`` in
+    decode), as three equal streams ``(3, B, S)`` for M-RoPE."""
     B, S = tokens.shape
     kinds = layer_kinds(cfg)
     prefixes = sub_prefixes(cfg)
@@ -324,6 +403,11 @@ def forward(
         if cfg.pos_type == "mrope":
             positions = positions.expand(3, B, S)
 
+    if mode == "train":
+        x, aux = _train_layers(cfg, params["layers"], x, positions,
+                               remat=remat, remat_policy=remat_policy)
+        return apply_norm(cfg, params["final_norm"], x), None, aux
+
     per_step = []
     for i in range(n_scan_steps(cfg)):
         lp = layer_params(params["layers"], i)
@@ -331,15 +415,15 @@ def forward(
         for pre, kind in zip(prefixes, kinds):
             sc = ({k[len(pre):]: v[i] for k, v in cache.items() if k.startswith(pre)}
                   if mode == "decode" else None)
-            x, out = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
-                                positions=positions, mode=mode, cache=sc, pos=pos)
+            x, out, _ = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
+                                   positions=positions, mode=mode, cache=sc, pos=pos)
             if mode == "prefill":
                 new_lc.update({pre + k: v for k, v in out.items()})
         per_step.append(new_lc)
     new_cache = cache if mode == "decode" else {
         k: torch.stack([lc[k] for lc in per_step]) for k in per_step[0]}
     x = apply_norm(cfg, params["final_norm"], x)
-    return x, new_cache
+    return x, new_cache, None
 
 
 def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -349,8 +433,75 @@ def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.T
 
 
 # ---------------------------------------------------------------------------
-# serving entry points
+# losses and entry points
 # ---------------------------------------------------------------------------
+
+
+def cross_entropy(
+    cfg: ModelConfig,
+    params: Params,
+    hidden: torch.Tensor,     # (B, S, d)
+    targets: torch.Tensor,    # (B, S) int
+    mask: Optional[torch.Tensor] = None,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Token-mean next-token CE with an fp32 log-softmax over the real vocab
+    (the padded ids masked). ``chunk`` cuts the sequence into chunks, each
+    recomputed in backward, so the ``(B, S, V)`` logits never exist at once.
+
+    Raises:
+        ValueError: ``chunk`` does not divide the sequence.
+    """
+    B, S, _ = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    v_pad = padded_vocab(cfg.vocab_size)
+    vmask = (vocab_mask(cfg.vocab_size, v_pad, device=hidden.device)
+             if v_pad != cfg.vocab_size else None)
+
+    def chunk_loss(h, t, m):
+        logits = logits_fn(cfg, params, h).float()
+        if vmask is not None:
+            logits = logits + vmask
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, t[..., None].long())[..., 0]
+        return ((lse - gold) * m).sum()
+
+    if chunk is None or chunk >= S:
+        total = chunk_loss(hidden, targets, mask)
+    else:
+        if S % chunk:
+            raise ValueError(f"loss chunk {chunk} does not divide the sequence {S}")
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(0, S, chunk):
+            sl = slice(c, c + chunk)
+            total = total + checkpoint(chunk_loss, hidden[:, sl], targets[:, sl], mask[:, sl],
+                                       use_reentrant=False)
+    return total / torch.clamp(mask.sum(), min=1.0)
+
+
+def train_loss(
+    cfg: ModelConfig,
+    params: Params,
+    batch: Dict[str, Any],
+    *,
+    aux_weight: float = 0.01,
+    loss_chunk: Optional[int] = None,
+    remat_policy: Optional[str] = "nothing",
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``batch``: ``tokens (B, S + 1)``, optionally ``loss_mask (B, S)`` and
+    M-RoPE ``positions (3, B, S + 1)`` (the last position is dropped).
+    Returns (``ce + aux_weight * moe_aux``, ``{"ce", "moe_aux"}``)."""
+    tokens = batch["tokens"]
+    positions = batch.get("positions")
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    if positions is not None:
+        positions = positions[..., :-1]
+    hidden, _, aux = forward(cfg, params, inp, mode="train", positions=positions,
+                             remat_policy=remat_policy)
+    ce = cross_entropy(cfg, params, hidden, tgt, mask=batch.get("loss_mask"),
+                       chunk=loss_chunk)
+    return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
@@ -363,8 +514,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     SSM state would fold the padding in: its engine never pads).
     """
     tokens = batch["tokens"]
-    hidden, cache = forward(cfg, params, tokens, mode="prefill",
-                            positions=batch.get("positions"))
+    hidden, cache, _ = forward(cfg, params, tokens, mode="prefill",
+                               positions=batch.get("positions"))
     true_len = batch.get("true_len")
     if true_len is None:
         last = hidden[:, -1:, :]
@@ -378,5 +529,5 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 cache: Cache, pos: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One serving step over ``tokens (B, 1)`` at ``pos`` (scalar or (B,)):
     returns (logits (B, V_pad), cache updated in place)."""
-    hidden, cache = forward(cfg, params, tokens, mode="decode", cache=cache, pos=pos)
+    hidden, cache, _ = forward(cfg, params, tokens, mode="decode", cache=cache, pos=pos)
     return logits_fn(cfg, params, hidden[:, 0:1, :])[:, 0, :], cache

@@ -1,9 +1,10 @@
-"""Feed-forward layers: gated-SiLU / squared-ReLU MLPs and MoE.
+"""Feed-forward layers: gated-SiLU / squared-ReLU / GELU MLPs and MoE.
 
 The MoE keeps the reference's grouped, capacity-bucketed dense dispatch
 (one-hot dispatch and combine einsums), so its results match token for
-token. Prefill routes through the MoE top-k kernel; decode keeps the plain
-`router_topk`, as the reference does.
+token. Prefill routes through the MoE top-k kernel; decode and training
+keep the plain `router_topk`, as the reference does (training with the
+Switch aux loss).
 """
 from __future__ import annotations
 
@@ -85,9 +86,10 @@ GROUP_SIZE = 1024     # tokens per dispatch group
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
             want_aux: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Grouped capacity-bucketed dense-dispatch MoE over ``x (B, S, d)``.
-    Returns (out, aux_loss), the aux loss only if ``want_aux`` (serving
-    never reads it), else None. ``kernel`` routes through `kops.moe_topk`
-    (prefill); otherwise through the plain `router_topk` (decode)."""
+    Returns (out, aux_loss), the aux loss only if ``want_aux`` (training;
+    serving never reads it), else None. ``kernel`` routes through
+    `kops.moe_topk` (prefill); otherwise through the plain `router_topk`
+    (decode, and training, which differentiates through it)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S

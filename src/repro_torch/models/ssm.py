@@ -1,9 +1,10 @@
 """Mamba2 (SSD, state-space duality) block.
 
 Prefill runs the chunked SSD scan through `kernels.ops.ssd_scan` (the Hopper
-kernel on the card, its plain version on the CPU); decode runs the O(1)
-recurrent update `ssd_step_ref` in plain ops, as the reference does (it has
-no decode kernel).
+kernel on the card, its plain version on the CPU); training runs the plain
+`ssd_scan_ref` (the kernel has no backward, as in the reference); decode
+runs the O(1) recurrent update `ssd_step_ref` in plain ops, as the reference
+does (it has no decode kernel).
 
 Projections are split (w_z / w_x / w_B / w_C / w_dt), as in the reference.
 State per layer:
@@ -19,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import heads_of_groups
+from repro_torch.kernels.ref import heads_of_groups, ssd_scan_ref
 from repro_torch.models.common import gated_rmsnorm
 
 State = Dict[str, torch.Tensor]
@@ -133,12 +134,12 @@ def ssm_block(
     p: dict,
     xin: torch.Tensor,                  # (B, S, d)
     *,
-    mode: str = "prefill",              # prefill | decode
+    mode: str = "prefill",              # train | prefill | decode
     state: Optional[State] = None,
-) -> Tuple[torch.Tensor, State]:
-    """Returns (out ``(B, S, d)``, state). Prefill starts from a zero state
-    and returns the new one (conv histories in the activation dtype, ``ssm``
-    fp32). Decode (S == 1) reads ``state`` and updates its leaves IN PLACE
+) -> Tuple[torch.Tensor, Optional[State]]:
+    """Returns (out ``(B, S, d)``, state). Train mode starts from a zero
+    state and returns none. Prefill starts from a zero state and returns the
+    new one (conv histories in the activation dtype, ``ssm`` fp32). Decode (S == 1) reads ``state`` and updates its leaves IN PLACE
     (the conv histories keep their own dtype, bf16 in a serving cache, as
     the reference's casts do), and returns it."""
     s = cfg.ssm or SSMConfig()
@@ -162,10 +163,10 @@ def ssm_block(
             hist = state[k]
             hist[:, :-1] = hist[:, 1:].clone()
             hist[:, -1] = r[:, 0].to(hist.dtype)
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         acts = {k: _causal_conv(r, p[f"{k}_w"], p[f"{k}_b"]) for k, r in raws.items()}
     else:
-        raise ValueError(f"unknown mode {mode!r} (prefill | decode)")
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
 
     x = acts["conv_x"].reshape(Bb, S, H, P)
     B_mat = acts["conv_B"].reshape(Bb, S, G, N)
@@ -180,6 +181,9 @@ def ssm_block(
         y_core = y_core[:, None]                              # (B, 1, H, P)
         state["ssm"].copy_(h_new)
         new_state = state
+    elif mode == "train":
+        y_core, _ = ssd_scan_ref(x, dt, A, B_mat, C_mat, chunk=s.chunk_size)
+        new_state = None
     else:
         y_core, h_new = kops.ssd_scan(x, dt, A, B_mat, C_mat, chunk=s.chunk_size)
         new_state = {k: _conv_history(r, K) for k, r in raws.items()}

@@ -615,3 +615,138 @@ def test_recorded_replay_on_the_card_equals_the_cpu(gen, monkeypatch):
     for name in card_planner.cluster.engines():
         stats = card_planner.cluster.engine(name).decode_stats
         assert stats["eager"] <= 1 and stats["discards"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the training side on the card
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_wrappers_refuse_autograd(gen):
+    """The Hopper kernels are forward-only: a CUDA input that requires grad
+    under grad mode raises (autograd would see the ctypes-filled output as a
+    constant, a silent zero gradient); under `no_grad` the kernel launches."""
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 17, 4, 64, generator=gen, device="cuda").requires_grad_(True)
+    k = torch.randn(1, 17, 2, 64, generator=gen, device="cuda")
+    logits = torch.randn(9, 8, generator=gen, device="cuda").requires_grad_(True)
+    x, dt, A, Bm, Cm = (torch.randn(*s, generator=gen, device="cuda")
+                        for s in ((1, 17, 4, 16), (1, 17, 4), (4,), (1, 17, 1, 16), (1, 17, 1, 16)))
+    x.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.moe_topk(logits, 2)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.ssd_scan(x, dt.abs(), -A.abs(), Bm, Cm, chunk=16)
+    before = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        ops.flash_attention(q, k, k)
+        ops.moe_topk(logits, 2)
+        ops.ssd_scan(x, dt.abs(), -A.abs(), Bm, Cm, chunk=16)
+    torch.cuda.synchronize()
+    assert all(ops.LAUNCHES[n] == before[n] + 1 for n in before)
+
+
+@pytest.mark.parametrize("arch", ["minitron_4b", "qwen2_moe_a2_7b", "mamba2_370m",
+                                  "whisper_large_v3"])
+def test_train_step_on_the_card_equals_the_cpu(gen, arch):
+    """One `make_train_step` step of a reduced fp32 model on the card and on
+    the CPU from the same weights and batch: the losses agree within 1e-5
+    relative, the parameters after the step within 1e-4 (Adam's first step
+    is ~lr sign(g), so a coordinate whose gradient is ~0 may move the other
+    way: at most 0.1 % of them), and training launches no kernel."""
+    import dataclasses
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    cfg = dataclasses.replace(get_reduced_config(arch), param_dtype="float32",
+                              activ_dtype="float32")
+    card = Model(cfg, device="cuda", seed=0)
+    batch = make_batch(cfg, ShapeCell("t", "train", 16, 2), device="cuda")
+    if "frames" in batch:
+        batch["frames"] = batch["frames"].float()
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = tree_util.map_tree(lambda _, t: t.to(device, copy=True), card.params)
+        model = Model(cfg, params, device=device)
+        opt = AdamW(lr=1e-3)
+        step = make_train_step(model, opt)
+        before = dict(ops.LAUNCHES)
+        params, _, loss, _ = step(params, opt.init(params),
+                                  {k: v.to(device) for k, v in batch.items()})
+        assert ops.LAUNCHES == before
+        out[device] = (float(loss), [t.cpu() for t in tree_util.leaves(params)])
+    (l_card, p_card), (l_cpu, p_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu)
+    moved = sum(int((~torch.isclose(a, b, atol=1e-4, rtol=1e-4)).sum())
+                for a, b in zip(p_card, p_cpu))
+    assert moved <= 1e-3 * sum(t.numel() for t in p_cpu)
+
+
+def test_train_data_and_checkpoint_default_to_the_card(gen, tmp_path):
+    """`SyntheticLM` and `load_checkpoint` place their tensors on the card
+    unless the caller names the CPU; a checkpoint of card tensors restores
+    bit for bit."""
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticLM
+    ds = SyntheticLM(256, 16, 4, seed=3)
+    b1, b2 = ds.batch_at(7), ds.batch_at(7)
+    assert b1["tokens"].device.type == "cuda" and torch.equal(b1["tokens"], b2["tokens"])
+    tree = {"w": torch.randn(3, 5, generator=gen, device="cuda").to(torch.bfloat16),
+            "count": torch.tensor(4, dtype=torch.int32, device="cuda")}
+    save_checkpoint(tmp_path, 2, tree)
+    step, back = load_checkpoint(tmp_path, tree)
+    assert step == 2 and back["w"].device.type == "cuda"
+    assert torch.equal(back["w"], tree["w"]) and torch.equal(back["count"], tree["count"])
+
+
+def test_whisper_prefill_on_the_card_equals_the_cpu(gen):
+    """A reduced fp32 Whisper's prefill and two decode steps on the card
+    (flash in the decoder's prefill, once a layer) against the CPU's plain
+    path: logits within 1e-4, the same greedy tokens."""
+    from repro_torch import tree as tree_util
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    card = _card_model("whisper_large_v3")
+    cfg = card.cfg
+    cpu = Model(cfg, tree_util.map_tree(lambda _, t: t.cpu(), card.params), device="cpu")
+    frames = torch.randn(1, cfg.encdec.encoder_seq_len, cfg.d_model, generator=gen,
+                         device="cuda")
+    tokens = torch.randint(2, cfg.vocab_size, (1, 9), generator=gen, device="cuda",
+                           dtype=torch.int32)
+    out = {}
+    for model in (card, cpu):
+        dev = model.device
+        before = ops.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            logits, pre = model.prefill({"frames": frames.to(dev), "tokens": tokens.to(dev)})
+            launched = ops.LAUNCHES["flash_attention"] - before
+            cache = model.init_cache(1, 12, dtype=torch.float32)
+            for key, t in pre.items():
+                cache[key][:, :, :t.shape[2]] = t
+            steps, picks = [logits], []
+            for i in range(2):
+                nxt = steps[-1].argmax(-1, keepdim=True).to(torch.int32)
+                picks.append(int(nxt))
+                lg, cache = model.decode_step(nxt, cache, torch.tensor(9 + i, device=dev))
+                steps.append(lg)
+        out[dev.type] = (torch.stack(steps).cpu(), picks, launched)
+    assert out["cuda"][2] == cfg.num_layers and out["cpu"][2] == 0
+    assert out["cuda"][1] == out["cpu"][1]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
+
+
+def test_train_lm_launcher_on_the_card(gen, capsys):
+    """`python -m repro_torch.launch.train_lm` trains on the card by
+    default, recovers from its injected failure and finishes."""
+    from repro_torch.launch import train_lm
+    train_lm.main(["--steps", "12", "--batch", "2", "--seq", "16"])
+    out = capsys.readouterr().out
+    assert "device=cuda" in out and "recovering" in out and "restarts=1" in out

@@ -59,9 +59,39 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     ServingEngine(model, device="cpu")          # named explicitly: fine
 
 
+def test_training_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.bridge import opt_state_from_numpy
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data import SyntheticLM, make_batch
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import train_lm
+    from repro_torch.models import Model
+    cfg, model = _cpu_model()
+    whisper = get_reduced_config("whisper_large_v3")
+    for make in (lambda: Model(whisper), lambda: Model(cfg, remat_policy="dots"),
+                 lambda: SyntheticLM(256, 8, 2),
+                 lambda: make_batch(cfg, ShapeCell("t", "train", 8, 2)),
+                 lambda: load_checkpoint(tmp_path, {"w": torch.zeros(2)}),
+                 lambda: opt_state_from_numpy(cfg, {}),
+                 lambda: train_lm.main(["--steps", "2"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # named explicitly: fine
+    batch = SyntheticLM(cfg.vocab_size, 8, 2, device="cpu").batch_at(0)
+    loss, _ = model.train_loss(batch)
+    assert loss.device.type == "cpu"
+    save_checkpoint(tmp_path, 1, {"w": torch.ones(2)})
+    assert load_checkpoint(tmp_path, {"w": torch.zeros(2)}, device="cpu")[1]["w"].sum() == 2
+
+
 def test_importing_the_port_builds_no_kernel():
     for mod in ("repro_torch.kernels.ops", "repro_torch.serving.engine",
-                "repro_torch.bridge", "repro_torch.models.ssm"):
+                "repro_torch.bridge", "repro_torch.models.ssm", "repro_torch.models.encdec",
+                "repro_torch.launch.steps", "repro_torch.launch.train_lm",
+                "repro_torch.runtime", "repro_torch.checkpoint", "repro_torch.data"):
         importlib.import_module(mod)
     from repro_torch.kernels import _build
     assert _build._LIB is None
