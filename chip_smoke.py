@@ -139,10 +139,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              run 1), and in fp32 the prefill's kernel path held to its plain
              path. The kernel wrappers refuse autograd, so training runs the
              reference's plain ops, as the reference's does.
-14. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
+14. sharded — the sharded builders (`launch.steps.jit_prefill`,
+             `jit_decode_step`, `jit_train_step`) over a one-rank NCCL process
+             group (a FileStore under a temp dir, no network) and a (1, 1, 1)
+             CUDA mesh under `default_plan()`: the data stream made on the
+             card equals the CPU's bit for bit (Minitron's tokens and mask,
+             Whisper's bf16 frames); full-width Qwen1.5-MoE-A2.7B (bf16)
+             prefills two prompts (17 and 384 tokens) and decodes 8 greedy
+             steps each with params and cache as DTensors, flash and MoE
+             top-k launching once per layer per prefill on the gathered
+             plain tensors, logits and tokens equal to the unsharded
+             `prefill` / `decode_step` bit for bit; the collectives of one
+             sharded decode step by op and group; Mamba2-370m whole (B=4 x
+             S=1024) under deterministic algorithms, one sharded train step
+             equal to `make_train_step`'s bit for bit (loss, params, moments),
+             and a save and a restore under the mesh's shardings equal to the
+             state bit for bit.
+15. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
              its first serve path and on every serve path, Whisper's prefill
-             included, and its times at the other families' shapes), then,
-             last, the result line ``{"ok": true, "device": {...}}``.
+             and the sharded prefills included, and its times at the other
+             families' shapes), then, last, the result line ``{"ok": true,
+             "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
 and the repository's ``src/`` beside this file. Imports nothing of JAX.
@@ -2685,9 +2702,9 @@ def _train_recovery(card):
             save()
             timings["save_s"].append(time.perf_counter() - t)
 
-        def timed_restore():
+        def timed_restore(**kw):
             t = time.perf_counter()
-            ok = restore()
+            ok = restore(**kw)
             torch.cuda.synchronize()
             timings["restore_s"].append(time.perf_counter() - t)
             check(ok and failing.step == SSM_CKPT_EVERY,
@@ -2861,6 +2878,276 @@ def phase_train(card):
             WHISPER_ARCH: _train_whisper(card)}
 
 
+SHARDED_PROMPT_LENS = (17, 384)
+SHARDED_DECODE_STEPS = 8
+
+
+@contextlib.contextmanager
+def one_rank_group(backend: str = "nccl"):
+    """A one-rank process group over a FileStore under a fresh temp dir (no
+    network), destroyed (and the dir removed) on exit."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    kw = {}
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+        kw["device_id"] = torch.device("cuda", 0)
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1, **kw)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+def _sharded_stream(card, device="cuda"):
+    """The data stream on the card against the CPU's, bit for bit: the train
+    phase's Minitron batches and Whisper's bf16 frames."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import make_batch
+    t0 = time.perf_counter()
+    n = 0
+    for arch, (B, S) in ((TRAIN_ARCH, (TRAIN_BATCH, TRAIN_SEQ)),
+                         (WHISPER_ARCH, (WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ))):
+        cfg, cell = get_config(arch), ShapeCell("train", "train", S, B)
+        for step in (0, 1):
+            dev = make_batch(cfg, cell, step=step, device=device)
+            cpu = make_batch(cfg, cell, step=step, device="cpu")
+            for k in cpu:
+                check(_bits_equal(dev[k], cpu[k]),
+                      f"[sharded] {arch} step {step} {k}: the card's stream is not the CPU's")
+                n += cpu[k].numel()
+    say(f"[sharded] data stream: the card's Minitron tokens and loss masks and Whisper's "
+        f"bf16 frames equal the CPU's bit for bit ({n} values, steps 0 and 1) in "
+        f"{time.perf_counter() - t0:.2f} s  [{card}]")
+    return {"values": n}
+
+
+def _padded_cache(model, cache, s_max):
+    """A prefill cache written into a fresh bf16 decode cache of ``s_max``."""
+    from repro_torch.models.lm import is_positional
+    out = model.init_cache(1, s_max)
+    for k, v in cache.items():
+        if is_positional(k):
+            out[k][:, :, :v.shape[2]] = v
+        else:
+            out[k].copy_(v)
+    return out
+
+
+def _sharded_serve(card, mesh, cfg):
+    """Sharded prefill and greedy decode of ``cfg`` against the unsharded
+    model on the same weights: logits, caches and tokens bit for bit; the
+    launches of each sharded prefill; the collectives of one decode step."""
+    from collections import Counter
+
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import jit_decode_step, jit_prefill, named
+    from repro_torch.models import Model
+    from repro_torch.serving.engine import trace_collectives
+    from repro_torch.sharding import default_plan, param_specs
+    from repro_torch.sharding.ctx import full, is_dtensor, place_tree
+    plan = default_plan()
+    model = Model(cfg, device="cuda", seed=0)
+    params = place_tree(model.params, named(mesh, param_specs(cfg, plan)))
+    check(all(is_dtensor(v) for v in _leaves(params)), "[sharded] params are not DTensors")
+    rng = np.random.default_rng(21)
+    want = launches_per_prefill(cfg, 1)
+    out = {"launches": [], "prefill_s": [], "plain_prefill_s": [], "decode_s": []}
+    torch.cuda.reset_peak_memory_stats()
+    for S in SHARDED_PROMPT_LENS:
+        batch = {"tokens": torch.tensor(rng.integers(2, cfg.vocab_size, size=(1, S)),
+                                        dtype=torch.int32, device="cuda")}
+        s_max = S + SHARDED_DECODE_STEPS + 1
+        prefill = jit_prefill(model, mesh, plan, ShapeCell("prefill", "prefill", S, 1))
+        decode = jit_decode_step(model, mesh, plan, ShapeCell("decode", "decode", s_max, 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref_logits, ref_cache = model.prefill(batch)
+        torch.cuda.synchronize()
+        out["plain_prefill_s"].append(time.perf_counter() - t0)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        out["prefill_s"].append(time.perf_counter() - t0)
+        launches = dict(ops.LAUNCHES)
+        out["launches"].append(launches)
+        check(launches == want, f"[sharded] prefill S={S} launched {launches}, want {want}")
+        check(is_dtensor(logits) and all(is_dtensor(v) for v in cache.values()),
+              "[sharded] prefill outputs are not DTensors")
+        check(_bits_equal(full(logits), ref_logits),
+              f"[sharded] prefill S={S}: logits differ from the unsharded prefill's")
+        for k, v in cache.items():
+            check(_bits_equal(full(v), ref_cache[k]),
+                  f"[sharded] prefill S={S}: cache {k} differs from the unsharded prefill's")
+        ref_c = _padded_cache(model, ref_cache, s_max)
+        sh_c = _padded_cache(model, {k: full(v) for k, v in cache.items()}, s_max)
+        ref_tok, tok = ref_logits.argmax(-1), full(logits).argmax(-1)
+        ref_stream, stream = [int(ref_tok)], [int(tok)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(SHARDED_DECODE_STEPS):
+            pos = torch.tensor(S + i, device="cuda")
+            with torch.no_grad():
+                ref_logits, ref_c = model.decode_step(ref_tok[:, None].to(torch.int32), ref_c, pos)
+            logits, sh_c = decode(params, tok[:, None].to(torch.int32), sh_c, pos)
+            check(_bits_equal(full(logits), ref_logits),
+                  f"[sharded] decode step {i} after S={S}: logits differ from the unsharded step's")
+            ref_tok, tok = ref_logits.argmax(-1), full(logits).argmax(-1)
+            ref_stream.append(int(ref_tok))
+            stream.append(int(tok))
+        torch.cuda.synchronize()
+        out["decode_s"].append((time.perf_counter() - t0) / SHARDED_DECODE_STEPS)
+        check(stream == ref_stream, f"[sharded] S={S}: stream {stream} != {ref_stream}")
+        say(f"[sharded] {cfg.name} S={S}: prefill launches {launches}; logits, "
+            f"{len(cache)} cache leaves and {SHARDED_DECODE_STEPS} greedy decode steps "
+            f"equal to the unsharded model's bit for bit; prefill sharded "
+            f"{out['prefill_s'][-1] * 1e3:.1f} ms, unsharded "
+            f"{out['plain_prefill_s'][-1] * 1e3:.1f} ms (eager, each after the other); "
+            f"a decode step, both paths {out['decode_s'][-1] * 1e3:.1f} ms; peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB  [{card}]")
+        if S == SHARDED_PROMPT_LENS[-1]:
+            colls = trace_collectives(
+                lambda: decode(params, tok[:, None].to(torch.int32), sh_c,
+                               torch.tensor(S + SHARDED_DECODE_STEPS, device="cuda")),
+                torch.device("cuda"))
+            by = Counter((c.op, c.ranks) for c in colls)
+            out["collectives"] = [{"op": op, "ranks": ranks, "n": n}
+                                  for (op, ranks), n in sorted(by.items(), key=str)]
+            say(f"[sharded] one decode step's collectives, by op and group ranks: "
+                + (", ".join(f"{op} {list(ranks) if ranks else ranks} x{n}"
+                             for (op, ranks), n in sorted(by.items(), key=str))
+                   or "none (every mesh dim holds one rank: DTensor moves nothing)")
+                + f"  [{card}]")
+        del cache, sh_c, ref_c, ref_cache
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _sharded_train(card, mesh, cfg, lr):
+    """One sharded train step of ``cfg`` against `make_train_step`'s from
+    the same weights and batch, under deterministic algorithms: loss, params
+    and moments bit for bit; then a save and a restore under the mesh's
+    shardings, bit for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.steps import jit_train_step, make_train_step, named
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import batch_specs, default_plan, opt_state_specs, param_specs
+    from repro_torch.sharding.ctx import full, place_tree
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    plan = default_plan()
+    B, S = SSM_TRAIN_BATCH, SSM_TRAIN_SEQ
+    cell = ShapeCell("train", "train", S, B)
+    out = {}
+    try:
+        opt = AdamW(lr=lr)
+        ds = SyntheticLM(cfg.vocab_size, S, B, seed=0, device="cuda")
+        ref = Model(cfg, device="cuda", seed=0)
+        ref_state = opt.init(ref.params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, ref_loss, _ = make_train_step(ref, opt)(ref.params, ref_state, ds.batch_at(0))
+        ref_loss = float(ref_loss)
+        out["step_s"] = time.perf_counter() - t0
+        model = Model(cfg, device="cuda", seed=0)
+        pspecs = param_specs(cfg, plan)
+        psh, osh = named(mesh, pspecs), named(mesh, opt_state_specs(pspecs))
+        params = place_tree(model.params, psh)
+        state = opt.init(params)
+        step = jit_train_step(model, opt, mesh, plan, cell)
+        batch = ds.sharded_batch_at(0, named(mesh, batch_specs(cfg, plan, cell)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, loss, _ = step(params, state, batch)
+        loss = float(full(loss))
+        out["sharded_step_s"] = time.perf_counter() - t0
+        check(loss == ref_loss, f"[sharded train] loss {loss!r} != {ref_loss!r}")
+        for key, got, want in (("params", params, ref.params), ("m", state["m"], ref_state["m"]),
+                               ("v", state["v"], ref_state["v"])):
+            for (name, g), (_, w) in zip(tree_util.items(got), tree_util.items(want)):
+                check(_bits_equal(full(g), w), f"[sharded train] {key}/{name} differs from "
+                                               "the unsharded step's")
+        check(int(full(state["count"])) == int(ref_state["count"]) == 1,
+              "[sharded train] step count")
+        del ref, ref_state
+        gc.collect()
+        saved = {k: full(v).detach().cpu().clone()
+                 for k, v in tree_util.items({"params": params, "opt": state})}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(root, 1, {"params": params, "opt": state})
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step_no, restored = load_checkpoint(root, {"params": params, "opt": state},
+                                            device="cuda", shardings={"params": psh, "opt": osh})
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        check(step_no == 1, f"[sharded train] restored step {step_no}")
+        want_pl = {k: tuple(sh.placements) for k, sh in tree_util.items({"params": psh, "opt": osh})}
+        for k, v in tree_util.items(restored):
+            check(tuple(v.placements) == want_pl[k], f"[sharded train] restored {k} placements")
+            check(_bits_equal(full(v), saved[k]),
+                  f"[sharded train] restored {k} differs from the saved state")
+        say(f"[sharded train] {cfg.name} B={B} x S={S}: one sharded step equals the unsharded "
+            f"step bit for bit (loss {loss:.4f}, {len(saved) - 1} param and moment leaves); "
+            f"unsharded {out['step_s']:.3f} s, sharded {out['sharded_step_s']:.3f} s (first "
+            f"steps, eager); save {out['save_s']:.2f} s, restore under the mesh's shardings "
+            f"{out['restore_s']:.2f} s, equal bit for bit  [{card}]")
+        out["loss"] = loss
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase_sharded(card):
+    """The sharded builders on a one-rank NCCL mesh of the card (see the
+    module docstring, phase 14); each model freed before the next."""
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import rank_mesh
+    t0 = time.perf_counter()
+    out = {"stream": _sharded_stream(card)}
+    with one_rank_group("nccl"):
+        mesh = rank_mesh((1, 1, 1), device="cuda")
+        out["serve"] = _sharded_serve(card, mesh, get_config(SERVE_ARCH))
+        free_device()
+        out["train"] = _sharded_train(card, mesh, get_config(SSM_ARCH), TRAIN_LR[SSM_ARCH])
+        free_device()
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[sharded] phase {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2919,12 +3206,16 @@ def main() -> int:
     mark("families")
     train = phase_train(card)
     mark("train")
+    sharded = phase_sharded(card)
+    mark("sharded")
     phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     # each kernel's launches on the first serve path that runs it (Qwen's for
     # flash and MoE top-k, Mamba2's for the scan), and on every serve path
     by_path = {"qwen serve": launches, "mamba2 serve": ssm_launches,
                **{f"{name} serve": f["launches"] for name, f in families.items()},
-               "whisper prefill": train[WHISPER_ARCH]["prefill_launches"]}
+               "whisper prefill": train[WHISPER_ARCH]["prefill_launches"],
+               "sharded prefill": {k: sum(n[k] for n in sharded["serve"]["launches"])
+                                   for k in launches}}
     for row in rows:
         row["launches"] = (launches if launches[row["name"]] else ssm_launches)[row["name"]]
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
@@ -2933,7 +3224,7 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": rows, "kernel_times": kernel_times, "serve": serve,
          "ssm_serve": ssm, "cluster": cluster, "families": families, "train": train,
-         "phase_s": phase_s},
+         "sharded": sharded, "phase_s": phase_s},
         indent=1))
     say(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' "
         f"build included; by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

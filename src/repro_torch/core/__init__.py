@@ -8,6 +8,8 @@ Pipeline: natural-language intent
      decode step issues)
   -> orchestrator (six-step apply loop; `apply_to=` a port `ServingCluster`
      reconfigures it online).
+  -> reconfig (`ReconfigEngine`: the reference's deprecated single-engine
+     shim over the same lifecycle).
 """
 from repro_torch.core.compiler import CompiledPolicy, compile_intent  # noqa: F401
 from repro_torch.core.corpus import CORPUS, CorpusEntry  # noqa: F401
@@ -34,4 +36,5 @@ from repro_torch.core.orchestrator import (  # noqa: F401
     OrchestrationResult,
     Orchestrator,
 )
+from repro_torch.core.reconfig import DowntimeReport, ReconfigEngine  # noqa: F401
 from repro_torch.core.validator import ValidationReport, validate  # noqa: F401

@@ -1,13 +1,31 @@
-"""The train step.
+"""Step builders: the train step, and the reference's sharded builders.
 
-`make_train_step` is the reference's builder on one device. The reference's
-``jit_*`` builders and ``named()`` place inputs and outputs under a sharding
-plan and wait for sharding across devices; ``batch_struct``,
-``decode_struct`` and ``param_struct`` serve the dry run and wait for it.
+`make_train_step` is the reference's builder: on one device without a
+mesh, or data-parallel over a plan's batch axes with a mesh. `named`,
+`jit_train_step`, `jit_prefill` and `jit_decode_step` keep the reference's
+names and contract: params, AdamW state, batch, cache, logits and the loss
+come in and go out as DTensors under the placements of the plan's spec trees
+(`sharding.param_specs`, `opt_state_specs`, `batch_specs`, `cache_specs`;
+logits ``(batch axes, tensor axis if shard_vocab)``; the loss replicated),
+and the numbers are the one-device step's. Nothing is compiled: the
+builders place inputs and outputs under a plan's placements, and the steps
+run eagerly.
+
+The compute layout (the reference leaves it to its compiler): ZeRO-3
+storage and data parallelism over the batch axes. Each rank runs its own
+batch rows over parameters gathered to plain tensors: a layer at a time in
+prefill and decode (`lm.layer_params`, `lm.unstack`), the whole tree for a
+train step's forward and backward. So the model code and the kernels see
+plain tensors only. Gradients come back to the params' placements by a
+reduce-scatter over the batch axes (``shard_grads``) or an all-reduce, and
+AdamW updates each rank's shards, clipping by the global norm. The loss is
+the global masked mean: each rank divides its sum by the mask count over
+every rank's rows. ``batch_struct``, ``decode_struct`` and
+``param_struct`` serve the dry run and wait for it.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -15,8 +33,29 @@ from repro_torch import tree as tree_util
 from repro_torch.models import Model
 from repro_torch.models.common import torch_dtype
 from repro_torch.optim import AdamW
+from repro_torch.sharding import ctx
+from repro_torch.sharding.plan import (
+    LeafSharding,
+    Mesh,
+    P,
+    ShardingPlan,
+    batch_specs,
+    cache_specs,
+    leaf_sharding,
+    opt_state_specs,
+    param_specs,
+)
 
 Tree = Dict[str, Any]
+
+#: the parameter subtrees stacked over layers, gathered a layer at a time
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def named(mesh: Mesh, spec_tree: Tree) -> Tree:
+    """A `LeafSharding` per spec of ``spec_tree``, on ``mesh`` (its axes
+    pruned to the mesh's)."""
+    return tree_util.map_tree(lambda _, s: leaf_sharding(mesh, s), spec_tree)
 
 
 def _split_micro(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:
@@ -50,8 +89,80 @@ def _loss_and_grads(model: Model, params: Tree, batch: Dict[str, torch.Tensor]):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def make_train_step(model: Model, optimizer: AdamW, accum_steps: int = 1,
-                    grad_reduce_dtype: Optional[str] = None):
+def _accumulate(model: Model, params: Tree, micro: List[Dict[str, torch.Tensor]],
+                cast: Optional[torch.dtype]):
+    """(loss, metrics, grads) over the microbatches: one of them as it is,
+    several averaged (the metrics the last one's), the gradients cast to
+    ``cast`` and accumulated in it (fp32 without it)."""
+    if len(micro) == 1:
+        loss, metrics, grads = _loss_and_grads(model, params, micro[0])
+        if cast is not None:
+            grads = [g.to(cast) for g in grads]
+        return loss, metrics, grads
+    acc_dtype = cast or torch.float32
+    gsum, lsum = None, 0.0
+    for mb in micro:
+        loss, metrics, grads = _loss_and_grads(model, params, mb)
+        if cast is not None:
+            grads = [g.to(cast) for g in grads]
+        if gsum is None:
+            gsum = [g.to(acc_dtype, copy=True) for g in grads]
+        else:
+            for a, g in zip(gsum, grads):
+                a.add_(g.to(acc_dtype))
+        lsum = lsum + loss
+        del grads
+    return lsum / len(micro), metrics, [g.div_(len(micro)) for g in gsum]
+
+
+def _row_axes(mesh: Mesh, x: Any, dim: int) -> Tuple[str, ...]:
+    """The mesh axes DTensor ``x`` splits dim ``dim`` over (none for a
+    plain tensor: every rank holds every row)."""
+    if not ctx.is_dtensor(x):
+        return ()
+    from torch.distributed.tensor import Shard
+    return tuple(name for name, p in zip(mesh.axis_names, x.placements)
+                 if isinstance(p, Shard) and p.dim == dim)
+
+
+def _check_rows(mesh: Mesh, row_axes: Tuple[str, ...], rows: int, what: str) -> None:
+    """Each rank runs its own rows, so they must split evenly: a rank
+    without rows (or with fewer) would group MoE tokens otherwise.
+
+    Raises:
+        ValueError: ``rows`` does not divide over ``row_axes``.
+    """
+    n = 1
+    for a in row_axes:
+        n *= mesh.shape[a]
+    if rows % n:
+        raise ValueError(f"{what}: {rows} rows do not split evenly over {row_axes} ({n} ways)")
+
+
+def _my_rows(mesh: Mesh, row_axes: Tuple[str, ...], x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk of dim ``dim`` of the full ``x`` split over
+    ``row_axes`` (DTensor's chunk rule, the first axis major)."""
+    if not row_axes:
+        return x
+    _check_rows(mesh, row_axes, x.shape[dim], "a (micro)batch")
+    from torch.distributed.tensor import Replicate, Shard
+    placements = tuple(Shard(dim) if a in row_axes else Replicate() for a in mesh.axis_names)
+    lo, hi = ctx.local_range(x.shape, LeafSharding(mesh.device_mesh(), placements, P()), dim=dim)
+    return x.narrow(dim, lo, hi - lo)
+
+
+def _replicated(mesh: Mesh, value: torch.Tensor):
+    """A scalar the same on every rank, as a replicated DTensor."""
+    return ctx.to_dtensor(value, leaf_sharding(mesh, P()), ())
+
+
+def _batch_dim(key: str) -> int:
+    return 1 if key == "positions" else 0
+
+
+def make_train_step(model: Model, optimizer: AdamW, mesh: Optional[Mesh] = None,
+                    plan: Optional[ShardingPlan] = None, accum_steps: int = 1,
+                    grad_reduce_dtype: Optional[str] = None, shard_grads: bool = True):
     """``(params, opt_state, batch) -> (params, opt_state, loss, metrics)``.
 
     The loss and its gradients come from ``model.train_loss`` through the
@@ -61,34 +172,154 @@ def make_train_step(model: Model, optimizer: AdamW, accum_steps: int = 1,
     metrics stay on the device.
 
     ``accum_steps > 1`` accumulates the gradients of that many microbatches
-    (`_split_micro`) and averages them and the loss; the metrics are the last
-    microbatch's. ``grad_reduce_dtype`` casts the gradients, and the
-    accumulator keeps that dtype (fp32 without it).
+    (`_split_micro`: consecutive rows of the global batch) and averages them
+    and the loss; the metrics are the last microbatch's. ``grad_reduce_dtype``
+    casts the gradients, and the accumulator keeps that dtype (fp32 without
+    it).
+
+    With a ``mesh`` and a ``plan``, ``params`` and ``opt_state`` are
+    DTensors under the plan's specs and the batch is a DTensor whose rows
+    split over the batch axes (or plain, every rank holding all of it).
+    Each rank runs its rows of each microbatch over the gathered params;
+    the loss and metrics come back summed over the ranks that split the
+    rows (replicated DTensor scalars). ``shard_grads`` reduce-scatters the
+    gradients straight to the params' placements; without it they are
+    all-reduced, then cut to them.
+
+    Raises:
+        ValueError: ``accum_steps`` does not divide the batch, or a
+            microbatch's rows do not split evenly over the batch axes; a
+            mesh without a plan.
     """
     cast = torch_dtype(grad_reduce_dtype) if grad_reduce_dtype else None
+    if mesh is None:
+        def train_step(params: Tree, opt_state: Tree, batch: Dict[str, torch.Tensor]):
+            micro = [batch] if accum_steps == 1 else _split_micro(batch, accum_steps)
+            loss, metrics, grads = _accumulate(model, params, micro, cast)
+            optimizer.update(tree_util.like(params, grads), opt_state, params)
+            return params, opt_state, loss, metrics
+
+        return train_step
+    if plan is None:
+        raise ValueError("a sharded train step needs a plan beside its mesh")
+    from torch.distributed.tensor import Partial, Replicate
 
     def train_step(params: Tree, opt_state: Tree, batch: Dict[str, torch.Tensor]):
-        if accum_steps == 1:
-            loss, metrics, grads = _loss_and_grads(model, params, batch)
-            if cast is not None:
-                grads = [g.to(cast) for g in grads]
-        else:
-            acc_dtype = cast or torch.float32
-            gsum, lsum = None, 0.0
-            for mb in _split_micro(batch, accum_steps):
-                loss, metrics, grads = _loss_and_grads(model, params, mb)
-                if cast is not None:
-                    grads = [g.to(cast) for g in grads]
-                if gsum is None:
-                    gsum = [g.to(acc_dtype, copy=True) for g in grads]
-                else:
-                    for a, g in zip(gsum, grads):
-                        a.add_(g.to(acc_dtype))
-                lsum = lsum + loss
-                del grads
-            grads = [g.div_(accum_steps) for g in gsum]
-            loss = lsum / accum_steps
-        optimizer.update(tree_util.like(params, grads), opt_state, params)
-        return params, opt_state, loss, metrics
+        row_axes = _row_axes(mesh, batch["tokens"], 0)
+        whole = {k: ctx.full(v) for k, v in batch.items()}
+        micro = [whole] if accum_steps == 1 else _split_micro(whole, accum_steps)
+        micro = [{k: _my_rows(mesh, row_axes, v, _batch_dim(k)) for k, v in mb.items()}
+                 for mb in micro]
+        flat = tree_util.leaves(params)
+        gathered = tree_util.like(params, [ctx.full(p) for p in flat])
+        with ctx.activation_sharding(mesh, plan, row_axes=row_axes):
+            loss, metrics, grads = _accumulate(model, gathered, micro, cast)
+            loss = ctx.batch_sum(loss)
+            metrics = {k: ctx.batch_sum(v) for k, v in metrics.items()}
+        del gathered
+        partial = [Partial() if a in row_axes else Replicate() for a in mesh.axis_names]
+        dm = mesh.device_mesh()
+        placed = []
+        for p, g in zip(flat, grads):
+            g = ctx.to_dtensor(g, LeafSharding(dm, tuple(partial), P()), g.shape)
+            if not shard_grads:
+                g = g.redistribute(dm, [Replicate()] * len(partial))
+            placed.append(g.redistribute(dm, list(p.placements)))
+        del grads
+        optimizer.update(tree_util.like(params, placed), opt_state, params)
+        return (params, opt_state, _replicated(mesh, loss),
+                {k: _replicated(mesh, v) for k, v in metrics.items()})
 
     return train_step
+
+
+def jit_train_step(model: Model, optimizer: AdamW, mesh: Mesh, plan: ShardingPlan, cell,
+                   accum_steps: int = 1, grad_reduce_dtype: Optional[str] = None,
+                   shard_grads: bool = True):
+    """`make_train_step` over ``mesh`` whose inputs are placed under the
+    plan's params, AdamW-state and ``cell``'s batch specs first (nothing
+    moves when they are placed so already): params and state are then
+    updated in place under those placements."""
+    pspecs = param_specs(model.cfg, plan)
+    psh, osh = named(mesh, pspecs), named(mesh, opt_state_specs(pspecs))
+    bsh = named(mesh, batch_specs(model.cfg, plan, cell))
+    step = make_train_step(model, optimizer, mesh, plan, accum_steps, grad_reduce_dtype,
+                           shard_grads)
+
+    def train_step(params: Tree, opt_state: Tree, batch: Dict[str, torch.Tensor]):
+        return step(ctx.place_tree(params, psh), ctx.place_tree(opt_state, osh),
+                    ctx.place_tree(batch, bsh))
+
+    return train_step
+
+
+def _serving_params(params: Tree) -> Tree:
+    """The leaves outside the layer stacks gathered whole; the stacks stay
+    sharded, gathered a layer at a time as the model reaches them."""
+    return {k: v if k in STACKED else ctx.full_tree(v) for k, v in params.items()}
+
+
+def _logits_sharding(mesh: Mesh, plan: ShardingPlan, cell) -> LeafSharding:
+    b_ax = plan.batch_axes if cell.global_batch > 1 else None
+    return leaf_sharding(mesh, P(b_ax, plan.tp if plan.shard_vocab else None))
+
+
+def _cache_out(local: Tree, csh: Tree, batch: int) -> Tree:
+    """Each rank's cache rows (batch on axis 1) as DTensors under ``csh``."""
+    return {k: ctx.from_rows(v, csh[k], (v.shape[0], batch) + tuple(v.shape[2:]), dim=1)
+            for k, v in local.items()}
+
+
+def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
+    """``(params, batch) -> (logits (B, V_pad), cache)`` under ``plan``
+    on ``mesh``: params, batch, logits and cache as DTensors under their
+    specs (``cell.global_batch`` sizes the batch specs and the cache's)."""
+    psh = named(mesh, param_specs(model.cfg, plan))
+    bsh = named(mesh, batch_specs(model.cfg, plan, cell))
+    csh = named(mesh, cache_specs(model.cfg, plan, batch=cell.global_batch))
+    lsh = _logits_sharding(mesh, plan, cell)
+
+    def prefill(params: Tree, batch: Dict[str, Any]):
+        params = _serving_params(ctx.place_tree(params, psh))
+        placed = {k: ctx.place(v, bsh[k]) if k in bsh else v for k, v in batch.items()}
+        B = placed["tokens"].shape[0]
+        row_axes = _row_axes(mesh, placed["tokens"], 0)
+        _check_rows(mesh, row_axes, B, "a prefill batch")
+        local = {k: ctx.local_rows(v, _batch_dim(k)) if k in bsh else v
+                 for k, v in placed.items()}
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, row_axes=row_axes):
+            logits, cache = model.prefill(local, params=params)
+        return (ctx.from_rows(logits, lsh, (B, logits.shape[1]), dim=0),
+                _cache_out(cache, csh, B))
+
+    return prefill
+
+
+def jit_decode_step(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
+    """``(params, tokens (B, 1), cache, pos) -> (logits, cache)`` under
+    ``plan`` on ``mesh``, all as DTensors under their specs (``pos``
+    replicated). A cache placed by its rows alone is written in place; one
+    whose other dims shard too (the SSM state over the tensor axis, K/V
+    over a sequence axis) is gathered to the rank's rows for the step and
+    cut back after."""
+    psh = named(mesh, param_specs(model.cfg, plan))
+    csh = named(mesh, cache_specs(model.cfg, plan, batch=cell.global_batch))
+    b_ax = plan.batch_axes if cell.global_batch > 1 else None
+    tsh = leaf_sharding(mesh, P(b_ax, None))
+    lsh = _logits_sharding(mesh, plan, cell)
+
+    def decode(params: Tree, tokens: torch.Tensor, cache: Tree, pos):
+        params = _serving_params(ctx.place_tree(params, psh))
+        tokens = ctx.place(tokens, tsh)
+        cache = ctx.place_tree(cache, csh)
+        B = tokens.shape[0]
+        row_axes = _row_axes(mesh, tokens, 0)
+        _check_rows(mesh, row_axes, B, "a decode batch")
+        local = {k: ctx.local_rows(v, 1) for k, v in cache.items()}
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, row_axes=row_axes):
+            logits, local = model.decode_step(ctx.local_rows(tokens, 0), local,
+                                              ctx.full(pos), params=params)
+        return (ctx.from_rows(logits, lsh, (B, logits.shape[1]), dim=0),
+                _cache_out(local, csh, B))
+
+    return decode

@@ -60,21 +60,25 @@ class Model:
                              remat_policy=self.remat_policy)
 
     # ---- serving ----
-    def prefill(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, lm.Cache]:
+    def prefill(self, batch: Dict[str, Any], params: Optional[lm.Params] = None
+                ) -> Tuple[torch.Tensor, lm.Cache]:
         """``batch``: ``tokens (B, S)``; an enc-dec model also takes
         ``frames (B, F, d)``. A decoder-only model optionally takes
         ``true_len`` (a padded bucket, see `lm.prefill`) and ``positions``:
         ``(S,)`` or ``(B, S)``, or ``(3, B, S)`` M-RoPE streams for an M-RoPE
-        model (the token positions on all three streams when omitted)."""
+        model (the token positions on all three streams when omitted).
+        ``params``: this model's by default."""
+        params = self.params if params is None else params
         if self._is_encdec:
-            return encdec.prefill(self.cfg, self.params, batch)
-        return lm.prefill(self.cfg, self.params, batch)
+            return encdec.prefill(self.cfg, params, batch)
+        return lm.prefill(self.cfg, params, batch)
 
-    def decode_step(self, tokens: torch.Tensor, cache: lm.Cache,
-                    pos: torch.Tensor) -> Tuple[torch.Tensor, lm.Cache]:
+    def decode_step(self, tokens: torch.Tensor, cache: lm.Cache, pos: torch.Tensor,
+                    params: Optional[lm.Params] = None) -> Tuple[torch.Tensor, lm.Cache]:
+        params = self.params if params is None else params
         if self._is_encdec:
-            return encdec.decode_step(self.cfg, self.params, tokens, cache, pos)
-        return lm.decode_step(self.cfg, self.params, tokens, cache, pos)
+            return encdec.decode_step(self.cfg, params, tokens, cache, pos)
+        return lm.decode_step(self.cfg, params, tokens, cache, pos)
 
     def init_cache(self, batch: int, s_max: int, dtype: torch.dtype = torch.bfloat16,
                    enc_len: Optional[int] = None) -> lm.Cache:

@@ -31,6 +31,7 @@ from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.common import apply_rope, mrope_cos_sin, rmsnorm, rope_cos_sin
+from repro_torch.sharding.ctx import constrain
 
 Cache = Dict[str, torch.Tensor]
 
@@ -52,7 +53,12 @@ def _train_attn(q, k, v, *, scale, causal):
     """Train mode, the reference's plain ops: `sdpa`, or the chunked
     online-softmax `flash_attention_ref` for long causal sequences."""
     if causal and q.shape[1] >= FLASH_THRESHOLD:
-        return flash_attention_ref(q, k, v, causal=True, scale=scale)
+        # q (and the output) shard the sequence, k/v stay whole across it
+        q = constrain(q, "batch", "seq", None, None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
+        out = flash_attention_ref(q, k, v, causal=True, scale=scale)
+        return constrain(out, "batch", "seq", None, None)
     return sdpa(q, k, v, scale=scale, causal=causal)
 
 
@@ -307,7 +313,11 @@ def mla_attention(
             # v's head dim differs from q's: pad it for the chunked path
             dv = m.v_head_dim
             v_pad = torch.nn.functional.pad(v, (0, q.shape[-1] - dv))
+            q = constrain(q, "batch", "seq", None, None)
+            k = constrain(k, "batch", None, None, None)
+            v_pad = constrain(v_pad, "batch", None, None, None)
             out = flash_attention_ref(q, k, v_pad, causal=True, scale=scale)[..., :dv]
+            out = constrain(out, "batch", "seq", None, None)
         else:
             out = sdpa(q, k, v, scale=scale, causal=True)
         new_cache: Optional[Cache] = {"ckv": ckv, "kpe": kpe} if mode == "prefill" else None

@@ -34,6 +34,7 @@ from repro_torch.models.common import (
     sinusoidal_positions,
 )
 from repro_torch.models.lm import Cache, Leaf, Params
+from repro_torch.sharding.ctx import constrain
 
 
 def param_layout(cfg: ModelConfig, max_seq: Optional[int] = None) -> Params:
@@ -103,7 +104,7 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
                                     mode="train", causal=False)
         x = x + out
         h = apply_norm(cfg, lp["mlp_norm"], x)
-        return x + ffn.mlp(cfg, lp["mlp"], h)
+        return constrain(x + ffn.mlp(cfg, lp["mlp"], h), "batch", "sp", None)
 
     body = _checkpointed(body, remat)
     for lp in lm.unstack(params["enc_layers"]):
@@ -156,8 +157,11 @@ def decode_stack(
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
 
     def layer(x, lp, self_cache=None, cross_cache=None):
-        return _dec_layer(cfg, lp, x, positions=positions, mode=mode, self_cache=self_cache,
-                          cross_cache=cross_cache, enc_out=enc_out, pos=pos)
+        x, new_self, new_cross = _dec_layer(
+            cfg, lp, x, positions=positions, mode=mode, self_cache=self_cache,
+            cross_cache=cross_cache, enc_out=enc_out, pos=pos)
+        return (constrain(x, "batch", "sp" if mode == "train" else None, None),
+                new_self, new_cross)
 
     if mode == "train":
         body = _checkpointed(lambda x, lp: layer(x, lp)[0], remat)

@@ -38,6 +38,7 @@ from repro_torch.models.common import (
     param_dtype_of,
     vocab_mask,
 )
+from repro_torch.sharding.ctx import batch_sum, constrain, is_dtensor, layer_slice
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -224,8 +225,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 
 
 def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s slice of the stacked layer tree (views, no copies)."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else v[i])
+    """Layer ``i``'s slice of the stacked layer tree: views, no copies; a
+    DTensor leaf gathers that layer's shards alone (`ctx.layer_slice`)."""
+    return {k: (layer_params(v, i) if isinstance(v, dict) else layer_slice(v, i))
             for k, v in layers.items()}
 
 
@@ -296,7 +298,7 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
     else:
         out, new_cache = attn.gqa_attention(
             cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
-    x = x + out
+    x = x + constrain(out, "batch", "sp" if mode == "train" else None, None)
     if f == "none":
         return x, new_cache, None
     h = apply_norm(cfg, p["ffn_norm"], x)
@@ -306,17 +308,20 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
                                want_aux=(mode == "train"))
     else:
         out = ffn.mlp(cfg, p["ffn"], h)
-    return x + out, new_cache, aux
+    return x + constrain(out, "batch", "sp" if mode == "train" else None, None), new_cache, aux
 
 
-def unstack(layers: Params) -> list:
-    """The stacked layer tree as one tree per scan step, each leaf a view
-    from one `unbind` of its stacked leaf, so autograd writes each stacked
-    gradient once (indexing each layer would add a full-size zero gradient
-    per layer)."""
-    views = tree_util.map_tree(lambda _, v: v.unbind(0), layers)
+def unstack(layers: Params):
+    """The stacked layer tree as one tree per scan step, in order: each
+    leaf a view from one `unbind` of its stacked leaf, so autograd writes
+    each stacked gradient once (indexing each layer would add a full-size
+    zero gradient per layer). A DTensor leaf gathers one layer at a time, as
+    the steps are taken (`ctx.layer_slice`)."""
+    views = tree_util.map_tree(lambda _, v: v if is_dtensor(v) else v.unbind(0), layers)
     steps = len(tree_util.leaves(views)[0])
-    return [tree_util.map_tree(lambda _, vs: vs[i], views) for i in range(steps)]
+    for i in range(steps):
+        yield tree_util.map_tree(lambda _, vs: layer_slice(vs, i) if is_dtensor(vs) else vs[i],
+                                 views)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -354,6 +359,7 @@ def _train_layers(cfg, layers, x, positions, *, remat, remat_policy):
         for pre, kind in zip(prefixes, kinds):
             x, _, a = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
                                  positions=positions, mode="train", cache=None, pos=None)
+            x = constrain(x, "batch", "sp", None)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -394,6 +400,7 @@ def forward(
     kinds = layer_kinds(cfg)
     prefixes = sub_prefixes(cfg)
     x = params["embed"][tokens].to(dtype_of(cfg))
+    x = constrain(x, "batch", "sp" if mode == "train" else None, None)
     if positions is None:
         if mode == "decode":
             p = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -417,6 +424,7 @@ def forward(
                   if mode == "decode" else None)
             x, out, _ = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
                                    positions=positions, mode=mode, cache=sc, pos=pos)
+            x = constrain(x, "batch", None, None)
             if mode == "prefill":
                 new_lc.update({pre + k: v for k, v in out.items()})
         per_step.append(new_lc)
@@ -477,7 +485,9 @@ def cross_entropy(
             sl = slice(c, c + chunk)
             total = total + checkpoint(chunk_loss, hidden[:, sl], targets[:, sl], mask[:, sl],
                                        use_reentrant=False)
-    return total / torch.clamp(mask.sum(), min=1.0)
+    # the mask count over every rank's rows: the loss is the global masked
+    # mean, and each rank's share of it sums to that (`ctx.batch_sum`)
+    return total / torch.clamp(batch_sum(mask.sum()), min=1.0)
 
 
 def train_loss(

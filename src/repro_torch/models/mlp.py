@@ -18,6 +18,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import top_k
 from repro_torch.models.common import act_fn
+from repro_torch.sharding.ctx import batch_sum, constrain, row_shards
 
 # ---------------------------------------------------------------------------
 # dense MLPs
@@ -61,10 +62,19 @@ def padded_experts(num_experts: int) -> int:
 
 def switch_aux(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Switch load-balancing loss of ``(T, E)`` router probabilities and
-    the ``(T, k)`` chosen ids (top-1 dispatch fraction times mean prob)."""
+    the ``(T, k)`` chosen ids (top-1 dispatch fraction times mean prob).
+
+    When a sharded step splits the tokens over ranks (`ctx.row_shards`),
+    the fraction and the token count are summed over them, and each rank
+    returns its share, linear in its own probabilities: the shares sum to
+    the loss over every token, and so do their gradients."""
     E = probs.shape[-1]
-    f = F.one_hot(idx[:, 0].long(), E).float().mean(dim=0)
-    return E * torch.sum(f * probs.mean(dim=0))
+    one = F.one_hot(idx[:, 0].long(), E).float()
+    if row_shards() == 1:
+        return E * torch.sum(one.mean(dim=0) * probs.mean(dim=0))
+    n = batch_sum(torch.tensor(float(probs.shape[0]), device=probs.device))
+    f = batch_sum(one.sum(dim=0)) / n
+    return E * torch.sum(f * probs.sum(dim=0)) / n
 
 
 def router_topk(m: MoEConfig, logits: torch.Tensor, *, want_aux: bool = True
@@ -83,6 +93,23 @@ EXACT_SMALL_G = 512   # groups up to this size dispatch drop-free (cap = g)
 GROUP_SIZE = 1024     # tokens per dispatch group
 
 
+def _check_grouping(T: int) -> None:
+    """A sharded step runs each rank's ``T`` tokens alone: its groups (and
+    so its capacity and drops) are the global ones only if both are
+    drop-free groups of every token (``n T <= EXACT_SMALL_G``) or the local
+    tokens are whole groups (the rows are contiguous, so the groups are
+    then the same).
+
+    Raises:
+        ValueError: neither holds.
+    """
+    n = row_shards()
+    if n > 1 and not (T * n <= EXACT_SMALL_G or T % GROUP_SIZE == 0):
+        raise ValueError(
+            f"MoE over {T} local tokens of {T * n}: the local dispatch groups are not "
+            f"the global ones (neither drop-free nor whole groups of {GROUP_SIZE})")
+
+
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
             want_aux: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Grouped capacity-bucketed dense-dispatch MoE over ``x (B, S, d)``.
@@ -93,6 +120,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
+    _check_grouping(T)
     E, k = m.num_experts, m.top_k
     E_pad = padded_experts(E)
     xt = x.reshape(T, d)
@@ -132,6 +160,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
         "gske,gskc->gsec", e_one.to(dt),
         F.one_hot(torch.where(keep, pos, cap), cap + 1).to(dt)[..., :-1])
     x_e = torch.einsum("gsec,gsd->gecd", disp, xg)            # (G, E_pad, cap, d)
+    x_e = constrain(x_e, "batch", "ep", None, None)            # expert parallel
 
     act = act_fn(cfg.mlp_act)
     if cfg.mlp_act == "silu":
@@ -140,6 +169,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     else:
         h = act(torch.einsum("gecd,edf->gecf", x_e, p["w_up"]))
     y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # (G, E_pad, cap, d)
+    y_e = constrain(y_e, "batch", "ep", None, None)
 
     combine = disp * (e_one.to(weights.dtype) * weights[..., None]).sum(dim=2)[..., None]
     out = torch.einsum("gsec,gecd->gsd", combine.to(y_e.dtype), y_e)

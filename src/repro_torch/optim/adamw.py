@@ -5,6 +5,11 @@ reference keeps it. `AdamW.update` works in place, leaf by leaf, in the
 reference's order of operations: at full width the reference's functional
 form (``g32, m32, v32, mhat, vhat, step, new_p`` for one stacked leaf) would
 hold ~7 fp32 copies of a leaf at once; in place it holds two.
+
+The leaves may be DTensors (a sharded train step, `launch.steps`): the
+moments are made under the params' placements, each rank updates its own
+shards, and the clipping norm is global: each leaf's squares are summed
+over the mesh dims it is sharded on, and only those.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.models.common import torch_dtype
+from repro_torch.sharding.ctx import is_dtensor
 
 Tree = Dict[str, Any]
 
@@ -33,14 +39,27 @@ class AdamW:
         return torch_dtype(self.state_dtype) if self.state_dtype else torch.float32
 
     def init(self, params: Tree) -> Tree:
-        """Zeroed moments beside each parameter (on its device) and a step
-        count, an int32 scalar on the first parameter's device."""
+        """Zeroed moments beside each parameter (on its device, or under
+        its placements) and a step count, an int32 scalar on the first
+        parameter's device (replicated over its mesh)."""
         sd = self._sdtype()
-        zeros = lambda _, p: torch.zeros(p.shape, dtype=sd, device=p.device)  # noqa: E731
-        device = tree_util.leaves(params)[0].device
+
+        def zeros(_, p):
+            if is_dtensor(p):
+                return torch.zeros_like(p, dtype=sd)
+            return torch.zeros(p.shape, dtype=sd, device=p.device)
+
+        first = tree_util.leaves(params)[0]
+        if is_dtensor(first):
+            from torch.distributed.tensor import Replicate, distribute_tensor
+            mesh = first.device_mesh
+            count = distribute_tensor(torch.zeros((), dtype=torch.int32, device=first.to_local().device),
+                                      mesh, [Replicate()] * mesh.ndim, src_data_rank=None)
+        else:
+            count = torch.zeros((), dtype=torch.int32, device=first.device)
         return {"m": tree_util.map_tree(zeros, params),
                 "v": tree_util.map_tree(zeros, params),
-                "count": torch.zeros((), dtype=torch.int32, device=device)}
+                "count": count}
 
     @torch.no_grad()
     def update(self, grads: Tree, state: Tree, params: Tree) -> Tuple[Tree, Tree]:
@@ -49,7 +68,7 @@ class AdamW:
         ``donate_argnums=(0, 1)``); ``grads`` are read only. Everything
         after the cast of a gradient is fp32; the count, the LR, the clip
         scale and the bias corrections stay on the device (no host sync)."""
-        count = state["count"]
+        count = _local(state["count"])
         count.add_(1)
         lr = self.lr(count) if callable(self.lr) else self.lr
 
@@ -59,8 +78,10 @@ class AdamW:
         flat_v = tree_util.leaves(state["v"])
         scale = None
         if self.clip_norm is not None:
-            gnorm = torch.sqrt(sum(g.float().square().sum() for g in flat_g))
+            gnorm = torch.sqrt(sum(_squares(flat_g)))
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+        flat_p, flat_g, flat_m, flat_v = ([_local(x) for x in xs]
+                                          for xs in (flat_p, flat_g, flat_m, flat_v))
 
         b1, b2 = self.b1, self.b2
         cf = count.to(torch.float32)
@@ -90,6 +111,35 @@ class AdamW:
             if p32 is not p:
                 p.copy_(p32)
         return params, state
+
+
+def _local(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's own shard (its storage: written in place); a plain
+    tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _squares(flat_g: list) -> list:
+    """Each gradient leaf's sum of squares over the whole leaf, in leaf
+    order. A DTensor leaf sums its shard's, then over the mesh dims it is
+    sharded on (one all-reduce per set of such dims), never over a dim
+    that replicates it."""
+    sq = [_local(g).float().square().sum() for g in flat_g]
+    groups: Dict[tuple, list] = {}
+    for i, g in enumerate(flat_g):
+        if is_dtensor(g):
+            from torch.distributed.tensor import Shard
+            dims = tuple(d for d, p in enumerate(g.placements) if isinstance(p, Shard))
+            if dims:
+                groups.setdefault((g.device_mesh, dims), []).append(i)
+    import torch.distributed as dist
+    for (mesh, dims), idx in groups.items():
+        vec = torch.stack([sq[i] for i in idx])
+        for d in dims:
+            dist.all_reduce(vec, group=mesh.get_group(d))
+        for j, i in enumerate(idx):
+            sq[i] = vec[j]
+    return sq
 
 
 def adamw(**kw) -> AdamW:

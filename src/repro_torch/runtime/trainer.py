@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.data import SyntheticLM
+from repro_torch.sharding.ctx import is_dtensor
 
 Tree = Dict[str, Any]
 
@@ -58,10 +59,12 @@ class StragglerMonitor:
 
 
 class TrainRunner:
-    """Runs ``step_fn`` (`launch.steps.make_train_step`) over ``dataset``'s
-    batches, saving ``{"params", "opt"}`` to ``ckpt_dir``. A restore places
-    the leaves on the device of the runner's own state (the reference's
-    restore under other shardings waits for sharding across devices)."""
+    """Runs ``step_fn`` (`launch.steps.make_train_step`, or a sharded
+    `jit_train_step`) over ``dataset``'s batches, saving ``{"params",
+    "opt"}`` to ``ckpt_dir`` (every rank saves sharded state, see
+    `checkpoint.save_checkpoint`). A restore places the leaves on the
+    device of the runner's own state, under ``shardings`` when given: any
+    mesh, the reference's elastic continuation."""
 
     def __init__(self, *, step_fn: Callable, params: Tree, opt_state: Tree,
                  dataset: SyntheticLM, ckpt_dir: Union[str, Path],
@@ -80,11 +83,16 @@ class TrainRunner:
         self.restarts = 0
 
     # ------------------------------------------------------------------
-    def try_restore(self) -> bool:
+    def try_restore(self, shardings: Optional[Tree] = None) -> bool:
+        """Restore the latest checkpoint into the runner's state; False
+        when there is none. ``shardings``: ``{"params": tree, "opt": tree}``
+        of `LeafSharding` to place it under."""
         state_like = {"params": self.params, "opt": self.opt_state}
-        device = self.opt_state["count"].device
+        count = self.opt_state["count"]
+        device = count.to_local().device if is_dtensor(count) else count.device
         try:
-            step, state = load_checkpoint(self.ckpt_dir, state_like, device=device)
+            step, state = load_checkpoint(self.ckpt_dir, state_like, device=device,
+                                          shardings=shardings)
         except FileNotFoundError:
             return False
         self.params, self.opt_state = state["params"], state["opt"]
@@ -129,10 +137,12 @@ class TrainRunner:
                 "stragglers": len(self.monitor.flagged),
                 "restarts": self.restarts}
 
-    def recover_and_run(self, n_steps_total_target: int) -> Dict[str, Any]:
+    def recover_and_run(self, n_steps_total_target: int,
+                        shardings: Optional[Tree] = None) -> Dict[str, Any]:
         """The restart path after a failure: restore the latest checkpoint
-        (or start over at step 0 without one), then run to the target."""
-        if not self.try_restore():
+        (under ``shardings`` when given; or start over at step 0 without
+        one), then run to the target."""
+        if not self.try_restore(shardings=shardings):
             self.step = 0
         self.restarts += 1
         return self.run(max(n_steps_total_target - self.step, 0))

@@ -459,7 +459,7 @@ class ServingEngine:
         # the serving thread. With no group none can be dispatched.
         step = self._scratch_decode_inputs()
         if _has_process_group():
-            collectives = _trace_collectives(step, self.device)
+            collectives = trace_collectives(step, self.device)
         else:
             step()
             collectives = []
@@ -495,7 +495,7 @@ class ServingEngine:
         """The collectives one decode step issues (the reference's
         ``decode_hlo_text`` check, over the port's dispatched ops): what
         the last PREPARE recorded, else one step traced now on scratch
-        state (`_trace_collectives`). With no process group no collective
+        state (`trace_collectives`). With no process group no collective
         can be dispatched, so nothing is traced and the list is empty.
         Recorded once per placement.
 
@@ -504,7 +504,7 @@ class ServingEngine:
                 closed on it.
         """
         if self._collectives is None:
-            self._collectives = (_trace_collectives(self._scratch_decode_inputs(),
+            self._collectives = (trace_collectives(self._scratch_decode_inputs(),
                                                     self.device)
                                  if _has_process_group() else [])
         return list(self._collectives)
@@ -920,6 +920,9 @@ class ServingEngine:
 
 #: the op namespaces of PyTorch's collectives (eager c10d and functional)
 COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional", "c10d_functional")
+#: ops of those namespaces that move no data between ranks: waiting on a
+#: functional collective's result, and wrapping it for autograd
+NON_COMMUNICATING = ("wait_tensor", "_wrap_tensor_autograd")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -956,11 +959,12 @@ def _group_ranks(args, kwargs) -> Optional[Tuple[int, ...]]:
     return None
 
 
-def _trace_collectives(step, device: torch.device) -> List[Collective]:
+def trace_collectives(step, device: torch.device) -> List[Collective]:
     """Run ``step`` under a `TorchDispatchMode` (thread-local: a PREPARE
     thread's trace sees none of the serving thread's ops) that records
-    every op of the `COLLECTIVE_NAMESPACES`, with its process group's ranks
-    where they can be read; synchronise after.
+    every op of the `COLLECTIVE_NAMESPACES` but the `NON_COMMUNICATING`
+    ones, with its process group's ranks where they can be read;
+    synchronise after.
 
     Raises:
         RuntimeError: the step failed under the trace.
@@ -972,7 +976,8 @@ def _trace_collectives(step, device: torch.device) -> List[Collective]:
     class _Record(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             ns = getattr(func, "namespace", "")
-            if ns in COLLECTIVE_NAMESPACES:
+            if ns in COLLECTIVE_NAMESPACES \
+                    and func.overloadpacket.__name__ not in NON_COMMUNICATING:
                 found.append(Collective(f"{ns}.{func.overloadpacket.__name__}",
                                         _group_ranks(args, kwargs or {})))
             return func(*args, **(kwargs or {}))

@@ -1,0 +1,256 @@
+"""The activation-sharding context, and the DTensor helpers the sharded
+step builders (`launch.steps`) use.
+
+Model code is plan-agnostic. The builders enter `activation_sharding(mesh,
+plan)` around a step, and the model's `constrain(x, ...)` calls (the
+reference's sites, by logical dim names) read it. Outside any context
+`constrain` is the identity. Inside one it applies the reference's
+divisibility rule and redistributes a DTensor to the resolved placements; a
+plain tensor passes as it is, because the port's sharded steps keep their
+activations rank-local: each rank runs its own batch rows over parameters
+gathered a layer at a time (`layer_slice`), so the model code and the
+kernels only ever see plain tensors.
+
+The context also records the mesh axes the batch rows are split over, so
+the few reductions that must be global (the train loss's mask count, the
+MoE aux loss's statistics) sum over them (`batch_sum`).
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import sys
+import threading
+from typing import Any, Optional, Sequence, Tuple
+
+import torch
+
+_STATE = threading.local()
+
+
+def _stack() -> list:
+    if not hasattr(_STATE, "active"):
+        _STATE.active = []
+    return _STATE.active
+
+
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor. Until something imports
+    ``torch.distributed.tensor`` no DTensor can exist, so an unsharded path
+    never pays that import (seconds on the card's host)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None):
+    """Enter ``(mesh, plan)`` for the model's `constrain` calls.
+    ``row_axes``: the mesh axes this step splits the batch rows over (none
+    by default: every rank holds every row)."""
+    _stack().append((mesh, plan, tuple(row_axes or ())))
+    try:
+        yield
+    finally:
+        _stack().pop()
+
+
+def current() -> Optional[Tuple[Any, Any]]:
+    """The innermost ``(mesh, plan)``, or None outside any context."""
+    s = _stack()
+    return s[-1][:2] if s else None
+
+
+def _resolve(plan: Any, logical: Optional[str]):
+    if logical is None:
+        return None
+    if logical == "batch":
+        return plan.batch_axes
+    if logical == "tp":
+        return plan.tp_axis
+    if logical == "ep":
+        return plan.ep_axis
+    if logical == "seq":
+        return plan.seq_axis
+    if logical == "sp":   # sequence-parallel residual stream (train)
+        return plan.tp_axis if getattr(plan, "sequence_parallel", False) else None
+    raise ValueError(f"unknown logical axis {logical!r}")
+
+
+def constrain(x: torch.Tensor, *logical_dims: Optional[str]) -> torch.Tensor:
+    """Pin ``x``'s layout by logical dim names, e.g. ``constrain(x, "batch",
+    None, None)``: the identity outside a context; inside one, a DTensor is
+    redistributed to the resolved placements unless a dim does not divide
+    by its axes' extent (the reference skips those too); a plain tensor, a
+    rank's own rows, is returned as it is.
+
+    Raises:
+        ValueError: ``logical_dims`` does not name each of ``x``'s dims, or
+            names an unknown logical axis.
+    """
+    ctx = current()
+    if ctx is None:
+        return x
+    mesh, plan = ctx
+    if len(logical_dims) != x.dim():
+        raise ValueError(f"constrain: {logical_dims} for a tensor of shape {tuple(x.shape)}")
+    from repro_torch.sharding.plan import PartitionSpec, leaf_sharding
+    spec = PartitionSpec(*[_resolve(plan, d) for d in logical_dims])
+    extent = mesh.shape
+    for d, size in enumerate(x.shape):
+        n = math.prod(extent.get(a, 1) for a in spec.axes(d))
+        if n > 1 and size % n:
+            return x
+    if not is_dtensor(x):
+        return x
+    sh = leaf_sharding(mesh, spec)
+    return x.redistribute(sh.mesh, sh.placements)
+
+
+# ---------------------------------------------------------------------------
+# rows split over the batch axes
+# ---------------------------------------------------------------------------
+
+
+def _row_context():
+    s = _stack()
+    return (s[-1][0], s[-1][2]) if s else (None, ())
+
+
+def row_shards() -> int:
+    """How many ways the current step splits its batch rows (1 outside a
+    context)."""
+    mesh, axes = _row_context()
+    return math.prod(mesh.shape[a] for a in axes) if axes else 1
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the ranks that split the current step's batch rows
+    (a new tensor, outside autograd); ``x`` itself outside a context or
+    when no axis splits the rows."""
+    mesh, axes = _row_context()
+    if row_shards() == 1:
+        return x
+    import torch.distributed as dist
+    dm = mesh.device_mesh()
+    out = x.detach().clone()
+    for a in axes:
+        dist.all_reduce(out, group=dm.get_group(a))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# DTensor helpers
+# ---------------------------------------------------------------------------
+
+
+def full(x: Any) -> Any:
+    """A DTensor gathered to a plain tensor on every rank; anything else as
+    it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def full_tree(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: full_tree(v) for k, v in tree.items()}
+    return full(tree)
+
+
+def layer_slice(v: Any, i: int) -> torch.Tensor:
+    """Layer ``i`` of a stacked leaf as a plain tensor. A DTensor (its layer
+    dim never sharded) gathers that layer's shards alone."""
+    if not is_dtensor(v):
+        return v[i]
+    from torch.distributed.tensor import DTensor, Shard
+    if any(isinstance(p, Shard) and p.dim == 0 for p in v.placements):
+        return v.full_tensor()[i]
+    placements = [Shard(p.dim - 1) if isinstance(p, Shard) else p for p in v.placements]
+    shape = v.shape[1:]
+    part = DTensor.from_local(v.to_local()[i], v.device_mesh, placements, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+    return part.full_tensor()
+
+
+def _contiguous_stride(shape) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def local_range(shape, sharding, *, dim: int) -> Tuple[int, int]:
+    """The ``[lo, hi)`` of dim ``dim`` this rank holds of an array of
+    ``shape`` under ``sharding`` (a `LeafSharding`); ``(0, 0)`` on a rank
+    outside its mesh."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    if sharding.mesh.get_coordinate() is None:
+        return 0, 0
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(shape), sharding.mesh, list(sharding.placements))
+    return offset[dim], offset[dim] + local[dim]
+
+
+def to_dtensor(local: torch.Tensor, sharding, shape) -> Any:
+    """A DTensor of global ``shape`` under ``sharding`` from this rank's
+    shard ``local`` (no communication)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, sharding.mesh, list(sharding.placements), run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
+
+
+def place(x: torch.Tensor, sharding) -> Any:
+    """``x`` as a DTensor under ``sharding``: a DTensor is redistributed
+    (nothing moves when it is placed so already); a plain tensor, the same
+    full value on every rank, is cut to this rank's shard, a view of ``x``
+    where the shard is contiguous (then the DTensor shares ``x``'s storage:
+    on one rank, all of it)."""
+    if is_dtensor(x):
+        if x.device_mesh == sharding.mesh and tuple(x.placements) == tuple(sharding.placements):
+            return x
+        return x.redistribute(sharding.mesh, list(sharding.placements))
+    if sharding.mesh.get_coordinate() is None:
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(x, sharding.mesh, list(sharding.placements), src_data_rank=None)
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+    local, offset = compute_local_shape_and_global_offset(
+        tuple(x.shape), sharding.mesh, list(sharding.placements))
+    view = x[tuple(slice(o, o + n) for o, n in zip(offset, local))]
+    return to_dtensor(view.contiguous(), sharding, x.shape)
+
+
+def place_tree(tree: Any, shardings: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: place_tree(v, shardings[k]) for k, v in tree.items()}
+    return place(tree, shardings)
+
+
+def row_placements(placements, dim: int) -> Tuple[Any, ...]:
+    """Only the placements that shard dim ``dim`` (the batch), the rest
+    replicated: the layout a rank's own rows have."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(p if isinstance(p, Shard) and p.dim == dim else Replicate()
+                 for p in placements)
+
+
+def local_rows(x: Any, dim: int) -> torch.Tensor:
+    """This rank's batch rows of DTensor ``x`` (batch on dim ``dim``), with
+    every other dim whole: what the rank computes on. A plain tensor is
+    returned as it is."""
+    if not is_dtensor(x):
+        return x
+    rows = row_placements(x.placements, dim)
+    if tuple(x.placements) != rows:
+        x = x.redistribute(x.device_mesh, list(rows))
+    return x.to_local()
+
+
+def from_rows(local: torch.Tensor, sharding, shape, dim: int) -> Any:
+    """A DTensor under ``sharding`` from each rank's rows ``local`` (batch
+    on dim ``dim``, every other dim whole): shards of other dims are cut
+    locally, no data moves."""
+    from repro_torch.sharding.plan import LeafSharding
+    rows = LeafSharding(sharding.mesh, row_placements(sharding.placements, dim), sharding.spec)
+    x = to_dtensor(local, rows, shape)
+    if rows.placements != tuple(sharding.placements):
+        x = x.redistribute(sharding.mesh, list(sharding.placements))
+    return x
