@@ -56,3 +56,19 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_reduced_config(arch: str) -> ModelConfig:
     return _module(arch).reduced()
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    """Every architecture's published config, by module name."""
+    return {a: importlib.import_module(f"repro_torch.configs.{a}").CONFIG for a in ARCH_IDS}
+
+
+def applicable_cells(cfg: ModelConfig) -> List[ShapeCell]:
+    """Shape cells that actually run for this architecture (the
+    reference's rule).
+
+    ``long_500k`` requires sub-quadratic sequence mixing and runs only for
+    the SSM and hybrid families; the full-attention architectures skip it.
+    """
+    return [c for c in SHAPE_CELLS
+            if c.name != "long_500k" or cfg.family in ("ssm", "hybrid")]

@@ -50,6 +50,17 @@
 // per warp where wgmma would feed the tensor cores from shared memory for
 // four warps at once; the hi/lo split doubles PV; and each block reloads its
 // (b, kv-head)'s K/V from L2.
+//
+// Head dims: 16, 32, 64, 128 and 192 (Nemotron-4-340B's). At D = 192 the
+// bf16 kernel's shared memory is 2 x 200 x (64 + 2 * 2 * 2 * 64) = 230,400
+// bytes of the 232,448 a block may opt in to (the row stride of 200 bf16 is
+// 25 16-byte units, odd, so ldmatrix stays free of bank conflicts), and the
+// fp32 kernel's 164,608. The bf16 kernel's registers are the risk there: a
+// warp holds Q fragments for 12 k-steps (48 registers a thread) and a 16 x
+// 192 fp32 accumulator (96) beside the logits (32), under 255 a thread at
+// 256 threads a block; `-Xptxas -v` (the build's log) reports the count and
+// any spill bytes, and PERF.md keeps them. One block per SM at this shared
+// memory either way.
 #include "mma_common.cuh"
 
 namespace {
@@ -474,6 +485,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     case 32: return fn<32>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, s);                \
     case 64: return fn<64>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, s);                \
     case 128: return fn<128>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, s);              \
+    case 192: return fn<192>(q, k, v, o, B, Sq, Sk, Hq, Hkv, scale, causal, s);              \
     default: return cudaErrorInvalidValue;                                                   \
   }
 

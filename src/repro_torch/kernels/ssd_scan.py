@@ -21,25 +21,19 @@ P_TILE = 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             B_mat: torch.Tensor, C_mat: torch.Tensor, *, chunk: int = 256
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x ``(B, S, H, P)``, dt ``(B, S, H)`` fp32, A ``(H,)`` fp32, B/C
-    ``(B, S, G, N)`` in x's dtype (fp32 or bf16), all contiguous CUDA
-    tensors (bf16: 16-byte aligned) -> (y ``(B, S, H, P)`` in x's dtype,
-    final state ``(B, H, P, N)`` fp32). P and N are multiples of 16 up to
-    `MAX_P` and `MAX_N`, ``chunk`` a multiple of 16 up to `MAX_CHUNK`, and G
-    divides H.
+def check_args(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               B_mat: torch.Tensor, C_mat: torch.Tensor, chunk: int) -> None:
+    """What the kernel takes, checked on metadata alone (so the fake op
+    checks it too): x ``(B, S, H, P)``, dt ``(B, S, H)`` fp32, A ``(H,)``
+    fp32, B/C ``(B, S, G, N)`` in x's dtype (fp32 or bf16), all contiguous;
+    P and N multiples of 16 up to `MAX_P` and `MAX_N`, ``chunk`` a multiple
+    of 16 up to `MAX_CHUNK`, G dividing H, nothing empty.
 
     Raises:
-        ValueError / TypeError: a device, dtype, shape or contiguity the
-            kernel does not take.
-        RuntimeError: the launch failed (its CUDA error code).
+        ValueError / TypeError: on what the kernel does not take.
     """
     for name, t, dims in (("x", x, 4), ("dt", dt, 3), ("A", A, 1),
                           ("B_mat", B_mat, 4), ("C_mat", C_mat, 4)):
-        if t.device.type != "cuda" or t.device != x.device:
-            raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
         if t.dim() != dims or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dims}-d tensor, got "
                              f"shape {tuple(t.shape)}")
@@ -63,6 +57,25 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"P={MAX_P}, N={MAX_N}")
     if chunk % 16 or not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"chunk={chunk}: the kernel takes a multiple of 16 up to {MAX_CHUNK}")
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B_mat: torch.Tensor, C_mat: torch.Tensor, *, chunk: int = 256
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CUDA tensors as `check_args` takes them (bf16: 16-byte aligned) ->
+    (y ``(B, S, H, P)`` in x's dtype, final state ``(B, H, P, N)`` fp32).
+
+    Raises:
+        ValueError / TypeError: a device, dtype, shape or contiguity the
+            kernel does not take.
+        RuntimeError: the launch failed (its CUDA error code).
+    """
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B_mat", B_mat), ("C_mat", C_mat)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
+    check_args(x, dt, A, B_mat, C_mat, chunk)
+    Bsz, S, H, P = x.shape
+    G, N = B_mat.shape[2], B_mat.shape[3]
     if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (x, B_mat, C_mat)):
         raise ValueError("bf16 x, B_mat and C_mat must start on a 16-byte boundary "
                          "(the kernel copies rows 16 bytes at a time)")
@@ -72,3 +85,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B_mat.data_ptr(), C_mat.data_ptr(), y.data_ptr(), h.data_ptr(),
                   Bsz, S, H, G, P, N, chunk, _DTYPE_CODE[x.dtype])
     return y, h
+
+
+def flops(x_shape, N: int, chunk: int) -> int:
+    """Operations of one scan: per head and chunk of Lc rows, the causal
+    half of the two Lc x Lc products (C Bᵀ, then times dt x) and the two
+    state products (C hᵀ, the state update), 2 operations a multiply-add:
+    ``sum over chunks of (Lc (Lc + 1) (N + P) + 4 Lc P N)``, times B H."""
+    B, S, H, P = x_shape
+    ops = 0
+    for t0 in range(0, S, chunk):
+        Lc = min(chunk, S - t0)
+        ops += Lc * (Lc + 1) * (N + P) + 4 * Lc * P * N
+    return ops * B * H

@@ -20,8 +20,11 @@ plain tensors only. Gradients come back to the params' placements by a
 reduce-scatter over the batch axes (``shard_grads``) or an all-reduce, and
 AdamW updates each rank's shards, clipping by the global norm. The loss is
 the global masked mean: each rank divides its sum by the mask count over
-every rank's rows. ``batch_struct``, ``decode_struct`` and
-``param_struct`` serve the dry run and wait for it.
+every rank's rows.
+
+``batch_struct``, ``decode_struct`` and ``param_struct`` give the inputs of
+a shape cell as meta tensors (shapes and dtypes, no memory): the stand-ins
+the dry run (`launch.dryrun`) places on its fake mesh.
 """
 from __future__ import annotations
 
@@ -52,10 +55,85 @@ Tree = Dict[str, Any]
 STACKED = ("layers", "enc_layers", "dec_layers")
 
 
+# ---------------------------------------------------------------------------
+# meta stand-ins of a cell's inputs (no allocation)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_struct(cfg, cell) -> Dict[str, torch.Tensor]:
+    """Stand-ins of a train or prefill batch of ``cell``: ``tokens (B, S)``
+    int32 (S + 1 columns in train), a train cell's ``loss_mask (B, S)``
+    fp32, an enc-dec model's ``frames (B, F, d)`` bf16, an M-RoPE model's
+    ``positions (3, B, S)`` int32."""
+    B = cell.global_batch
+    S = cell.seq_len + 1 if cell.kind == "train" else cell.seq_len
+    batch = {"tokens": _meta((B, S), torch.int32)}
+    if cell.kind == "train":
+        batch["loss_mask"] = _meta((B, S - 1), torch.float32)
+    if cfg.encdec is not None:
+        batch["frames"] = _meta((B, cfg.encdec.encoder_seq_len, cfg.d_model), torch.bfloat16)
+    if cfg.pos_type == "mrope":
+        batch["positions"] = _meta((3, B, S), torch.int32)
+    return batch
+
+
+def decode_struct(model: Model, cell, cache_dtype: torch.dtype = torch.bfloat16
+                  ) -> Tuple[torch.Tensor, Tree, torch.Tensor]:
+    """``(tokens (B, 1) int32, cache, pos () int32)`` stand-ins of a decode
+    step at ``S_max = cell.seq_len``; the cache in ``cache_dtype``, the SSM
+    state fp32 (`lm.init_cache`'s dtypes)."""
+    from repro_torch.models.lm import leaf_name
+    from repro_torch.models.ssm import state_dtype
+    B = cell.global_batch
+    cache = {k: _meta(s, state_dtype(leaf_name(k), cache_dtype))
+             for k, s in model.cache_shapes(B, cell.seq_len).items()}
+    return _meta((B, 1), torch.int32), cache, _meta((), torch.int32)
+
+
+def param_struct(model: Model, cell=None) -> Tree:
+    """The parameter stand-ins; an enc-dec model's ``pos_embed`` holds
+    ``cell.seq_len + 1`` rows (the train cell's targets and one more)."""
+    return model.param_shapes(max_seq=cell.seq_len + 1 if cell is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# placements
+# ---------------------------------------------------------------------------
+
+
 def named(mesh: Mesh, spec_tree: Tree) -> Tree:
     """A `LeafSharding` per spec of ``spec_tree``, on ``mesh`` (its axes
     pruned to the mesh's)."""
     return tree_util.map_tree(lambda _, s: leaf_sharding(mesh, s), spec_tree)
+
+
+def check_even(tree: Any, shardings: Any, what: str) -> None:
+    """Every leaf of ``tree`` splits evenly under its `LeafSharding`: each
+    dim over the mesh axes its spec names (the reference's jit refuses an
+    input whose sharded dim does not divide, and so do the builders, before
+    any collective).
+
+    Raises:
+        ValueError: a dim does not divide over its axes' extent.
+    """
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            check_even(v, shardings[k], f"{what}/{k}")
+        return
+    mesh = shardings.mesh
+    extent = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    for d, size in enumerate(tree.shape):
+        axes = shardings.spec.axes(d) if d < len(shardings.spec) else ()
+        n = 1
+        for a in axes:
+            n *= extent[a]
+        if size % n:
+            raise ValueError(f"{what}: dim {d} of shape {tuple(tree.shape)} does not divide "
+                             f"over {axes} ({n} ways)")
 
 
 def _split_micro(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, torch.Tensor]]:
@@ -247,6 +325,9 @@ def jit_train_step(model: Model, optimizer: AdamW, mesh: Mesh, plan: ShardingPla
                            shard_grads)
 
     def train_step(params: Tree, opt_state: Tree, batch: Dict[str, torch.Tensor]):
+        check_even(params, psh, "params")
+        check_even(opt_state, osh, "opt_state")
+        check_even(batch, bsh, "batch")
         return step(ctx.place_tree(params, psh), ctx.place_tree(opt_state, osh),
                     ctx.place_tree(batch, bsh))
 
@@ -280,6 +361,8 @@ def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
     lsh = _logits_sharding(mesh, plan, cell)
 
     def prefill(params: Tree, batch: Dict[str, Any]):
+        check_even(params, psh, "params")
+        check_even({k: v for k, v in batch.items() if k in bsh}, bsh, "batch")
         params = _serving_params(ctx.place_tree(params, psh))
         placed = {k: ctx.place(v, bsh[k]) if k in bsh else v for k, v in batch.items()}
         B = placed["tokens"].shape[0]
@@ -309,6 +392,9 @@ def jit_decode_step(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
     lsh = _logits_sharding(mesh, plan, cell)
 
     def decode(params: Tree, tokens: torch.Tensor, cache: Tree, pos):
+        check_even(params, psh, "params")
+        check_even(tokens, tsh, "tokens")
+        check_even(cache, csh, "cache")
         params = _serving_params(ctx.place_tree(params, psh))
         tokens = ctx.place(tokens, tsh)
         cache = ctx.place_tree(cache, csh)

@@ -17,9 +17,11 @@ class Model:
     Args:
         cfg: the architecture (decoder-only, or enc-dec with ``cfg.encdec``).
         params: its parameter tree (e.g. from `repro_torch.bridge`); when
-            omitted, random weights are made on ``device`` from ``seed``.
+            omitted, random weights are made on ``device`` from ``seed``,
+            or, on the meta device, the shapes alone (`param_shapes`: no
+            random number is drawn).
         device: where the parameters live and every call runs; ``"cuda"``
-            unless the caller names the CPU.
+            unless the caller names the CPU (or ``"meta"``).
         remat_policy: what a decoder-only model's train step saves inside
             each scan step (`lm._remat_context`: "nothing" or "dots").
         loss_chunk: the train loss's sequence chunk (`lm.cross_entropy`).
@@ -37,10 +39,22 @@ class Model:
         self.remat_policy = remat_policy
         self.loss_chunk = loss_chunk
         self._is_encdec = cfg.encdec is not None
-        if params is None:
+        if params is None and self.device.type == "meta":
+            params = self.param_shapes()
+        elif params is None:
             params = self.init_params(
                 torch.Generator(device=self.device).manual_seed(seed))
         self.params = params
+
+    def param_shapes(self, max_seq: Optional[int] = None) -> lm.Params:
+        """The parameter tree as meta tensors, shapes and dtypes alone (the
+        reference's ``jax.eval_shape`` of ``init_params``): no memory, no
+        random draw. ``max_seq`` sizes an enc-dec model's ``pos_embed``
+        (``min(max_seq_len, 32768)`` rows by default)."""
+        layout = (encdec.param_layout(self.cfg, max_seq) if self._is_encdec
+                  else lm.param_layout(self.cfg))
+        return lm.map_layout(
+            lambda _, leaf: torch.empty(leaf.shape, dtype=leaf.dtype, device="meta"), layout)
 
     def init_params(self, gen: torch.Generator) -> lm.Params:
         if self._is_encdec:

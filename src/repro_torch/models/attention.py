@@ -170,9 +170,10 @@ def gqa_attention(
             raise ValueError("decode needs a cache, a position and one token per row")
         pos = torch.as_tensor(pos, device=x.device)
         k_cache, v_cache = cache["k"], cache["v"]
-        if pos.dim() == 0:      # one position for the whole batch
-            k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-            v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
+        if pos.dim() == 0:      # one position for the whole batch (indexed by a
+            at = pos.reshape(1).long()   # tensor: no read of pos on the host)
+            k_cache[:, at] = k.to(k_cache.dtype)
+            v_cache[:, at] = v.to(v_cache.dtype)
         else:                   # per-slot positions (serving engine)
             bidx = torch.arange(B, device=x.device)
             k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
@@ -330,8 +331,9 @@ def mla_attention(
         S_max = ckv.shape[1]
         steps = torch.arange(S_max, device=x.device)
         if pos.dim() == 0:      # one position for the whole batch
-            ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
-            kpe[:, pos] = kpe_new[:, 0].to(kpe.dtype)
+            at = pos.reshape(1).long()
+            ckv[:, at] = ckv_new.to(ckv.dtype)
+            kpe[:, at] = kpe_new.to(kpe.dtype)
             valid = (steps <= pos)[None, None, None, :]
         else:                   # per-slot positions (serving engine)
             bidx = torch.arange(B, device=x.device)

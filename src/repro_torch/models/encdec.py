@@ -146,7 +146,7 @@ def decode_stack(
     if mode == "decode":
         p = torch.as_tensor(pos, device=x.device).long()
         if p.dim() == 0:
-            pe = params["pos_embed"][p][None, None]          # (1, 1, d)
+            pe = params["pos_embed"][p.reshape(1)][None]     # (1, 1, d)
             positions = p.expand(B)[:, None]
         else:                                                # per-slot positions
             pe = params["pos_embed"][p][:, None]             # (B, 1, d)

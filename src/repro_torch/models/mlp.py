@@ -60,6 +60,14 @@ def padded_experts(num_experts: int) -> int:
     return (num_experts + m - 1) // m * m
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) as a compare against ``arange(n)``:
+    the same values, without the range check that reads ``idx`` back to the
+    host, and the same ops on every device and under a fake tensor mode (so
+    a dry run counts what the card runs)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def switch_aux(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Switch load-balancing loss of ``(T, E)`` router probabilities and
     the ``(T, k)`` chosen ids (top-1 dispatch fraction times mean prob).
@@ -69,7 +77,7 @@ def switch_aux(probs: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     returns its share, linear in its own probabilities: the shares sum to
     the loss over every token, and so do their gradients."""
     E = probs.shape[-1]
-    one = F.one_hot(idx[:, 0].long(), E).float()
+    one = one_hot(idx[:, 0], E).float()
     if row_shards() == 1:
         return E * torch.sum(one.mean(dim=0) * probs.mean(dim=0))
     n = batch_sum(torch.tensor(float(probs.shape[0]), device=probs.device))
@@ -148,7 +156,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
         cap = min(max(1, int(math.ceil(g * k / E * m.capacity_factor))), g)
 
     # position of each (token, slot) within its per-group expert bucket
-    e_one = F.one_hot(idx, E_pad)                              # (G, g, k, E_pad)
+    e_one = one_hot(idx, E_pad)                                # (G, g, k, E_pad)
     flat = e_one.reshape(G, g * k, E_pad)
     pos_in_e = torch.cumsum(flat, dim=1) - flat
     pos = (pos_in_e.reshape(G, g, k, E_pad) * e_one).sum(dim=-1)   # (G, g, k)
@@ -158,7 +166,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     dt = xt.dtype
     disp = torch.einsum(
         "gske,gskc->gsec", e_one.to(dt),
-        F.one_hot(torch.where(keep, pos, cap), cap + 1).to(dt)[..., :-1])
+        one_hot(torch.where(keep, pos, cap), cap + 1).to(dt)[..., :-1])
     x_e = torch.einsum("gsec,gsd->gecd", disp, xg)            # (G, E_pad, cap, d)
     x_e = constrain(x_e, "batch", "ep", None, None)            # expert parallel
 

@@ -40,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.models import Model
 from repro_torch.planner.catalog import DeviceProfile
@@ -480,7 +481,8 @@ _VIEWS = {_aten._unsafe_view.default}
 
 class _StepCount(TorchDispatchMode):
     """Counts FLOPs and bytes of every aten op dispatched under it (see
-    `features_from_engine` for the conventions)."""
+    `features_from_engine` for the conventions); a kernel's custom op
+    (`kernels.ops`) counts its FLOP formula."""
 
     def __init__(self):
         super().__init__()
@@ -497,6 +499,8 @@ class _StepCount(TorchDispatchMode):
         self.bytes += sum(t.numel() * t.element_size() for t in ins + outs)
         if func in _MATMULS:
             self.flops += 2.0 * outs[0].numel() * args[-2].shape[-1]
+        elif func.namespace == "repro_torch":      # a kernel: its FLOP formula
+            self.flops += flop_registry[func._overloadpacket](*args, out_val=out, **kwargs)
         elif func not in _FREE and outs:
             self.flops += outs[0].numel()
         return out

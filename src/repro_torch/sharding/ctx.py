@@ -178,15 +178,34 @@ def _contiguous_stride(shape) -> Tuple[int, ...]:
     return tuple(reversed(stride))
 
 
+def local_shape_and_offset(shape, sharding) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """This rank's shard of an array of ``shape`` under ``sharding`` (a
+    `LeafSharding`): its local shape and its offset in the global array,
+    by DTensor's chunk rule (each mesh dim in order cuts the dim its
+    ``Shard`` names into ``ceil(n / size)``-row chunks; a trailing rank may
+    hold fewer rows, or none). Pure arithmetic on the mesh's coordinate, so
+    it also runs under a fake tensor mode. A rank outside the mesh holds
+    ``(0, ...)``."""
+    from torch.distributed.tensor import Shard
+    coord = sharding.mesh.get_coordinate()
+    if coord is None:
+        return (0,) * len(shape), (0,) * len(shape)
+    local, offset = list(shape), [0] * len(shape)
+    for i, p in enumerate(sharding.placements):
+        if isinstance(p, Shard):
+            n = sharding.mesh.size(i)
+            chunk = -(-local[p.dim] // n)
+            lo = min(local[p.dim], chunk * coord[i])
+            hi = min(local[p.dim], chunk * (coord[i] + 1))
+            local[p.dim], offset[p.dim] = hi - lo, offset[p.dim] + lo
+    return tuple(local), tuple(offset)
+
+
 def local_range(shape, sharding, *, dim: int) -> Tuple[int, int]:
     """The ``[lo, hi)`` of dim ``dim`` this rank holds of an array of
     ``shape`` under ``sharding`` (a `LeafSharding`); ``(0, 0)`` on a rank
     outside its mesh."""
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-    if sharding.mesh.get_coordinate() is None:
-        return 0, 0
-    local, offset = compute_local_shape_and_global_offset(
-        tuple(shape), sharding.mesh, list(sharding.placements))
+    local, offset = local_shape_and_offset(shape, sharding)
     return offset[dim], offset[dim] + local[dim]
 
 
@@ -211,9 +230,7 @@ def place(x: torch.Tensor, sharding) -> Any:
     if sharding.mesh.get_coordinate() is None:
         from torch.distributed.tensor import distribute_tensor
         return distribute_tensor(x, sharding.mesh, list(sharding.placements), src_data_rank=None)
-    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
-    local, offset = compute_local_shape_and_global_offset(
-        tuple(x.shape), sharding.mesh, list(sharding.placements))
+    local, offset = local_shape_and_offset(tuple(x.shape), sharding)
     view = x[tuple(slice(o, o + n) for o, n in zip(offset, local))]
     return to_dtensor(view.contiguous(), sharding, x.shape)
 

@@ -49,6 +49,24 @@ def test_flash_kernel_matches_plain(gen, shape, causal, dtype, tol):
                                atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
+@pytest.mark.parametrize("S", [384, 1000])
+def test_flash_kernel_head_dim_192_matches_plain(gen, S, causal, dtype, tol):
+    """Nemotron-4-340B's prefill heads: 96 over 8 of 192, at a full tile and
+    a ragged length."""
+    q = torch.randn(1, S, 96, 192, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(1, S, 8, 192, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(1, S, 8, 192, generator=gen, device="cuda").to(dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(q, k, v, causal=causal).float(),
+                               atol=tol, rtol=tol)
+
+
 MOE_SHAPES = [(60, 4), (64, 6), (16, 2), (8, 2), (8, 3), (4, 2)]
 
 

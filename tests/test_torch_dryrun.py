@@ -1,0 +1,201 @@
+"""The port's dry run (`repro_torch.launch.dryrun`) against the reference's.
+
+  * `applicable_cells`, `all_configs`, `plan_for_cell` (every arch x cell x
+    mesh x profile, field by field) and the resolved accumulation equal the
+    reference's;
+  * `param_struct`, `batch_struct` and `decode_struct` equal the
+    reference's `ShapeDtypeStruct`s leaf by leaf (shape and dtype) for all
+    ten archs at full width, every applicable cell (the reference nests a
+    hybrid or enc-dec cache, the port's is flat: its names are the
+    reference's paths joined by ``/``);
+  * at reduced size, in two processes of their own (the reference's
+    `lower_cell` over 512 placeholder devices, ``XLA_FLAGS`` set before JAX
+    starts; the port's fake world of 256 ranks on ``device="cpu"``): the
+    status, the argument bytes, the model FLOPs and the parameter counts of
+    four cells (`CELLS`). Reduced Mamba2-370m's ``train_4k`` fails on both
+    sides, as its 8 SSM heads do not split over the model axis of 16;
+  * on a 2 x 2 fake mesh, the collectives of one gathered layer against a
+    reckoning by hand from the spec trees.
+
+The processes run at once, from one module fixture (~25 s).
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import pytest
+
+from repro import configs as jconfigs
+from repro.launch import steps as jsteps
+from repro.models import build_model as jax_build_model
+from repro_torch import tree as tree_util
+from repro_torch.configs import (
+    ARCH_IDS,
+    all_configs,
+    applicable_cells,
+    get_config,
+    get_reduced_config,
+)
+from repro_torch.launch import dryrun, steps
+from repro_torch.models import Model, lm
+from repro_torch.models.common import torch_dtype
+from repro_torch.sharding.plan import default_plan, param_specs
+
+ROOT = Path(__file__).resolve().parents[1]
+CELLS = ("minitron_4b:decode_32k", "qwen2_moe_a2_7b:prefill_32k", "minitron_4b:train_4k",
+         "mamba2_370m:train_4k")
+JOB_TIMEOUT_S = 240
+
+
+def _spawn(side):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    return subprocess.Popen([sys.executable, str(ROOT / "tests" / "_torch_dryrun_jobs.py"), side,
+                             ",".join(CELLS)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=str(ROOT))
+
+
+@pytest.fixture(scope="module")
+def jobs():
+    procs = {side: _spawn(side) for side in ("reference", "port", "mesh2x2")}
+    out = {}
+    for side, p in procs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=JOB_TIMEOUT_S)
+        finally:
+            p.kill()
+        assert p.returncode == 0, f"{side} job failed:\n{stderr[-3000:]}"
+        out[side] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# configs, cells, plans, accumulation
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_applicable_cells_and_configs_match_reference(arch):
+    ref = jconfigs.all_configs()[arch]
+    port = all_configs()[arch]
+    assert set(all_configs()) == set(jconfigs.all_configs())
+    assert port.name == ref.name and port.param_count() == ref.param_count()
+    assert [c.name for c in applicable_cells(port)] == [c.name for c in
+                                                       jconfigs.applicable_cells(ref)]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_plan_and_accumulation_match_reference(jobs, arch):
+    ref = jobs["reference"]
+    assert dryrun.TRAIN_ACCUM == ref["train_accum"]
+    assert [c.name for c in applicable_cells(get_config(arch))] == ref["cells"][arch]
+    cfg = get_config(arch)
+    for cell in applicable_cells(cfg):
+        for mp in (False, True):
+            for profile in sorted(dryrun.PROFILES):
+                want = ref["plans"][f"{arch}:{cell.name}:{int(mp)}:{profile}"]
+                plan = dryrun.plan_for_cell(cfg, cell, mp, None, profile)
+                got = json.loads(json.dumps(dataclasses.asdict(plan)))
+                assert got == want["plan"], (cell.name, mp, profile)
+                n = 512 if mp else 256
+                assert dryrun.resolve_accum(cfg, cell, plan, n) == want["accum"]
+
+
+# ---------------------------------------------------------------------------
+# the stand-ins at full width
+# ---------------------------------------------------------------------------
+
+
+def _ref_leaves(tree):
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    return {"/".join(str(k.key) for k in path): (tuple(x.shape), str(x.dtype))
+            for path, x in flat}
+
+
+def _port_leaves(tree):
+    return {name: (tuple(x.shape), str(x.dtype).replace("torch.", ""))
+            for name, x in tree_util.items(tree)}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_structs_match_reference_at_full_width(arch):
+    jcfg, cfg = jconfigs.get_config(arch), get_config(arch)
+    jmodel, model = jax_build_model(jcfg), Model(cfg, device="meta")
+    for cell in applicable_cells(cfg):
+        jcell = jconfigs.get_shape_cell(cell.name)
+        params = steps.param_struct(model, cell)
+        assert all(p.is_meta for p in tree_util.leaves(params))
+        assert _port_leaves(params) == _ref_leaves(jsteps.param_struct(jmodel, jcell)), cell
+        assert (_port_leaves(steps.batch_struct(cfg, cell))
+                == _ref_leaves(jsteps.batch_struct(jcfg, jcell))), cell
+        if cell.kind == "decode":
+            tokens, cache, pos = steps.decode_struct(model, cell, torch_dtype("bfloat16"))
+            jt, jc, jp = jsteps.decode_struct(jmodel, jcell)
+            assert _port_leaves({"t": tokens, "p": pos}) == _ref_leaves({"t": jt, "p": jp})
+            assert _port_leaves(cache) == _ref_leaves(jc), cell
+
+
+# ---------------------------------------------------------------------------
+# reduced cells against the reference's compiled ones
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_reduced_cell_matches_reference(jobs, cell):
+    ref, port = jobs["reference"]["records"][cell], jobs["port"]["records"][cell]
+    assert port["status"] == ref["status"], (port.get("error"), ref.get("error"))
+    if ref["status"] == "error":
+        # both refuse a split that does not divide (the reference names its
+        # first such leaf, the port its own)
+        assert "divisible" in ref["error"] and "does not divide" in port["error"]
+        return
+    # XLA counts each argument leaf's local shard once; so does the port
+    assert port["argument_bytes"] == ref["argument_bytes"]
+    assert port["model_flops"] == ref["model_flops"]
+    assert port["params"] == ref["params"]
+    assert port["accum_steps"] == ref["accum_steps"]
+
+
+def test_reduced_prefill_runs_the_kernels_as_fake_ops(jobs):
+    cfg = get_reduced_config("qwen2_moe_a2_7b")
+    rec = jobs["port"]["records"]["qwen2_moe_a2_7b:prefill_32k"]
+    assert rec["kernel_calls"] == {"flash_attention": cfg.num_layers,
+                                   "moe_topk": cfg.num_layers}
+
+
+# ---------------------------------------------------------------------------
+# collectives on a 2 x 2 fake mesh, by hand
+# ---------------------------------------------------------------------------
+
+
+def test_collectives_of_one_gathered_layer_on_2x2(jobs):
+    """Each parameter leaf is gathered once (the stacks a layer at a time,
+    here the one layer; the rest whole): over the model axis first, its
+    result the leaf's data shard, then over the data axis, its result the
+    whole leaf. A ring of two moves half the result."""
+    cfg = dataclasses.replace(get_reduced_config("minitron_4b"), num_layers=1)
+    specs = dict(tree_util.items(param_specs(cfg, default_plan())))
+    layout = dict(tree_util.items(lm.map_layout(lambda _, leaf: leaf, lm.param_layout(cfg))))
+    count = {"data": 0, "model": 0}
+    wire = {"data": 0.0, "model": 0.0}
+    for name, leaf in layout.items():
+        nbytes = leaf.dtype.itemsize
+        for n in leaf.shape:
+            nbytes *= n
+        axes = {a for d in range(len(specs[name])) for a in specs[name].axes(d)}
+        if "model" in axes:
+            count["model"] += 1
+            wire["model"] += nbytes / (2 if "data" in axes else 1) / 2
+        if "data" in axes:
+            count["data"] += 1
+            wire["data"] += nbytes / 2
+    got = jobs["mesh2x2"]
+    per_axis = {a: sum(1 for c in got["collectives"] if c["axis"] == a) for a in count}
+    assert per_axis == count
+    assert got["summary"]["collectives"]["by_kind"] == {"all-gather": sum(count.values())}
+    assert got["summary"]["collectives"]["wire_bytes_by_axis"] == wire

@@ -97,16 +97,28 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_non_cpu_tensors_never_fall_back():
-    """A tensor off the CPU goes to the kernel path, which raises for what
-    it does not take: here a device that is not CUDA."""
+    """A tensor off the CPU never takes the plain version: a CUDA tensor
+    launches the kernel, and a meta tensor (the dry run's fake path) gets
+    the output's shapes and dtypes after the kernel's own checks, which
+    raise for what it does not take; neither path counts a launch."""
     ops.reset_launches()
-    q = torch.empty((1, 8, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="CUDA"):
-        ops.moe_topk(torch.empty((4, 60), device="meta"), 4)
-    x = torch.empty((1, 8, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    q = meta(1, 8, 2, 16)
+    out = ops.flash_attention(q, q, q)
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(meta(1, 8, 2, 48), meta(1, 8, 2, 48), meta(1, 8, 2, 48))
+    w, i = ops.moe_topk(meta(4, 60), 4)
+    assert w.is_meta and (w.shape, w.dtype, i.shape, i.dtype) == (
+        (4, 4), torch.float32, (4, 4), torch.int32)
+    with pytest.raises(ValueError):
+        ops.moe_topk(meta(4, 65), 4)
+    x = meta(1, 8, 2, 16)
+    y, h = ops.ssd_scan(x, meta(1, 8, 2), meta(2), meta(1, 8, 1, 16), meta(1, 8, 1, 16),
+                        chunk=16)
+    assert y.is_meta and y.shape == x.shape and (h.shape, h.dtype) == (
+        (1, 2, 16, 16), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
         ops.ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, :1], x[:, :, :1], chunk=16)
     assert ops.LAUNCHES == {"flash_attention": 0, "moe_topk": 0, "ssd_scan": 0}
 

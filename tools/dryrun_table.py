@@ -1,0 +1,60 @@
+#!/usr/bin/env python3
+"""The dry run's records as one markdown table: a row per (arch, shape
+cell), one column group per mesh.
+
+    python3 tools/dryrun_table.py [--dir experiments/dryrun_torch]
+
+Reads the JSON records `python -m repro_torch.launch.dryrun` writes (one a
+cell and mesh). Each mesh's cell shows the argument and peak GB a rank
+(peak marked ``*`` where it exceeds the card's memory), the FLOPs a rank,
+the wire GB a rank moves over each mesh axis, and the roofline term that
+bounds the step; a cell that raised shows its error's type and its first
+words.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+from pathlib import Path
+
+MESHES = ("16x16", "2x16x16")
+TERMS = {"compute_s": "compute", "memory_s": "HBM", "collective_s": "links"}
+
+
+def cell_text(rec: dict) -> str:
+    if rec is None:
+        return "not run"
+    if rec.get("status") != "ok":
+        err = rec.get("error", "?")
+        kind, _, msg = err.partition(": ")
+        return f"{kind}: {' '.join(msg.split()[:9])}"
+    m, rf, col = rec["memory"], rec["roofline"], rec["collectives"]
+    peak = m["peak_bytes"] / 1e9
+    wire = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in sorted(col["wire_bytes_by_axis"].items()))
+    return (f"{m['argument_bytes'] / 1e9:.2f} / {peak:.2f}{'' if m['fits'] else '*'} GB, "
+            f"{rec['cost']['hlo_flops_per_device'] / 1e12:.1f} TF, wire GB {wire or 'none'}, "
+            f"{TERMS[rf['bottleneck']]}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dir", default="experiments/dryrun_torch")
+    args = ap.parse_args(argv)
+    recs = {}
+    for f in sorted(Path(args.dir).glob("*.json")):
+        r = json.loads(f.read_text())
+        recs[(r["arch"], r["shape"], r["mesh"])] = r
+    rows = sorted({(a, s) for a, s, _ in recs})
+    print("| arch | cell | " + " | ".join(MESHES) + " |")
+    print("|---|---|" + "---|" * len(MESHES))
+    for a, s in rows:
+        print(f"| {a} | {s} | " + " | ".join(cell_text(recs.get((a, s, m))) for m in MESHES)
+              + " |")
+    ok = sum(1 for r in recs.values() if r.get("status") == "ok")
+    fits = sum(1 for r in recs.values() if r.get("status") == "ok" and r["memory"]["fits"])
+    print(f"\n{len(recs)} records: {ok} ran, {fits} fit a card's "
+          f"{next(iter(recs.values()))['memory']['hbm_capacity'] if ok else '?'} B")
+
+
+if __name__ == "__main__":
+    main()
