@@ -170,11 +170,25 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              equal to the prediction, the predicted peak within 5 % of the
              measured one; each prediction, measurement and roofline bound
              against the step's time printed.
-16. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
-             its first serve path and on every serve path, Whisper's prefill
-             and the sharded prefills included, and its times at the other
-             families' shapes), then, last, the result line ``{"ok": true,
-             "device": {...}}``.
+16. engine ranks — the serving engine laid out across ranks
+             (`sharding.plan_layout` of a rank mesh: DTensor params and pool,
+             sharded PREPARE) over a one-rank NCCL mesh: each kernel wrapper
+             given an empty input returns the empty result without a launch;
+             the Qwen serve cell of phase 4 (8 slots, s_max 512, pages of 16,
+             the serve prompts x 16 new) on a `ServingCluster`, four requests
+             first, swapped after step 2 from the one-device placement to the
+             layout across ranks (the other four admitted there, through the
+             sharded prefill), and back after step 8, requests resident.
+             Every step's logits, the streams and the final pool equal an
+             unsharded engine's on the same schedule bit for bit; flash and
+             MoE top-k launch once per layer per prefill (PREPARE's warm
+             prefills included); decode replays its graph on one device and
+             runs eagerly across ranks by design.
+17. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
+             its first serve path and on every serve path, Whisper's prefill,
+             the sharded prefills and the engine-ranks phase included, and
+             its times at the other families' shapes), then, last, the
+             result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
 and the repository's ``src/`` beside this file. Imports nothing of JAX.
@@ -3196,6 +3210,162 @@ def phase_sharded(card):
 
 
 # ---------------------------------------------------------------------------
+# the engine across ranks
+# ---------------------------------------------------------------------------
+
+# steps after which the engine-ranks phase swaps across ranks and back; the
+# second half of the serve prompts arrives at the first swap
+ENGINE_RANKS_SWAPS = (2, 8)
+
+
+def _empty_launches(card):
+    """Each kernel wrapper on empty CUDA inputs (a rank without rows): the
+    empty result of the right shape and dtype, and no launch."""
+    import torch
+
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    q = torch.zeros((0, 17, 16, 128), dtype=torch.bfloat16, device="cuda")
+    o = ops.flash_attention(q, q, q)
+    w, i = ops.moe_topk(torch.zeros((0, 60), device="cuda"), 4, norm_topk=False)
+    x = torch.zeros((0, 256, 8, 64), dtype=torch.bfloat16, device="cuda")
+    y, h = ops.ssd_scan(x, torch.zeros((0, 256, 8), device="cuda"), torch.zeros(8, device="cuda"),
+                        torch.zeros((0, 256, 1, 128), dtype=torch.bfloat16, device="cuda"),
+                        torch.zeros((0, 256, 1, 128), dtype=torch.bfloat16, device="cuda"))
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    ok = (o.shape == q.shape and w.shape == (0, 4) and i.dtype == torch.int32
+          and y.shape == x.shape and h.shape == (0, 8, 64, 128)
+          and not any(launches.values()))
+    say(f"[engine ranks] empty inputs: flash {tuple(o.shape)}, moe_topk {tuple(w.shape)} "
+        f"{i.dtype}, ssd_scan {tuple(y.shape)} / {tuple(h.shape)}; launches {launches}  "
+        f"{'ok' if ok else 'FAIL'}  [{card}]")
+    check(ok, "[engine ranks] a kernel wrapper launched on an empty input or returned "
+              "the wrong empty result")
+
+
+def _engine_ranks_drive(engine, submit, step, prompts, Request, swap=None):
+    """The phase's schedule: the first half of ``prompts`` submitted, the
+    rest at step `ENGINE_RANKS_SWAPS[0]` (after ``swap("across")``), and
+    ``swap("back")`` after step `ENGINE_RANKS_SWAPS[1]`; every step's logits
+    of the active lanes kept."""
+    reqs = [Request(i, p, max_new_tokens=SERVE_NEW_TOKENS) for i, p in enumerate(prompts)]
+    half = len(reqs) // 2
+    for r in reqs[:half]:
+        submit(r)
+    logits, k = [], 0
+    while (k < ENGINE_RANKS_SWAPS[0] or engine.queue
+           or any(r is not None for r in engine.slot_req)):
+        if k == ENGINE_RANKS_SWAPS[0]:
+            if swap is not None:
+                swap("across")
+            for r in reqs[half:]:
+                submit(r)
+        if k == ENGINE_RANKS_SWAPS[1] and swap is not None:
+            swap("back")
+        step()
+        k += 1
+        active = [i for i, r in enumerate(engine.slot_req) if r is not None]
+        logits.append((k, engine.last_logits.clone(), active))
+    return reqs, logits
+
+
+def phase_engine_ranks(card):
+    """The engine across ranks on a one-rank NCCL mesh (module docstring,
+    phase 16)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServingCluster, ServingEngine
+    from repro_torch.sharding import (
+        default_plan,
+        plan_to_placement,
+        rank_mesh,
+        single_device_mesh,
+    )
+    t0 = time.perf_counter()
+    _empty_launches(card)
+    cfg = get_config(SERVE_ARCH)
+    model = Model(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPT_LENS]
+    kw = dict(n_slots=8, s_max=512, page_size=16)
+
+    oracle = ServingEngine(model, **kw)
+    oracle.record_logits = True
+    want_reqs, want_logits = _engine_ranks_drive(oracle, oracle.submit, oracle.step, prompts,
+                                                 Request)
+    out = {}
+    with one_rank_group("nccl"):
+        mesh = rank_mesh((1, 1, 1), device="cuda")
+        cluster = ServingCluster(mesh, device="cuda")
+        engine = ServingEngine(model, **kw)
+        engine.record_logits = True
+        cluster.register("e0", engine)
+        plan = default_plan()
+        one = plan_to_placement(plan, single_device_mesh(engine.device))
+        reports = []
+
+        def swap(where):
+            t1 = time.perf_counter()
+            rep = cluster.reconfigure("e0", plan, placement=None if where == "across" else one)
+            reports.append((where, rep, time.perf_counter() - t1))
+            check((engine.layout is not None) == (where == "across"),
+                  f"[engine ranks] the swap {where} left the engine "
+                  f"{'across ranks' if engine.layout is not None else 'on one device'}")
+
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t1 = time.perf_counter()
+        reqs, logits = _engine_ranks_drive(engine, cluster.submit, cluster.step, prompts,
+                                           Request, swap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = dict(ops.LAUNCHES)
+        warmed = sum(rep.compiled_in_prepare - 1 for _, rep, _ in reports)
+        want = launches_per_prefill(cfg, len(prompts) + warmed)
+        for where, rep, sec in reports:
+            say(f"[engine ranks] swap {where}: {rep.summary()}; reconfigure call "
+                f"{sec:.2f} s  [{card}]")
+        say(f"[engine ranks] launches {launches} (want {want}: {len(prompts)} request "
+            f"prefills + {warmed} PREPARE warmed)  [{card}]")
+        check(launches == want, f"[engine ranks] launches {launches} != {want}")
+        same_streams = [r.tokens_out for r in reqs] == [r.tokens_out for r in want_reqs]
+        bad = [k for (k, a, act), (_, b, _) in zip(logits, want_logits)
+               if not _bits_equal(a[act], b[act])]
+        pool = all(_bits_equal(engine.cache[k], oracle.cache[k]) for k in oracle.cache)
+        s = dict(engine.decode_stats)
+        across = s["multi_rank_eager"]
+        say(f"[engine ranks] {len(reqs)} requests x {SERVE_NEW_TOKENS} tokens, {engine.steps} "
+            f"decode steps ({across} across ranks, eager by design; {s['replays']} graph "
+            f"replays, {s['captures']} captures) in {wall:.2f} s: streams "
+            f"{'equal' if same_streams else 'DIFFER'}, logits of every step "
+            f"{'equal bit for bit' if not bad else f'differ at steps {bad}'}, final pool "
+            f"{'equal' if pool else 'DIFFERS'} to the unsharded engine's  [{card}]")
+        check(same_streams and not bad and pool,
+              "[engine ranks] the engine across ranks does not equal the unsharded engine")
+        check(across == ENGINE_RANKS_SWAPS[1] - ENGINE_RANKS_SWAPS[0]
+              and s["eager"] == 2 + across and s["captures"] == 2
+              and s["replays"] == engine.steps - s["eager"],
+              f"[engine ranks] {s} over {engine.steps} steps: one device replays its graph "
+              "after each first step, across ranks every step is eager")
+        out = {"launches": launches, "want": want, "wall_s": wall, "stats": s,
+               "reports": [{"where": w, "prepare_s": r.prepare_s, "downtime_s": r.downtime_s,
+                            "migrate_bytes": r.migrate_bytes,
+                            "compiled": r.compiled_in_prepare, "call_s": c}
+                           for w, r, c in reports]}
+        del cluster, engine
+    del oracle, model
+    free_device()
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[engine ranks] phase {out['seconds']:.1f} s  [{card}]")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the dry run against the card
 # ---------------------------------------------------------------------------
 
@@ -3473,6 +3643,8 @@ def main() -> int:
     mark("train")
     sharded = phase_sharded(card)
     mark("sharded")
+    engine_ranks = phase_engine_ranks(card)
+    mark("engine ranks")
     dryrun = phase_dryrun(card)
     mark("dryrun")
     phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
@@ -3482,7 +3654,8 @@ def main() -> int:
                **{f"{name} serve": f["launches"] for name, f in families.items()},
                "whisper prefill": train[WHISPER_ARCH]["prefill_launches"],
                "sharded prefill": {k: sum(n[k] for n in sharded["serve"]["launches"])
-                                   for k in launches}}
+                                   for k in launches},
+               "engine ranks": engine_ranks["launches"]}
     for row in rows:
         row["launches"] = (launches if launches[row["name"]] else ssm_launches)[row["name"]]
         row["launches_by_path"] = {path: n[row["name"]] for path, n in by_path.items()}
@@ -3491,7 +3664,8 @@ def main() -> int:
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": rows, "kernel_times": kernel_times, "serve": serve,
          "ssm_serve": ssm, "cluster": cluster, "families": families, "train": train,
-         "sharded": sharded, "dryrun": dryrun, "phase_s": phase_s},
+         "sharded": sharded, "engine_ranks": engine_ranks, "dryrun": dryrun,
+         "phase_s": phase_s},
         indent=1))
     say(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' "
         f"build included; by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())

@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 from repro_torch.serving.cluster import DowntimeReport  # noqa: F401  (re-export)
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.sharding.plan import is_shardings
 
 
 class ReconfigEngine:
@@ -48,8 +49,10 @@ class ReconfigEngine:
         ``swap_plan(placement=new_shardings)`` → resume.
 
         Args:
-            new_shardings: the placement ``{"params": device, "cache":
-                device}`` (`sharding.plan_to_placement`); None keeps it.
+            new_shardings: the layout: a placement ``{"params": device,
+                "cache": device}`` (`sharding.plan_to_placement`), or a
+                layout across ranks (`sharding.plan_layout` of a rank mesh,
+                the reference's shardings); None keeps it.
             make_decode / make_prefill: PREPARE callables; their results
                 go to `ServingEngine.swap_plan` as the ``"decode"`` and
                 ``"prefill"`` executables.
@@ -77,7 +80,9 @@ class ReconfigEngine:
         t0 = time.perf_counter()
         eng.pause()
         eng.drain()
-        migrate_bytes = eng.swap_plan(placement=new_shardings, executables=executables)
+        layout = ({"shardings": new_shardings} if is_shardings(new_shardings)
+                  else {"placement": new_shardings})
+        migrate_bytes = eng.swap_plan(**layout, executables=executables)
         eng.resume()
         downtime_s = time.perf_counter() - t0
 

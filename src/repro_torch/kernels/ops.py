@@ -24,6 +24,11 @@ rather than give a silent zero gradient. A DTensor argument raises
 not define, and the plain path would silently compute on shards (the sharded
 steps hand the kernels gathered plain tensors).
 
+A wrapper given no rows to work on (a batch of 0, or no tokens) returns the
+empty result without calling its op: a sharded train step leaves a rank
+without rows when a microbatch does not split evenly, and no kernel is
+launched on an empty tensor.
+
 `LAUNCHES` counts, per kernel, the launches of its CUDA implementation
 alone, so a run can show that its path went through the kernels; a fake
 call never raises it. A PREPARE worker thread launches kernels while the
@@ -165,6 +170,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``(B, Sq, Hq, D)`` in q's dtype (replaces Pallas `flash_attention`)."""
     _refuse_dtensor("flash_attention", q, k, v)
     _refuse_autograd("flash_attention", q, k, v)
+    if q.numel() == 0:
+        return q.new_empty(q.shape)
     return torch.ops.repro_torch.flash_attention(q, k, v, causal, scale)
 
 
@@ -174,6 +181,9 @@ def moe_topk(logits: torch.Tensor, k: int, *, norm_topk: bool = False
     int32) (replaces Pallas `moe_topk`)."""
     _refuse_dtensor("moe_topk", logits)
     _refuse_autograd("moe_topk", logits)
+    if logits.shape[0] == 0:
+        return (logits.new_empty((0, k), dtype=torch.float32),
+                logits.new_empty((0, k), dtype=torch.int32))
     return torch.ops.repro_torch.moe_topk(logits, k, norm_topk)
 
 
@@ -186,4 +196,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Pallas `ssd_scan`)."""
     _refuse_dtensor("ssd_scan", x, dt, A, B_mat, C_mat)
     _refuse_autograd("ssd_scan", x, dt, A, B_mat, C_mat)
+    if x.shape[0] == 0:
+        Bsz, _, H, P = x.shape
+        return x.new_empty(x.shape), x.new_zeros((Bsz, H, P, B_mat.shape[3]),
+                                                 dtype=torch.float32)
     return torch.ops.repro_torch.ssd_scan(x, dt, A, B_mat, C_mat, chunk)

@@ -204,8 +204,8 @@ def _row_axes(mesh: Mesh, x: Any, dim: int) -> Tuple[str, ...]:
 
 
 def _check_rows(mesh: Mesh, row_axes: Tuple[str, ...], rows: int, what: str) -> None:
-    """Each rank runs its own rows, so they must split evenly: a rank
-    without rows (or with fewer) would group MoE tokens otherwise.
+    """A jit input's rows split evenly over ``row_axes``: the reference's
+    jit refuses an uneven input (`check_even` guards the same inputs).
 
     Raises:
         ValueError: ``rows`` does not divide over ``row_axes``.
@@ -219,10 +219,13 @@ def _check_rows(mesh: Mesh, row_axes: Tuple[str, ...], rows: int, what: str) -> 
 
 def _my_rows(mesh: Mesh, row_axes: Tuple[str, ...], x: torch.Tensor, dim: int) -> torch.Tensor:
     """This rank's chunk of dim ``dim`` of the full ``x`` split over
-    ``row_axes`` (DTensor's chunk rule, the first axis major)."""
+    ``row_axes``, by DTensor's chunk rule (the first axis major): chunks of
+    ``ceil(rows / ranks)``, so trailing ranks may hold fewer rows or none,
+    the split the reference's padded microbatch computes. A rank without
+    rows still joins every collective of the step (`ctx.batch_sum`, the
+    gradient reduce-scatter), contributing zero."""
     if not row_axes:
         return x
-    _check_rows(mesh, row_axes, x.shape[dim], "a (micro)batch")
     from torch.distributed.tensor import Replicate, Shard
     placements = tuple(Shard(dim) if a in row_axes else Replicate() for a in mesh.axis_names)
     lo, hi = ctx.local_range(x.shape, LeafSharding(mesh.device_mesh(), placements, P()), dim=dim)
@@ -264,10 +267,15 @@ def make_train_step(model: Model, optimizer: AdamW, mesh: Optional[Mesh] = None,
     gradients straight to the params' placements; without it they are
     all-reduced, then cut to them.
 
+    A microbatch's rows need not split evenly over the batch axes: each rank
+    takes its chunk by DTensor's rule (`_my_rows`), and a rank left without
+    rows contributes zero to the loss, the metrics and the gradients, whose
+    normalisations sum over the ranks.
+
     Raises:
-        ValueError: ``accum_steps`` does not divide the batch, or a
-            microbatch's rows do not split evenly over the batch axes; a
-            mesh without a plan.
+        ValueError: ``accum_steps`` does not divide the batch; a mesh
+            without a plan; an MoE layer whose local dispatch groups would
+            not be the global ones (`models.mlp`).
     """
     cast = torch_dtype(grad_reduce_dtype) if grad_reduce_dtype else None
     if mesh is None:
@@ -290,7 +298,8 @@ def make_train_step(model: Model, optimizer: AdamW, mesh: Optional[Mesh] = None,
                  for mb in micro]
         flat = tree_util.leaves(params)
         gathered = tree_util.like(params, [ctx.full(p) for p in flat])
-        with ctx.activation_sharding(mesh, plan, row_axes=row_axes):
+        rows = whole["tokens"].shape[0] // accum_steps
+        with ctx.activation_sharding(mesh, plan, row_axes=row_axes, rows=rows):
             loss, metrics, grads = _accumulate(model, gathered, micro, cast)
             loss = ctx.batch_sum(loss)
             metrics = {k: ctx.batch_sum(v) for k, v in metrics.items()}

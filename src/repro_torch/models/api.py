@@ -25,6 +25,12 @@ class Model:
         remat_policy: what a decoder-only model's train step saves inside
             each scan step (`lm._remat_context`: "nothing" or "dots").
         loss_chunk: the train loss's sequence chunk (`lm.cross_entropy`).
+        shardings: make the random weights as DTensors under this
+            `LeafSharding` tree (`sharding.plan_to_shardings`' ``"params"``):
+            the same draws as without it, each cut to this rank's shard as
+            it is made (`lm.init_layout_sharded`), so a model that no card
+            holds whole lives across ranks. Every rank of the world makes
+            the model. Decoder-only models.
 
     Raises:
         RuntimeError: ``device`` is CUDA and no card is available.
@@ -33,7 +39,8 @@ class Model:
     def __init__(self, cfg: ModelConfig, params: Optional[lm.Params] = None, *,
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
                  remat_policy: Optional[str] = "nothing",
-                 loss_chunk: Optional[int] = None):
+                 loss_chunk: Optional[int] = None,
+                 shardings: Optional[lm.Params] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.remat_policy = remat_policy
@@ -41,6 +48,12 @@ class Model:
         self._is_encdec = cfg.encdec is not None
         if params is None and self.device.type == "meta":
             params = self.param_shapes()
+        elif params is None and shardings is not None:
+            if self._is_encdec:
+                raise ValueError("sharded weights are made for decoder-only models")
+            params = lm.init_layout_sharded(
+                lm.param_layout(cfg), torch.Generator(device=self.device).manual_seed(seed),
+                shardings, device=self.device)
         elif params is None:
             params = self.init_params(
                 torch.Generator(device=self.device).manual_seed(seed))

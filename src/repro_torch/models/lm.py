@@ -218,6 +218,35 @@ def init_layout(layout: Params, gen: torch.Generator, *, device: torch.device) -
     return map_layout(make, layout)
 
 
+def init_layout_sharded(layout: Params, gen: torch.Generator, shardings: Params, *,
+                        device: torch.device) -> Params:
+    """`init_layout`'s weights, drawn in its order from ``gen``, each cut to
+    this rank's shard under ``shardings`` (a `LeafSharding` tree congruent
+    with the layout) as it is made: DTensors, and the whole model never
+    exists on one device. A stacked leaf is drawn and cut one layer at a
+    time, so the transient is one layer (a whole leaf for the others)."""
+    from repro_torch.sharding import ctx
+
+    def make(path, leaf: Leaf, sh):
+        shape = tuple(leaf.shape)
+        local, off = ctx.local_shape_and_offset(shape, sh)
+        if leaf.stacked and leaf.init not in ("ones", "zeros", "a_log"):
+            out = torch.empty(local, dtype=leaf.dtype, device=device)
+            cut = tuple(slice(o, o + n) for o, n in zip(off[1:], local[1:]))
+            for i in range(shape[0]):
+                layer = dense_init(gen, shape[1:], leaf.dtype, leaf.init, device=device)
+                if off[0] <= i < off[0] + local[0]:
+                    out[i - off[0]] = layer[cut]
+                del layer
+            return ctx.to_dtensor(out, sh, shape)
+        whole = init_layout({"x": leaf}, gen, device=device)["x"]
+        part = whole[tuple(slice(o, o + n) for o, n in zip(off, local))].clone()
+        del whole
+        return ctx.to_dtensor(part, sh, shape)
+
+    return map_layout(make, layout, shardings)
+
+
 def init_params(cfg: ModelConfig, gen: torch.Generator, *,
                 device: torch.device) -> Params:
     """Random weights of ``cfg``'s layout (`init_layout`)."""
@@ -428,6 +457,7 @@ def forward(
             if mode == "prefill":
                 new_lc.update({pre + k: v for k, v in out.items()})
         per_step.append(new_lc)
+        del lp      # a gathered layer is freed before the next is gathered
     new_cache = cache if mode == "decode" else {
         k: torch.stack([lc[k] for lc in per_step]) for k in per_step[0]}
     x = apply_norm(cfg, params["final_norm"], x)

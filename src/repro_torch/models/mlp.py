@@ -18,7 +18,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import top_k
 from repro_torch.models.common import act_fn
-from repro_torch.sharding.ctx import batch_sum, constrain, row_shards
+from repro_torch.sharding.ctx import batch_sum, constrain, global_rows, row_shards
 
 # ---------------------------------------------------------------------------
 # dense MLPs
@@ -101,21 +101,29 @@ EXACT_SMALL_G = 512   # groups up to this size dispatch drop-free (cap = g)
 GROUP_SIZE = 1024     # tokens per dispatch group
 
 
-def _check_grouping(T: int) -> None:
-    """A sharded step runs each rank's ``T`` tokens alone: its groups (and
-    so its capacity and drops) are the global ones only if both are
-    drop-free groups of every token (``n T <= EXACT_SMALL_G``) or the local
-    tokens are whole groups (the rows are contiguous, so the groups are
-    then the same).
+def _check_grouping(B: int, S: int) -> None:
+    """A sharded step runs each rank's ``B`` rows of ``S`` tokens alone:
+    its groups (and so its capacity and drops) are the global ones only if
+    every token's group is drop-free (``rows S <= EXACT_SMALL_G`` over the
+    global rows) or every rank's tokens start on a group boundary and fill
+    whole groups (the rows are contiguous, cut by DTensor's chunk rule into
+    ``ceil(rows / ranks)`` a rank, so the groups are then the same; a rank
+    without rows holds no group).
 
     Raises:
         ValueError: neither holds.
     """
     n = row_shards()
-    if n > 1 and not (T * n <= EXACT_SMALL_G or T % GROUP_SIZE == 0):
+    if n == 1:
+        return
+    rows = global_rows() or B * n
+    chunk = -(-rows // n)
+    if not (rows * S <= EXACT_SMALL_G
+            or ((chunk * S) % GROUP_SIZE == 0 and (rows * S) % GROUP_SIZE == 0)):
         raise ValueError(
-            f"MoE over {T} local tokens of {T * n}: the local dispatch groups are not "
-            f"the global ones (neither drop-free nor whole groups of {GROUP_SIZE})")
+            f"MoE over {B * S} local tokens of {rows * S} ({chunk} rows a rank over {n}): "
+            f"the local dispatch groups are not the global ones (neither drop-free nor "
+            f"whole groups of {GROUP_SIZE})")
 
 
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
@@ -128,12 +136,14 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
-    _check_grouping(T)
+    _check_grouping(B, S)
     E, k = m.num_experts, m.top_k
     E_pad = padded_experts(E)
     xt = x.reshape(T, d)
 
-    g = min(GROUP_SIZE, T)
+    # a rank without rows runs one empty group, so it joins the aux loss's
+    # collectives as the others do
+    g = max(min(GROUP_SIZE, T), 1)
     T_pad = (T + g - 1) // g * g
     if T_pad != T:
         xt = F.pad(xt, (0, 0, 0, T_pad - T))

@@ -49,6 +49,7 @@ Typical flow (three lines of control plane):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -83,7 +84,8 @@ from repro_torch.sharding.plan import (
     ShardingPlan,
     merge_restrictions,
     plan_satisfies,
-    plan_to_placement,
+    is_shardings,
+    plan_layout,
     single_device_mesh,
 )
 
@@ -1029,7 +1031,10 @@ class ServingCluster:
     # ------------------------------------------------------------------
     def _worker(self) -> PrepareWorker:
         if self._prepare_worker is None:
-            self._prepare_worker = default_worker()
+            # over a rank mesh: one thread of the cluster's own, so PREPARE's
+            # process groups see one order of collectives
+            self._prepare_worker = (PrepareWorker(max_workers=1) if self.collective
+                                    else default_worker())
         return self._prepare_worker
 
     def _prepare_closure(self, engine: ServingEngine, plan: ShardingPlan,
@@ -1037,18 +1042,60 @@ class ServingCluster:
                          placement: Optional[Dict[str, Any]] = None,
                          warm: Optional[Any] = None):
         """THE PREPARE body (one copy for reconfigure and spawn): run the
-        optional extra warmer, place the plan on the mesh, warm prefill and
-        decode — returns the payload dict `_commit_ticket` installs."""
+        optional extra warmer, warm prefill and decode on the plan's layout
+        — returns the payload dict `_commit_ticket` installs. Over a rank
+        mesh the layout is made on the calling thread (`_layout`), so its
+        process groups are created at the same point on every rank, never
+        on a worker thread."""
+        if placement is None and self.collective:
+            placement = self._layout(engine, plan)
+
         def _prepare() -> Dict[str, Any]:
             if warm is not None:
                 warm()
-            pl = placement if placement is not None \
-                else plan_to_placement(plan, self.mesh)
-            executables, n_compiled = engine.prepare_executables(
-                pl, prefill_lengths=lengths, prefill_buckets=prefill_buckets)
+            pl = placement if placement is not None else self._layout(engine, plan)
+            # a worker thread's current device is the first card's, not the
+            # engine's, on a machine of several
+            with (torch.cuda.device(engine.device) if engine.device.type == "cuda"
+                  else contextlib.nullcontext()):
+                executables, n_compiled = engine.prepare_executables(
+                    pl, prefill_lengths=lengths, prefill_buckets=prefill_buckets)
             return {"placement": pl, "executables": executables,
                     "n_compiled": n_compiled}
         return _prepare
+
+    def _layout(self, engine: ServingEngine, plan: ShardingPlan) -> Dict[str, Any]:
+        """``engine``'s layout under ``plan`` on the cluster's mesh: the
+        one-device placement on a mesh of devices, the shardings of the
+        plan's ranks on a mesh of ranks (`plan_layout`)."""
+        return plan_layout(engine.model.cfg, plan, self.mesh, n_slots=engine.cache_batch)
+
+    @property
+    def collective(self) -> bool:
+        """Whether the cluster runs over a mesh of process ranks: every
+        rank runs it alike, PREPARE runs on one worker thread in ticket
+        order, and a pending swap commits at a step all ranks agree on."""
+        return self.mesh.ranks is not None
+
+    def _run_prepare(self, ticket: PrepareTicket, prepare, inline: bool) -> None:
+        """Run a PREPARE closure: inline on the calling thread, or on the
+        worker. Over a rank mesh every PREPARE runs on the cluster's one
+        worker thread, in the order staged (the same on every rank), even a
+        ticket cancelled meanwhile, so PREPARE's collectives keep one order
+        per process group; an inline one waits for it."""
+        if not self.collective:
+            if inline:
+                PrepareWorker.run_inline(ticket, prepare)
+            else:
+                self._worker().submit(ticket, prepare)
+            return
+        self._worker().submit(ticket, prepare, always=True)
+        if inline:
+            # the ranks enter the swap window together: a rank outside the
+            # target mesh finishes its PREPARE at once, and would otherwise
+            # wait inside the window for the others'
+            ticket.wait_ready()
+            self._agree_ready([ticket])
 
     def _stage_reconfigure(self, name: str, plan: ShardingPlan, *,
                            placement: Optional[Dict[str, Any]],
@@ -1076,10 +1123,7 @@ class ServingCluster:
             self._prepare_dirty = True
         prepare = self._prepare_closure(eng, plan, lengths, prefill_buckets,
                                         placement=placement, warm=warm)
-        if inline:
-            PrepareWorker.run_inline(ticket, prepare)
-        else:
-            self._worker().submit(ticket, prepare)
+        self._run_prepare(ticket, prepare, inline)
         return ticket
 
     def reconfigure_async(self, name: str, plan: ShardingPlan, *,
@@ -1210,7 +1254,7 @@ class ServingCluster:
                     try:
                         eng.drain()
                         migrate_bytes = eng.swap_plan(
-                            ticket.plan, placement=payload["placement"],
+                            ticket.plan, **_layout_kw(payload["placement"]),
                             executables=payload["executables"])
                     finally:
                         # a failed swap must never strand the engine
@@ -1289,12 +1333,14 @@ class ServingCluster:
             if not pending and not spawns:
                 self._prepare_dirty = False
                 return []
+        held = (self._agree_ready([t for _, t in pending] + [t for _, t in spawns])
+                if self.collective else set())
         for entry, t in pending:
             if t.state in (CANCELLED, FAILED):
                 with self._lock:
                     if entry.pending_ticket is t:
                         entry.pending_ticket = None
-            elif t.state == READY:
+            elif t.state == READY and id(t) not in held:
                 try:
                     report = self._commit_ticket(t)
                 except Exception:
@@ -1309,7 +1355,7 @@ class ServingCluster:
                 with self._lock:
                     if self._pending_spawns.get(name) is t:
                         del self._pending_spawns[name]
-            elif t.state == READY:
+            elif t.state == READY and id(t) not in held:
                 try:
                     report = self._commit_ticket(t)
                 except Exception:
@@ -1317,6 +1363,32 @@ class ServingCluster:
                 if report is not None:
                     out.append(report)
         return out
+
+    def _agree_ready(self, tickets: Sequence[PrepareTicket]) -> set:
+        """Over a rank mesh a ticket's readiness differs across ranks (each
+        rank's worker finishes in its own time), so a swap must not commit
+        where a rank sees it READY: the ranks agree, at each step boundary
+        while a ticket is pending, by a MAX all-reduce on the world group of
+        (not ready, failed) per ticket, in the order the tickets were
+        staged, the same on every rank. A ticket commits where no rank
+        still prepares it; it fails everywhere if it failed on one rank.
+        Only the serving thread issues these collectives. Returns the ids
+        of the tickets that must wait."""
+        import torch.distributed as dist
+        if not tickets or dist.get_world_size() == 1:
+            return set()
+        states = [t.state for t in tickets]
+        flags = torch.tensor([[int(st != READY and st not in (CANCELLED, FAILED)),
+                               int(st == FAILED)] for st in states], dtype=torch.int64,
+                             device=_collective_device())
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        held = set()
+        for t, st, (waiting, failed) in zip(tickets, states, flags.tolist()):
+            if failed and st != FAILED:
+                t._fail(RuntimeError(f"PREPARE of {t.engine!r} failed on another rank"))
+            elif waiting:
+                held.add(id(t))
+        return held
 
     def commit_ready(self) -> List[DowntimeReport]:
         """Public step-boundary hook: commit every pending swap whose
@@ -1363,10 +1435,7 @@ class ServingCluster:
         prepare = self._prepare_closure(engine, engine.plan,
                                         tuple(prefill_lengths),
                                         prefill_buckets, warm=warm)
-        if inline:
-            PrepareWorker.run_inline(ticket, prepare)
-        else:
-            self._worker().submit(ticket, prepare)
+        self._run_prepare(ticket, prepare, inline)
         return ticket
 
     def _commit_spawn(self, ticket: PrepareTicket,
@@ -1389,7 +1458,7 @@ class ServingCluster:
                 engine.pause()
                 try:
                     migrate_bytes = engine.swap_plan(
-                        engine.plan, placement=payload["placement"],
+                        engine.plan, **_layout_kw(payload["placement"]),
                         executables=payload["executables"])
                 except BaseException as err:
                     # never wedge the state machine on a failed install:
@@ -2069,3 +2138,16 @@ class ServingCluster:
             else:
                 reports[e.name] = self.reconfigure(e.name, new_plan)
         return reports
+
+
+def _layout_kw(layout: Dict[str, Any]) -> Dict[str, Any]:
+    """`ServingEngine.swap_plan`'s keyword for a layout: ``shardings`` for
+    one across ranks, ``placement`` for one device."""
+    return {"shardings": layout} if is_shardings(layout) else {"placement": layout}
+
+
+def _collective_device() -> torch.device:
+    """Where the world group's collectives run: the card under NCCL."""
+    import torch.distributed as dist
+    return (torch.device("cuda", torch.cuda.current_device())
+            if dist.get_backend() == "nccl" else torch.device("cpu"))

@@ -38,6 +38,28 @@ request's state between engines (`export_slot` / `import_slot`); each ends
 in a device synchronisation, so a pause it stamps is the device's time.
 Cluster knobs (``labels``, ``role``, ``plan``) only steer the cluster.
 
+Across ranks. Under a plan that resolves to several process ranks (a
+`sharding.plan_layout` of a rank mesh: ``mesh=``, or a swap onto its
+``shardings``), the engine holds its own DTensor tree of params and a pool
+laid out by the reference's `cache_specs` (the paged store split by pages,
+the slot pool by slots, over the batch axes). Every rank of the world runs
+the same engine with the same requests, so the host state (queue, lanes,
+positions, page tables, the allocator) is equal on every rank and admission
+decides as on one device. The compute is the sharded steps'
+(`launch.steps`): each rank of the engine's mesh gathers a layer's params
+whole and runs its own rows of the decode batch (a one-prompt prefill is
+not split: every rank runs it), and a paged step exchanges only the pages
+the tables name (`kvpool.gather_named_pages`), writing each new entry on
+the rank that holds its page. Token values live on the engine's ranks only
+(a rank outside them records -1 for each, and keeps every count); a swap
+onto ranks that did not hold the engine sends them the resident requests'
+tokens with their state. Such an engine decodes eagerly, BY DESIGN (counted
+in ``decode_stats["multi_rank_eager"]``): a paged step's exchange has sizes
+that follow the page tables, and its layer gathers are DTensor collectives,
+so no static graph is captured across ranks. PREPARE builds its scratch
+state over process groups of its own (`sharding.PREPARE_TAG`), so a worker
+thread's collectives never share a group with serving's.
+
 Greedy sampling takes the first index on ties, as the reference's
 ``np.argmax`` does (decode picks with ``torch.argmax`` on the device). The
 engine runs on the card unless it is given ``device="cpu"`` (and a model on
@@ -54,6 +76,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import tree as tree_util
 from repro_torch.models import Model
 from repro_torch.models.common import resolve_device
 from repro_torch.models.lm import is_positional
@@ -62,7 +85,15 @@ from repro_torch.serving import kvpool, migration
 from repro_torch.serving.clock import SYSTEM_CLOCK
 from repro_torch.serving.executable import DecodeExecutable
 from repro_torch.serving.migration import MigrationError, SlotSnapshot, sync
-from repro_torch.sharding.plan import ShardingPlan, default_plan
+from repro_torch.sharding import ctx
+from repro_torch.sharding.plan import (
+    LeafSharding,
+    P,
+    ShardingPlan,
+    default_plan,
+    is_shardings,
+    leaf_sharding,
+)
 
 METRIC_KEYS = ("completed", "ttft_mean_s", "ttft_p99_s",
                "tpot_mean_s", "tpot_p99_s")
@@ -163,13 +194,19 @@ class ServingEngine:
             instead of a prefill of the exact length. A model that cannot
             be padded (`supports_padded_prefill`) has no buckets. A swap
             that installs PREPARE's buckets turns this on too.
+        mesh: start laid out across ranks: the engine's layout under
+            ``plan`` on this mesh of process ranks (`plan_layout`); its
+            params and pool are placed there (a model whose params are
+            DTensors under that layout keeps them). Every rank of the world
+            builds the engine.
         device: where the engine runs; must be the model's device.
             ``"cuda"`` unless the caller names the CPU.
 
     Raises:
         RuntimeError: ``device`` is CUDA and no card is available.
         ValueError: the model lives on another device, ``paged=True`` for a
-            model that cannot be paged, or an unknown ``role``.
+            model that cannot be paged, an unknown ``role``, or a model
+            whose params are DTensors without ``mesh``.
     """
 
     ROLES = ("unified", "prefill", "decode")
@@ -185,6 +222,7 @@ class ServingEngine:
                  paged: Optional[bool] = None, page_size: int = 16,
                  kv_tokens: Optional[int] = None, watermark: int = 0,
                  prefill_buckets: bool = False,
+                 mesh: Optional[Any] = None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -251,8 +289,34 @@ class ServingEngine:
         #: first on the card) and graph replays; captures (the first step's
         #: and PREPARE's) and their seconds; PREPARE executables a swap
         #: installed or discarded (bound to a pool the swap replaced)
+        #: ``multi_rank_eager`` counts the steps of a multi-rank layout, eager
+        #: by design (see the module doc)
         self.decode_stats = {"eager": 0, "replays": 0, "captures": 0,
-                             "capture_s": 0.0, "installs": 0, "discards": 0}
+                             "capture_s": 0.0, "installs": 0, "discards": 0,
+                             "multi_rank_eager": 0}
+        #: when set, `step` keeps the step's logits ``(n_slots, V_pad)`` in
+        #: ``last_logits`` (on every rank of a multi-rank engine's mesh) and
+        #: the ``(lane, rid)`` pairs it decoded in ``last_lanes``, for checks
+        #: that hold a layout's decode to another's
+        self.record_logits = False
+        self.last_logits: Optional[torch.Tensor] = None
+        self.last_lanes: List[Tuple[int, int]] = []
+        #: and each admitted request's prefill logits ``(V_pad,)`` by rid
+        self.prefill_logits: Dict[int, torch.Tensor] = {}
+        #: the params an engine laid out across ranks holds (a DTensor
+        #: tree); None on one device, where engines share the model's
+        self.params: Optional[Dict[str, Any]] = None
+        #: the `plan_layout` across ranks the state lives on; None on one
+        #: device
+        self.layout: Optional[Dict[str, Any]] = None
+        if mesh is not None:
+            from repro_torch.sharding.plan import plan_layout
+            layout = plan_layout(model.cfg, self.plan, mesh, n_slots=self.cache_batch)
+            self._check_layout(layout)
+            self._move_state(layout)
+        elif any(ctx.is_dtensor(v) for v in _leaves(model.params)):
+            raise ValueError("the model's params are DTensors: give the engine the mesh "
+                             "they lie on")
 
     @property
     def role(self) -> str:
@@ -284,18 +348,28 @@ class ServingEngine:
 
     def swap_plan(self, plan: Optional[ShardingPlan] = None, *,
                   placement: Optional[Dict[str, torch.device]] = None,
+                  shardings: Optional[Dict[str, Any]] = None,
                   executables: Optional[Dict[str, Any]] = None) -> int:
-        """Install a new plan: place params and cache by ``placement`` and
-        install what PREPARE warmed (``executables``). Must be called
-        paused — this is the blocking window.
+        """Install a new plan: place params and cache by ``placement`` or
+        ``shardings`` and install what PREPARE warmed (``executables``).
+        Must be called paused — this is the blocking window.
 
         Args:
             plan: the new `ShardingPlan` to record (routing reads it);
                 ``None`` keeps the current plan.
             placement: ``{"params": device, "cache": device}`` from
-                `plan_to_placement`. The cache moves there (a no-op on its
-                own device); the params, which engines may share, are never
-                copied or cast, so they must already live there.
+                `plan_to_placement`: the one-device layout. The cache moves
+                there (a no-op on its own device; gathered whole on every
+                rank from a layout across ranks); the params, which engines
+                may share, are never copied or cast, so the model's must
+                already live there.
+            shardings: a `plan_layout` across ranks (the reference's
+                ``shardings``): the params and the cache move onto it
+                between meshes of any rank counts (`ctx.move`, a leaf at a
+                time; the old and new layouts coexist leaf by leaf), the
+                old layout is freed, and ranks that join the engine get
+                the resident requests' tokens. Every rank of the world
+                calls this at the same point.
             executables: ``{"decode": DecodeExecutable, "prefill": prompt
                 lengths warmed, "prefill_buckets": bucket lengths,
                 "collectives": the decode step's}`` from
@@ -305,11 +379,13 @@ class ServingEngine:
                 the next step captures anew; a non-empty bucket list turns
                 on padded prefill over those buckets, and the collectives
                 become `decode_collectives`. Nothing is captured or
-                compiled here: the window stays a pointer swap.
+                compiled here: on one device the window stays a pointer
+                swap.
 
         Returns:
-            The bytes the placement covers — params + cache whenever a
-            placement is given (the reference's count), else 0.
+            The bytes the layout covers — params + cache (DTensors by their
+            global size) whenever a placement or shardings are given (the
+            reference's count), else 0.
 
         Raises:
             EngineStateError: the engine is not paused.
@@ -319,20 +395,27 @@ class ServingEngine:
             raise EngineStateError("swap_plan requires a paused engine "
                                    "(call pause(); drain() first)")
         migrated = 0
-        if placement is not None:
-            dev = placement.get("params", self.device)
-            if torch.device(dev) != self.model.device:
-                raise ValueError(f"placement puts the params on {dev}, but they "
-                                 f"live on {self.model.device} and may be shared")
-            migrated = migration.state_bytes(self.model.params) + migration.state_bytes(self.cache)
-            if "cache" in placement:
-                self.cache = {k: v.to(placement["cache"]) for k, v in self.cache.items()}
+        if placement is not None or shardings is not None:
+            params = self.params if self.params is not None else self.model.params
+            migrated = migration.state_bytes(params) + migration.state_bytes(self.cache)
+            if shardings is not None:
+                self._move_state(shardings)
+            else:
+                dev = placement.get("params", self.device)
+                if torch.device(dev) != self.model.device:
+                    raise ValueError(f"placement puts the params on {dev}, but they "
+                                     f"live on {self.model.device} and may be shared")
+                if self.layout is not None:
+                    self._move_state(None)
+                if "cache" in placement:
+                    self.cache = {k: v.to(placement["cache"]) for k, v in self.cache.items()}
             sync(self.device)
             self._migration_warm = False
             self._collectives = None
         # an executable over a pool that is no longer the engine's is
         # stale: the next step captures anew
-        if self._decode_exec is not None and not self._decode_exec.bound_to(self.cache):
+        if self._decode_exec is not None and (
+                self.layout is not None or not self._decode_exec.bound_to(self.cache)):
             self._install(None)
         if executables:
             with self._exec_lock:
@@ -340,14 +423,14 @@ class ServingEngine:
                 if buckets:
                     self._bucket_lengths = sorted(buckets)
             decode = executables.get("decode")
-            if decode is not None and decode.bound_to(self.cache):
+            if decode is not None and self.layout is None and decode.bound_to(self.cache):
                 self._install(decode)
                 self.decode_stats["installs"] += 1
             elif decode is not None:
                 self._retired.append(decode)
                 self.decode_stats["discards"] += 1
             if "collectives" in executables:
-                self._collectives = list(executables["collectives"])
+                self._collectives = self._agree(list(executables["collectives"]))
         if plan is not None:
             self.plan = plan
         return migrated
@@ -370,6 +453,159 @@ class ServingEngine:
         if old is not None and old is not exe:
             self._retired.append(old)
         self._tables_dirty = True
+
+    # ------------------------------------------------------------------
+    # layouts across ranks
+    # ------------------------------------------------------------------
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        """The process ranks that hold the engine's state: its layout's
+        mesh, or every rank of the world on one device."""
+        return _ranks_of(self.layout)
+
+    def _is_member(self) -> bool:
+        import torch.distributed as dist
+        return self.layout is None or dist.get_rank() in self.ranks
+
+    def _row_axes(self, layout: Optional[Dict[str, Any]] = None) -> Tuple[str, ...]:
+        """The mesh axes the decode batch's rows split over: the plan's
+        batch axes the layout's mesh carries."""
+        layout = self.layout if layout is None else layout
+        names = layout["mesh"].axis_names
+        return tuple(a for a in layout["plan"].batch_axes if a in names)
+
+    def _check_layout(self, layout: Dict[str, Any]) -> None:
+        """Refuse a layout across ranks the reference's jit would refuse:
+        the decode batch (``n_slots`` lanes) and the pool must split evenly
+        over their axes. A paged pool keeps its sequence whole.
+
+        Raises:
+            ValueError: a dim does not divide over its axes' extent, or the
+                plan shards a paged pool's sequence.
+        """
+        from repro_torch.launch.steps import check_even
+        b_ax = self._row_axes(layout) if self.n_slots > 1 else None
+        check_even(torch.empty((self.n_slots, 1), device="meta"),
+                   leaf_sharding(layout["mesh"], P(b_ax, None)), "decode tokens")
+        check_even({k: torch.empty(v.shape, device="meta") for k, v in self.cache.items()},
+                   layout["cache"], "cache")
+        if self.paged and layout["plan"].seq_axis:
+            raise ValueError("a paged pool keeps its sequence whole across ranks "
+                             f"(the plan shards it over {layout['plan'].seq_axis})")
+
+    def _move_state(self, layout: Optional[Dict[str, Any]]) -> None:
+        """Move the params and the pool onto ``layout`` (None: one device,
+        the model's params and a plain pool on every rank), a leaf at a
+        time, and send the resident requests' tokens to ranks that join."""
+        holders = self.ranks
+        if layout is None:
+            dst = ctx.world_ranks()
+            self.cache = {k: ctx.move(self.cache[k], dst, holders=holders)
+                          for k in sorted(self.cache)}
+            self.params = None
+        else:
+            # the old and the new layouts coexist until the move ends; then
+            # the old one is freed (the model's params stay, engines share
+            # them on one device)
+            src = self.params if self.params is not None else self.model.params
+            self.params = tree_util.map_tree(
+                lambda _, x, sh: ctx.move(x, sh, holders=holders), src, layout["params"])
+            del src
+            self.cache = {k: ctx.move(self.cache[k], layout["cache"][k], holders=holders)
+                          for k in sorted(self.cache)}
+        if _has_process_group():
+            lanes = [(i, r.tokens_out) for i, r in enumerate(self.slot_req) if r is not None]
+            got = ctx.relay_object(lanes, holders, _ranks_of(layout))
+            for i, toks in got:
+                self.slot_req[i].tokens_out = list(toks)
+        self.layout = layout
+
+    def _agree(self, collectives: List["Collective"]) -> List["Collective"]:
+        """A multi-rank engine's traced collectives, the same on every rank
+        of the world: the first rank of its mesh traced them (a rank
+        outside the mesh issues none), and sends them to all, so every
+        rank reaches the same verdict. The list is metadata, not state."""
+        if self.layout is None or not _has_process_group():
+            return collectives
+        import torch.distributed as dist
+        box = [collectives]
+        dist.broadcast_object_list(box, src=self.ranks[0])
+        return list(box[0])
+
+    def _sharded_prefill(self, params: Dict[str, Any], layout: Dict[str, Any],
+                         batch: Dict[str, Any]):
+        """One prompt's prefill on a layout across ranks (a rank of its mesh
+        only): the batch is not split, every rank runs it over the layers
+        gathered whole (`launch.steps`' serving params)."""
+        from repro_torch.launch.steps import _serving_params
+        with torch.no_grad(), ctx.activation_sharding(layout["mesh"], layout["plan"]):
+            return self.model.prefill(batch, params=_serving_params(params))
+
+    def _sharded_decode(self, params: Dict[str, Any], cache: Dict[str, Any],
+                        layout: Dict[str, Any], dm, tokens: np.ndarray, pos: np.ndarray,
+                        tables: Optional[np.ndarray]) -> np.ndarray:
+        """One decode step of every lane on a layout across ranks (a rank
+        of its mesh only), over ``cache`` in place: each rank runs its rows
+        of the batch (``dm``'s chunk over the row axes) over the layers
+        gathered whole; a paged pool's named pages are gathered first and
+        each new entry written on the rank that holds its page; a slot pool
+        runs its own slots. Returns every lane's greedy pick."""
+        from repro_torch.launch.steps import _serving_params
+        n = self.n_slots
+        row_axes = self._row_axes(layout)
+        lo, hi = ctx.my_rows(dm, row_axes, n)
+        dev = self.device
+        tok = torch.as_tensor(tokens[lo:hi], device=dev)
+        p = torch.as_tensor(pos[lo:hi], device=dev)
+        with torch.no_grad(), ctx.activation_sharding(layout["mesh"], layout["plan"],
+                                                      row_axes=row_axes, rows=n):
+            served = _serving_params(params)
+            if tables is not None:
+                pages = sorted(set(int(x) for x in tables.reshape(-1)))
+                named = kvpool.gather_named_pages(cache, pages)
+                dense = kvpool.dense_rows(named, {q: i for i, q in enumerate(pages)},
+                                          tables[lo:hi], self._pax, self._sax)
+                del named
+                logits, dense = self.model.decode_step(tok, dense, p, params=served)
+                rows = torch.arange(hi - lo, device=dev)
+                new = {k: ctx.rows_whole(v[:, rows, p], dm, row_axes, n, dim=1)
+                       for k, v in dense.items()}
+                kvpool.scatter_token_sharded(cache, new, tables, pos)
+            else:
+                local = {k: ctx.local_rows(v, 1) for k, v in cache.items()}
+                logits, local = self.model.decode_step(tok, local, p, params=served)
+                for k, v in cache.items():
+                    if v.to_local().data_ptr() != local[k].data_ptr():
+                        v.to_local().copy_(ctx.from_rows(local[k], _sharding_of(v),
+                                                         tuple(v.shape), dim=1).to_local())
+            picks = torch.argmax(logits[:, : self.vocab], dim=-1)
+            if self.record_logits and cache is self.cache:
+                self.last_logits = ctx.rows_whole(logits, dm, row_axes, n)
+            return ctx.rows_whole(picks, dm, row_axes, n).cpu().numpy()
+
+    def _scratch_state(self, sh: Dict[str, Any]):
+        """Scratch params and pool under the shardings ``sh`` (``{"params",
+        "cache"}``; PREPARE's are the target layout over its own process
+        groups): zeros, the layer stacks one layer deep in memory (a
+        stride-0 view over the layers: each layer gathered is that one), a
+        pool at the target's shape."""
+        from repro_torch.launch.steps import STACKED
+        src = self.params if self.params is not None else self.model.params
+
+        def one(path, x, leaf_sh):
+            shape = tuple(x.shape)
+            local, _ = ctx.local_shape_and_offset(shape, leaf_sh)
+            if path.split("/")[0] in STACKED and len(local) > 1:
+                z = torch.zeros(local[1:], dtype=x.dtype, device=self.device).expand(local)
+            else:
+                z = torch.zeros(local, dtype=x.dtype, device=self.device)
+            return ctx.to_dtensor(z, leaf_sh, shape)
+
+        params = tree_util.map_tree(one, src, sh["params"])
+        cache = {k: ctx.to_dtensor(torch.zeros(
+            ctx.local_shape_and_offset(tuple(v.shape), sh["cache"][k])[0], dtype=v.dtype,
+            device=self.device), sh["cache"][k], tuple(v.shape)) for k, v in self.cache.items()}
+        return params, cache
 
     # ------------------------------------------------------------------
     # PREPARE (runs while serving continues)
@@ -418,7 +654,7 @@ class ServingEngine:
         cache = self.model.init_cache(self.n_slots, self.s_max)
         return lambda: self.model.decode_step(tokens, cache, pos)
 
-    def prepare_executables(self, placement: Dict[str, torch.device],
+    def prepare_executables(self, placement: Dict[str, Any],
                             prefill_lengths: Sequence[int] = (), *,
                             prefill_buckets: bool = False,
                             ) -> Tuple[Dict[str, Any], int]:
@@ -432,8 +668,19 @@ class ServingEngine:
         kernels' library at first use and grows the allocator and library
         handles before the swap window.
 
+        A layout across ranks (``placement`` a `plan_layout` of a rank
+        mesh) is prepared on scratch state of its own (`_scratch_state`):
+        zero params and pool at the target layout over PREPARE's process
+        groups, one decode step on it, traced for its collectives (on the
+        ranks of the target mesh; the swap shares them with every rank),
+        then prefill at each length and bucket. No decode graph: such an
+        engine decodes eagerly by design (module doc). Every rank of the
+        world calls this for the same layouts in the same order, on one
+        thread (the cluster's PREPARE worker).
+
         Args:
-            placement: the target ``{"params": ..., "cache": ...}``.
+            placement: the target ``{"params": ..., "cache": ...}``: a
+                `plan_to_placement` or a `plan_layout` across ranks.
             prefill_lengths: prompt lengths to warm; when empty, the
                 engine's most recently seen lengths (`recent_prompt_lengths`).
             prefill_buckets: also warm the padded-bucket ladder
@@ -445,15 +692,19 @@ class ServingEngine:
             lengths + the buckets.
 
         Raises:
-            ValueError: the placement is not this engine's device.
+            ValueError: the placement is not this engine's device; a layout
+                across ranks the reference would refuse (`_check_layout`).
             RuntimeError: the decode step could not be captured.
         """
-        dev = torch.device(placement.get("cache", self.device))
-        if dev != self.device:
-            raise ValueError(f"placement on {dev}; this engine runs on {self.device}")
         lengths = (sorted(set(prefill_lengths)) if prefill_lengths
                    else list(self.recent_prompt_lengths()))
         buckets = self.bucket_lengths() if prefill_buckets else []
+        if is_shardings(placement):
+            return (self._prepare_sharded(placement, lengths, buckets),
+                    1 + len(lengths) + len(buckets))
+        dev = torch.device(placement.get("cache", self.device))
+        if dev != self.device:
+            raise ValueError(f"placement on {dev}; this engine runs on {self.device}")
         # the decode warm-up, traced where a process group exists: the swap
         # installs its collectives, so the post-swap check never traces on
         # the serving thread. With no group none can be dispatched.
@@ -463,7 +714,9 @@ class ServingEngine:
         else:
             step()
             collectives = []
-        decode = self._capture(DecodeExecutable(self))
+        # from a layout across ranks the swap makes a new pool, which no
+        # graph captured now could be bound to: the first step captures
+        decode = self._capture(DecodeExecutable(self)) if self.layout is None else None
         for S in lengths:
             self.model.prefill({"tokens": torch.zeros(
                 (1, S), dtype=torch.long, device=self.device)})
@@ -474,6 +727,32 @@ class ServingEngine:
         return ({"decode": decode, "prefill": tuple(lengths),
                  "prefill_buckets": tuple(buckets), "collectives": tuple(collectives)},
                 1 + len(lengths) + len(buckets))
+
+    def _prepare_sharded(self, layout: Dict[str, Any], lengths: Sequence[int],
+                         buckets: Sequence[int]) -> Dict[str, Any]:
+        """`prepare_executables` for a layout across ranks."""
+        import torch.distributed as dist
+        self._check_layout(layout)
+        collectives: List[Collective] = []
+        if dist.get_rank() in _ranks_of(layout):
+            params, cache = self._scratch_state(layout["prepare"])
+            dm = next(iter(layout["prepare"]["cache"].values())).mesh
+            zeros = np.zeros(self.n_slots, dtype=np.int64)
+            tables = (np.full((self.n_slots, self.pages_per_seq), kvpool.SCRATCH_PAGE,
+                              dtype=np.int64) if self.paged else None)
+            collectives = trace_collectives(
+                lambda: self._sharded_decode(params, cache, layout, dm, zeros[:, None], zeros,
+                                             tables), self.device)
+            for S in lengths:
+                self._sharded_prefill(params, layout, {"tokens": torch.zeros(
+                    (1, S), dtype=torch.long, device=self.device)})
+            for S in buckets:
+                self._sharded_prefill(params, layout, {"tokens": torch.zeros(
+                    (1, S), dtype=torch.long, device=self.device), "true_len": 1})
+            del params, cache
+            sync(self.device)
+        return {"decode": None, "prefill": tuple(lengths), "prefill_buckets": tuple(buckets),
+                "collectives": tuple(collectives)}
 
     def _capture(self, exe: DecodeExecutable) -> DecodeExecutable:
         """Capture ``exe``'s graph (on the card), counted in `decode_stats`.
@@ -503,7 +782,18 @@ class ServingEngine:
             RuntimeError: the step could not be traced; the cluster fails
                 closed on it.
         """
-        if self._collectives is None:
+        if self._collectives is None and self.layout is not None:
+            found: List[Collective] = []
+            if self._is_member():
+                dm = next(iter(self.cache.values())).device_mesh
+                params, cache = self._scratch_state(self.layout)
+                zeros = np.zeros(self.n_slots, dtype=np.int64)
+                tables = (np.full((self.n_slots, self.pages_per_seq), kvpool.SCRATCH_PAGE,
+                                  dtype=np.int64) if self.paged else None)
+                found = trace_collectives(lambda: self._sharded_decode(
+                    params, cache, self.layout, dm, zeros[:, None], zeros, tables), self.device)
+            self._collectives = self._agree(found)
+        elif self._collectives is None:
             self._collectives = (trace_collectives(self._scratch_decode_inputs(),
                                                     self.device)
                                  if _has_process_group() else [])
@@ -612,6 +902,30 @@ class ServingEngine:
         S = self.pages_per_seq * self.page_size if self.paged else self.s_max
         return self.model.cache_shapes(1, S)
 
+    def _export_sharded(self, slot: int, *, scratch: bool = False) -> Dict[str, torch.Tensor]:
+        """Lane ``slot``'s state gathered whole on the ranks of the engine's
+        mesh, as the one-device engine exports it: its pages in table order
+        (the scratch page's when ``scratch``), or its slot; meta tensors of
+        the same shapes on the other ranks."""
+        if self.paged:
+            row = ([kvpool.SCRATCH_PAGE] * self.pages_per_seq if scratch
+                   else [int(x) for x in self.page_tables[slot]])
+            got = kvpool.gather_named_pages(self.cache, row) if self._is_member() else None
+            out = {}
+            for name, leaf in self.cache.items():
+                p, sx = self._pax[name], self._sax[name]
+                shape = (leaf.shape[:p] + (1, len(row) * leaf.shape[sx])
+                         + tuple(leaf.shape[sx + 1:]))
+                out[name] = (got[name].reshape(shape) if got is not None
+                             else torch.empty(shape, dtype=leaf.dtype, device="meta"))
+            return out
+        out = {}
+        for name, leaf in self.cache.items():
+            g = ctx.gather_index(leaf, [slot], 1) if self._is_member() else None
+            out[name] = g if g is not None else torch.empty(
+                (leaf.shape[0], 1) + tuple(leaf.shape[2:]), dtype=leaf.dtype, device="meta")
+        return out
+
     def _admit(self) -> None:
         while self.queue:
             slot = self._free_slot()
@@ -642,8 +956,16 @@ class ServingEngine:
                 batch = {"tokens": torch.nn.functional.pad(prompt, (0, bucket - S)),
                          "true_len": S}
             t_pre0 = obs_events.now() if rec is not None else 0.0
-            logits, cache1 = self.model.prefill(batch)
-            tok = int(np.argmax(logits[0, : self.vocab].float().cpu().numpy()))
+            if self.layout is None:
+                logits, cache1 = self.model.prefill(batch)
+            elif self._is_member():
+                logits, cache1 = self._sharded_prefill(self.params, self.layout, batch)
+            else:       # outside the engine's ranks: counts, no values
+                logits, cache1 = None, None
+            tok = (int(np.argmax(logits[0, : self.vocab].float().cpu().numpy()))
+                   if logits is not None else -1)
+            if self.record_logits and logits is not None:
+                self.prefill_logits[req.rid] = logits[0].clone()
             t_pre1 = obs_events.now() if rec is not None else 0.0
             req.tokens_out.append(tok)
             req.t_first = time.time()
@@ -658,12 +980,17 @@ class ServingEngine:
                 # the scratch-padded table tail absorbs bucket slack (never
                 # read: decode masks by position)
                 row = pages + [kvpool.SCRATCH_PAGE] * (self.pages_per_seq - len(pages))
-                kvpool.write_pages(self.cache, cache1, row, self._pax, self._sax)
+                if self.layout is None:
+                    kvpool.write_pages(self.cache, cache1, row, self._pax, self._sax)
+                elif cache1 is not None:
+                    kvpool.write_pages_sharded(self.cache, cache1, row, self._pax, self._sax)
                 self.page_tables[slot] = row
                 self.slot_pages[slot] = pages
                 self._tables_dirty = True
-            else:
+            elif self.layout is None:
                 _write_slot(self.cache, cache1, slot)
+            elif cache1 is not None:
+                _write_slot_sharded(self.cache, cache1, slot)
             self.slot_req[slot] = req
             self.slot_pos[slot] = S
 
@@ -713,7 +1040,16 @@ class ServingEngine:
         `export_slot`/`import_slot` pays no first use. Idempotent."""
         if self._migration_warm:
             return
-        if self.paged:
+        if self.layout is not None:
+            # the scratch page's (or slot 0's) surgery over the engine's
+            # mesh, written back where it was read
+            if self._is_member():
+                kv = self._export_sharded(0, scratch=True)
+                if self.paged:
+                    kvpool.write_pages_sharded(self.cache, kv,
+                                               [kvpool.SCRATCH_PAGE] * self.pages_per_seq,
+                                               self._pax, self._sax)
+        elif self.paged:
             store = self.model.init_cache(1, self.page_size)     # page 0 only
             row = [kvpool.SCRATCH_PAGE] * self.pages_per_seq
             kv = kvpool.gather_pages(store, torch.as_tensor([row], device=self.device),
@@ -749,7 +1085,13 @@ class ServingEngine:
                 room = self.s_max - 1 - pos
                 if r.max_new_tokens - len(r.tokens_out) > room:
                     r.max_new_tokens = len(r.tokens_out) + room
-                if self.paged:
+                ranks = None
+                if self.layout is not None:
+                    # gathered whole on the engine's ranks: the lane's pages
+                    # (the one-device layout of `gather_pages`) or its slot
+                    kv = self._export_sharded(slot)
+                    ranks = self.ranks
+                elif self.paged:
                     # full-width table: the scratch-padded tail lies at
                     # positions >= pos, masked on the importer
                     kv = kvpool.gather_pages(
@@ -762,7 +1104,7 @@ class ServingEngine:
                 sync(self.device)
                 self._release_lane(slot)
                 return SlotSnapshot(rid=rid, request=r, phase="decoding",
-                                    pos=pos, kv=kv, src_s_max=self.s_max)
+                                    pos=pos, kv=kv, src_s_max=self.s_max, ranks=ranks)
         for i, r in enumerate(self.queue):
             if r.rid == rid:
                 self.queue.pop(i)
@@ -811,8 +1153,15 @@ class ServingEngine:
         if kv_fitted is not None:
             single = kv_fitted
         else:
-            single = migration.place_like(
-                migration.fit_single(snapshot.kv, self.single_layout()), self.cache)
+            kv = snapshot.kv
+            if snapshot.ranks is not None or self.layout is not None:
+                # the state reaches every rank that holds this engine
+                holders = snapshot.ranks if snapshot.ranks is not None else ctx.world_ranks()
+                kv = {k: ctx.relay(None if v.is_meta else v, holders, self.ranks,
+                                   shape=v.shape, dtype=v.dtype, device=self.device)
+                      for k, v in sorted(kv.items())}
+            single = (migration.place_like(migration.fit_single(kv, self.single_layout()),
+                                           self.cache) if self._is_member() else None)
         if self.paged:
             try:
                 pages = self.pool.alloc(self.pool.pages_for(need), reserve=True)
@@ -820,12 +1169,17 @@ class ServingEngine:
                 raise MigrationError(str(e)) from e
             # full-width write: the scratch-padded tail goes to page 0
             row = pages + [kvpool.SCRATCH_PAGE] * (self.pages_per_seq - len(pages))
-            kvpool.write_pages(self.cache, single, row, self._pax, self._sax)
+            if self.layout is None:
+                kvpool.write_pages(self.cache, single, row, self._pax, self._sax)
+            elif single is not None:
+                kvpool.write_pages_sharded(self.cache, single, row, self._pax, self._sax)
             self.page_tables[slot] = row
             self.slot_pages[slot] = pages
             self._tables_dirty = True
-        else:
+        elif self.layout is None:
             migration.write_single(self.cache, single, self._migration_axes(), slot)
+        elif single is not None:
+            _write_slot_sharded(self.cache, single, slot)
         sync(self.device)
         self.slot_req[slot] = req
         self.slot_pos[slot] = snapshot.pos
@@ -849,6 +1203,8 @@ class ServingEngine:
             raise EngineStateError("engine is paused (resume() to serve)")
         while self._retired:
             self._retired.pop().release()
+        if self.record_logits:
+            self.last_lanes = []
         self._admit()
         if self.paged:
             self._compact()
@@ -858,26 +1214,42 @@ class ServingEngine:
         tokens = np.zeros((self.n_slots, 1), dtype=np.int64)
         for i in active:
             tokens[i, 0] = self.slot_req[i].tokens_out[-1]
-        with self._exec_lock:
-            exe = self._decode_exec
-        first = exe is None
-        if first:
-            exe = DecodeExecutable(self)
-        elif not exe.bound_to(self.cache):
-            raise RuntimeError("the installed decode executable is bound to a "
-                               "pool this engine no longer holds")
-        # inactive lanes sit at position 0 (of the scratch page, or of a free
-        # slot, which its next admission overwrites)
-        exe.load(tokens, self.slot_pos,
-                 self.page_tables if self.paged and (first or self._tables_dirty) else None)
-        self._tables_dirty = False
-        if first:
-            exe.forward()
+        if self.record_logits:
+            self.last_lanes = [(i, self.slot_req[i].rid) for i in active]
+        exe, first = None, False
+        if self.layout is not None:
+            # across ranks: eager by design (module doc); a rank outside the
+            # engine's mesh keeps the counts and records no values
+            picks = (self._sharded_decode(self.params, self.cache, self.layout,
+                                          next(iter(self.cache.values())).device_mesh,
+                                          tokens, self.slot_pos.copy(),
+                                          self.page_tables if self.paged else None)
+                     if self._is_member() else np.full(self.n_slots, -1, dtype=np.int64))
             self.decode_stats["eager"] += 1
+            self.decode_stats["multi_rank_eager"] += 1
         else:
-            exe.run()
-            self.decode_stats["replays" if exe.graph is not None else "eager"] += 1
-        picks = exe.next_tok.cpu().numpy()
+            with self._exec_lock:
+                exe = self._decode_exec
+            first = exe is None
+            if first:
+                exe = DecodeExecutable(self)
+            elif not exe.bound_to(self.cache):
+                raise RuntimeError("the installed decode executable is bound to a "
+                                   "pool this engine no longer holds")
+            # inactive lanes sit at position 0 (of the scratch page, or of a
+            # free slot, which its next admission overwrites)
+            exe.load(tokens, self.slot_pos,
+                     self.page_tables if self.paged and (first or self._tables_dirty) else None)
+            self._tables_dirty = False
+            if first:
+                exe.forward()
+                self.decode_stats["eager"] += 1
+            else:
+                exe.run()
+                self.decode_stats["replays" if exe.graph is not None else "eager"] += 1
+            picks = exe.next_tok.cpu().numpy()
+            if self.record_logits:
+                self.last_logits = exe.logits.clone()
         now = time.time()
         rec = obs_events.RECORDER
         for i in active:
@@ -944,7 +1316,8 @@ def _has_process_group() -> bool:
 
 def _group_ranks(args, kwargs) -> Optional[Tuple[int, ...]]:
     """The ranks of the process group among a collective's arguments: a
-    group object (eager ``c10d`` ops) or a group name (functional ops)."""
+    group object (eager ``c10d`` ops carry it boxed as a script object) or
+    a group name (functional ops); None where none can be read."""
     import torch.distributed as dist
     if not _has_process_group():
         return None
@@ -953,7 +1326,10 @@ def _group_ranks(args, kwargs) -> Optional[Tuple[int, ...]]:
             if isinstance(a, str):
                 from torch.distributed.distributed_c10d import _resolve_process_group
                 a = _resolve_process_group(a)
-            return tuple(dist.get_process_group_ranks(a))
+            elif isinstance(a, torch.ScriptObject):
+                a = dist.ProcessGroup.unbox(a)
+            if isinstance(a, dist.ProcessGroup):
+                return tuple(dist.get_process_group_ranks(a))
         except (AttributeError, KeyError, RuntimeError, TypeError, ValueError):
             continue
     return None
@@ -1010,3 +1386,40 @@ def _write_slot(pool: Dict[str, torch.Tensor], single: Dict[str, torch.Tensor],
             dst[:, slot, n:].zero_()
         else:
             dst[:, slot].copy_(src)
+
+
+def _write_slot_sharded(pool: Dict[str, Any], single: Dict[str, torch.Tensor],
+                        slot: int) -> None:
+    """`_write_slot` into a pool laid out across ranks: the rank that holds
+    slot ``slot`` writes its part of the other dims (a positional leaf
+    zero-padded to ``s_max``, every leaf cast to the pool's dtype); nothing
+    moves between ranks."""
+    for name, dst in pool.items():
+        src = single[name]
+        if is_positional(name):
+            n = src.shape[2]
+            row = torch.zeros((src.shape[0], 1) + tuple(dst.shape[2:]), dtype=src.dtype,
+                              device=src.device)
+            row[:, :, :n] = src
+            src = row
+        ctx.write_rows(dst, [slot], src, 1)
+
+
+def _ranks_of(layout: Optional[Dict[str, Any]]) -> Tuple[int, ...]:
+    """The ranks that hold an engine's state under ``layout``: its mesh's,
+    or on one device every rank of the world (each runs the one-device
+    engine alike)."""
+    if layout is None:
+        return ctx.world_ranks() if _has_process_group() else (0,)
+    return tuple(int(r) for r in layout["mesh"].ranks.reshape(-1))
+
+
+def _sharding_of(x: Any) -> LeafSharding:
+    """DTensor ``x``'s own layout as a `LeafSharding`."""
+    return LeafSharding(x.device_mesh, tuple(x.placements), P())
+
+
+def _leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]

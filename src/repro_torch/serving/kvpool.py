@@ -242,3 +242,104 @@ def make_paged_decode(model, pax: Axes, sax: Axes):
         return logits, scatter_token(store, dense, tables, pos, pax, sax)
 
     return paged_decode
+
+
+# ---------------------------------------------------------------------------
+# the store sharded by pages across ranks
+# ---------------------------------------------------------------------------
+#
+# Under a plan that spans several ranks the store's leaves are DTensors that
+# follow the reference's `cache_specs` at ``batch=store_batch``: the pages
+# split over the batch axes (DTensor's chunk rule), every other dim whole on
+# each rank. The allocator and the page tables stay on the host, equal on
+# every rank, so admission decides as on one device; the functions below
+# move only the pages the tables name.
+
+
+def local_pages(leaf) -> Tuple[int, int]:
+    """The ``[lo, hi)`` of pages this rank holds of a sharded store leaf
+    (batch axis 1); ``(0, 0)`` on a rank outside its mesh."""
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.plan import LeafSharding
+    return ctx.local_range(tuple(leaf.shape),
+                           LeafSharding(leaf.device_mesh, tuple(leaf.placements), None), dim=1)
+
+
+def gather_named_pages(store: Store, pages: Sequence[int]) -> Store:
+    """Pages ``pages`` of every leaf of a sharded store, whole, on every
+    rank of its mesh (`ctx.gather_index`); each rank contributes the named
+    pages it holds, and no other page moves."""
+    from repro_torch.sharding import ctx
+    return {name: ctx.gather_index(leaf, pages, 1) for name, leaf in store.items()}
+
+
+def dense_rows(named: Store, index: Dict[int, int], tables, pax: Axes, sax: Axes) -> Store:
+    """The dense ``(B, pages_per_seq * page_size)`` cache of the rows of
+    ``tables`` (a host array) from pages gathered by `gather_named_pages`
+    (``index``: page id -> its place among them), as `gather_pages` builds
+    it from the whole store."""
+    B, npp = tables.shape
+    sel = [index[int(p)] for p in tables.reshape(-1)]
+    out = {}
+    for name, leaf in named.items():
+        p, s = pax[name], sax[name]
+        g = leaf.index_select(p, torch.as_tensor(sel, dtype=torch.long, device=leaf.device))
+        out[name] = g.reshape(leaf.shape[:p] + (B, npp * leaf.shape[s]) + leaf.shape[s + 1:])
+    return out
+
+
+def scatter_token_sharded(store: Store, new: Store, tables, pos) -> Store:
+    """Write each lane's newest KV entry into its page, in place, on the
+    rank that holds the page: ``new[name]`` is ``(L, B, ...)``, lane ``b``'s
+    entry at its position ``pos[b]`` (host arrays ``tables (B,
+    pages_per_seq)``, ``pos (B,)``), physical page ``tables[b, pos[b] //
+    page_size]``, offset ``pos[b] % page_size``."""
+    import numpy as np
+    for name, leaf in store.items():
+        lo, hi = local_pages(leaf)
+        if hi <= lo:
+            continue
+        ps = leaf.shape[2]
+        phys = tables[np.arange(len(pos)), pos // ps]
+        mine = np.nonzero((phys >= lo) & (phys < hi))[0]
+        if not len(mine):
+            continue
+        local = leaf.to_local()
+        dev = local.device
+        local[:, torch.as_tensor(phys[mine] - lo, device=dev),
+              torch.as_tensor(pos[mine] % ps, device=dev)] = \
+            new[name][:, torch.as_tensor(mine, device=dev)].to(local.dtype)
+    return store
+
+
+def write_pages_sharded(store: Store, single: Store, pages: Sequence[int],
+                        pax: Axes, sax: Axes) -> Store:
+    """`write_pages` into a sharded store: each rank writes the pages of
+    ``pages`` it holds, from the whole single-sequence cache every rank of
+    the mesh computed; nothing moves between ranks."""
+    import numpy as np
+    n = len(pages)
+    for name, leaf in store.items():
+        lo, hi = local_pages(leaf)
+        if hi <= lo:
+            continue
+        idx = np.asarray(pages, dtype=np.int64)
+        mine = np.nonzero((idx >= lo) & (idx < hi))[0]
+        if not len(mine):
+            continue
+        p, s = pax[name], sax[name]
+        ps = leaf.shape[s]
+        c = single[name]
+        target = n * ps
+        if c.shape[s] > target:
+            c = c.narrow(s, 0, target)
+        elif c.shape[s] < target:
+            pad_shape = list(c.shape)
+            pad_shape[s] = target - c.shape[s]
+            c = torch.cat([c, c.new_zeros(pad_shape)], dim=s)
+        local = leaf.to_local()
+        c = c.reshape(c.shape[:p] + (n, ps) + c.shape[s + 1:]).to(local.dtype)
+        dev = local.device
+        local[(slice(None),) * p + (torch.as_tensor(idx[mine] - lo, device=dev),)] = \
+            c[(slice(None),) * p + (torch.as_tensor(mine, device=dev),)]
+    return store

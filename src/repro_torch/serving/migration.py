@@ -91,6 +91,10 @@ class SlotSnapshot:
         src_s_max: the source pool's sequence capacity.
         src_engine: source engine name (telemetry only).
         t_export: wall-clock stamp when the snapshot was taken.
+        ranks: the ranks that hold ``kv`` when it was exported from an
+            engine laid out across ranks (its state gathered on the ranks
+            of its mesh; elsewhere ``kv`` holds meta tensors of the same
+            shapes and dtypes); None when every rank holds it.
     """
 
     rid: int
@@ -101,6 +105,7 @@ class SlotSnapshot:
     src_s_max: int
     src_engine: str = ""
     t_export: float = dataclasses.field(default_factory=time.time)
+    ranks: Optional[Tuple[int, ...]] = None
 
     @property
     def nbytes(self) -> int:
@@ -323,7 +328,10 @@ def migrate_many(src_engine, dst_engine, rids: Sequence[int], *,
     decoding = [s for s in snaps if s.phase == "decoding"]
     fitted: Dict[int, State] = {}
     t_share = 0.0
-    if decoding:
+    # an engine laid out across ranks imports each request on its own: its
+    # state has to reach the ranks of the destination's mesh
+    if decoding and not any(s.ranks is not None for s in decoding) \
+            and getattr(dst_engine, "layout", None) is None:
         t0 = time.perf_counter()
         layout = dst_engine.single_layout()
         axes = dst_engine._migration_axes()

@@ -259,24 +259,27 @@ class PrepareWorker:
         self._lock = threading.Lock()
 
     def submit(self, ticket: PrepareTicket,
-               fn: Callable[[], Dict[str, Any]]) -> None:
+               fn: Callable[[], Dict[str, Any]], *, always: bool = False) -> None:
         """Run ``fn`` on a worker thread; its return value becomes the
-        ticket's payload (ticket -> READY), its exception fails it."""
+        ticket's payload (ticket -> READY), its exception fails it.
+        ``always``: run it even when the ticket was cancelled before it
+        started (its payload is then discarded): a PREPARE that issues
+        collectives runs on every rank, whatever each rank's timing."""
         with self._lock:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(
                     max_workers=self._max,
                     thread_name_prefix="prepare-worker")
             pool = self._pool
-        pool.submit(self.run_inline, ticket, fn)
+        pool.submit(self.run_inline, ticket, fn, always=always)
 
     @staticmethod
     def run_inline(ticket: PrepareTicket,
-                   fn: Callable[[], Dict[str, Any]]) -> None:
+                   fn: Callable[[], Dict[str, Any]], *, always: bool = False) -> None:
         """Execute one PREPARE closure on the calling thread (the sync
         `reconfigure`/`spawn_engine` paths reuse the exact ticket state
-        machine without a thread hop)."""
-        if ticket.state != PREPARING:      # cancelled before it started
+        machine without a thread hop); ``always`` as in `submit`."""
+        if ticket.state != PREPARING and not always:   # cancelled before it started
             return
         t0 = time.perf_counter()
         try:

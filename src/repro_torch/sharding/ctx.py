@@ -43,11 +43,15 @@ def is_dtensor(x: Any) -> bool:
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None):
+def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None,
+                        rows: Optional[int] = None):
     """Enter ``(mesh, plan)`` for the model's `constrain` calls.
     ``row_axes``: the mesh axes this step splits the batch rows over (none
-    by default: every rank holds every row)."""
-    _stack().append((mesh, plan, tuple(row_axes or ())))
+    by default: every rank holds every row). ``rows``: the global row count
+    of each (micro)batch the step runs, which DTensor's chunk rule cuts over
+    those axes (trailing ranks may hold fewer rows, or none); None when the
+    rows split evenly."""
+    _stack().append((mesh, plan, tuple(row_axes or ()), rows))
     try:
         yield
     finally:
@@ -121,6 +125,13 @@ def row_shards() -> int:
     context)."""
     mesh, axes = _row_context()
     return math.prod(mesh.shape[a] for a in axes) if axes else 1
+
+
+def global_rows() -> Optional[int]:
+    """The global row count of the current step's (micro)batches, where it
+    was given (`activation_sharding`); None otherwise."""
+    s = _stack()
+    return s[-1][3] if s else None
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -271,3 +282,194 @@ def from_rows(local: torch.Tensor, sharding, shape, dim: int) -> Any:
     if rows.placements != tuple(sharding.placements):
         x = x.redistribute(sharding.mesh, list(sharding.placements))
     return x
+
+
+# ---------------------------------------------------------------------------
+# moving between meshes, and the rows of a sharded pool
+# ---------------------------------------------------------------------------
+
+
+def mesh_ranks(dm) -> Tuple[int, ...]:
+    """The global ranks of ``DeviceMesh`` ``dm``, row-major."""
+    return tuple(int(r) for r in dm.mesh.reshape(-1).tolist())
+
+
+def world_ranks() -> Tuple[int, ...]:
+    import torch.distributed as dist
+    return tuple(range(dist.get_world_size()))
+
+
+def relay(x: Optional[torch.Tensor], holders: Sequence[int], needers: Sequence[int], *,
+          shape, dtype: torch.dtype, device: torch.device) -> Optional[torch.Tensor]:
+    """A tensor held whole on every rank of ``holders`` made whole on every
+    rank of ``needers``: each needer that does not hold it receives it from
+    one holder (the ``i``-th such needer from ``holders[i % n]``) by a
+    point-to-point send, so it reaches no rank outside the two sets. Every
+    rank of the world calls this with the same sets; a rank in neither gets
+    ``x`` back as it is (None).
+
+    Raises:
+        ValueError: a needer lacks it and nobody holds it.
+    """
+    import torch.distributed as dist
+    missing = [r for r in needers if r not in holders]
+    if not missing:
+        return x
+    if not holders:
+        raise ValueError(f"ranks {missing} need a tensor that no rank holds")
+    me = dist.get_rank()
+    for i, r in enumerate(missing):
+        src = holders[i % len(holders)]
+        if me == src:
+            dist.send(x.contiguous(), dst=r)
+        elif me == r:
+            x = torch.empty(tuple(shape), dtype=dtype, device=device)
+            dist.recv(x, src=src)
+    return x
+
+
+def relay_object(obj: Any, holders: Sequence[int], needers: Sequence[int]) -> Any:
+    """`relay` of a picklable object (point to point, to the needers that
+    do not hold it)."""
+    import torch.distributed as dist
+    missing = [r for r in needers if r not in holders]
+    if not missing:
+        return obj
+    me = dist.get_rank()
+    for i, r in enumerate(missing):
+        src = holders[i % len(holders)]
+        box = [obj]
+        if me == src:
+            dist.send_object_list(box, dst=r)
+        elif me == r:
+            dist.recv_object_list(box, src=src)
+            obj = box[0]
+    return obj
+
+
+def empty_on(sharding, shape, dtype: torch.dtype, device: torch.device) -> Any:
+    """A DTensor of global ``shape`` under ``sharding`` whose local shard is
+    uninitialised memory (zero rows on a rank outside the mesh)."""
+    local, _ = local_shape_and_offset(tuple(shape), sharding)
+    return to_dtensor(torch.empty(local, dtype=dtype, device=device), sharding, shape)
+
+
+def move(x: Any, dst: Any, *, holders: Optional[Sequence[int]] = None) -> Any:
+    """``x`` laid out as ``dst``, between meshes of any rank counts: a
+    `LeafSharding` gives a DTensor under it, a tuple of ranks a plain tensor
+    whole on each of them (None on the other ranks).
+
+    ``x`` is a DTensor, or a plain tensor whole on every rank of
+    ``holders`` (every rank of the world by default; None elsewhere). A
+    DTensor that stays on its mesh is redistributed; otherwise it is
+    gathered whole on its mesh's ranks, sent to the target ranks that lack
+    it (`relay`), and cut there (`place`), one leaf at a time, so the
+    transient is one whole leaf. A rank outside the target mesh ends up
+    holding no shard, and still takes part in the collectives of the ranks
+    it shares a group with. Every rank of the world calls this, in the same
+    order.
+    """
+    import torch.distributed as dist
+    from repro_torch.sharding.plan import LeafSharding
+    me = dist.get_rank()
+    if is_dtensor(x):
+        if isinstance(dst, LeafSharding) and x.device_mesh is dst.mesh:
+            return place(x, dst)
+        src = mesh_ranks(x.device_mesh)
+        whole = x.full_tensor() if x.device_mesh.get_coordinate() is not None else None
+        shape, dtype, device = tuple(x.shape), x.dtype, x.to_local().device
+    else:
+        src = tuple(holders) if holders is not None else world_ranks()
+        whole = x if me in src else None
+        shape, dtype, device = tuple(x.shape), x.dtype, x.device
+    if isinstance(dst, LeafSharding):
+        whole = relay(whole, src, mesh_ranks(dst.mesh), shape=shape, dtype=dtype, device=device)
+        if dst.mesh.get_coordinate() is None:
+            return empty_on(dst, shape, dtype, device)
+        return place(whole, dst)
+    whole = relay(whole, src, tuple(dst), shape=shape, dtype=dtype, device=device)
+    return whole if me in tuple(dst) else None
+
+
+def gather_index(x: Any, index: Sequence[int], dim: int) -> Optional[torch.Tensor]:
+    """``x[index]`` along ``dim`` (every other dim whole) on every rank of
+    DTensor ``x``'s mesh, exchanging only those rows: each rank writes the
+    rows it holds (its part of the other dims) into a zero buffer, one rank
+    of each replica set, and the buffer is summed over every mesh dim. The
+    sum adds zeros to one value, so it is exact. None on a rank outside the
+    mesh."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import Shard
+    from repro_torch.sharding.plan import LeafSharding
+    dm = x.device_mesh
+    coord = dm.get_coordinate()
+    if coord is None:
+        return None
+    local = x.to_local()
+    shape = tuple(x.shape)
+    lshape, off = local_shape_and_offset(shape, LeafSharding(dm, tuple(x.placements), None))
+    idx = np.asarray(index, dtype=np.int64)
+    out_shape = list(shape)
+    out_shape[dim] = len(idx)
+    buf = torch.zeros(out_shape, dtype=x.dtype, device=local.device)
+    if all(c == 0 for c, p in zip(coord, x.placements) if not isinstance(p, Shard)):
+        lo, n = off[dim], lshape[dim]
+        mine = np.nonzero((idx >= lo) & (idx < lo + n))[0]
+        if len(mine):
+            region = [slice(o, o + k) for o, k in zip(off, lshape)]
+            region[dim] = torch.as_tensor(mine, device=local.device)
+            buf[tuple(region)] = local.index_select(
+                dim, torch.as_tensor(idx[mine] - lo, device=local.device))
+    for i in range(dm.ndim):
+        if dm.size(i) > 1:
+            dist.all_reduce(buf, group=dm.get_group(i))
+    return buf
+
+
+def rows_whole(local: torch.Tensor, dm, row_axes: Sequence[str], rows: int,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's rows (dim ``dim``, split over ``row_axes`` by the chunk
+    rule, every other dim whole) put together on every rank of ``dm``: an
+    all-gather over the row axes."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.plan import LeafSharding, P
+    placements = tuple(Shard(dim) if a in row_axes else Replicate() for a in dm.mesh_dim_names)
+    shape = list(local.shape)
+    shape[dim] = rows
+    return full(to_dtensor(local, LeafSharding(dm, placements, P()), tuple(shape)))
+
+
+def my_rows(dm, row_axes: Sequence[str], rows: int) -> Tuple[int, int]:
+    """The ``[lo, hi)`` of ``rows`` this rank takes when they split over
+    ``row_axes`` of ``dm`` by the chunk rule; ``(0, 0)`` outside the
+    mesh."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.plan import LeafSharding, P
+    placements = tuple(Shard(0) if a in row_axes else Replicate() for a in dm.mesh_dim_names)
+    return local_range((rows,), LeafSharding(dm, placements, P()), dim=0)
+
+
+def write_rows(x: Any, index: Sequence[int], values: torch.Tensor, dim: int) -> None:
+    """Write ``values`` (``x``'s shape with ``dim`` cut to ``len(index)``,
+    every other dim whole) into DTensor ``x`` at ``index`` along ``dim``,
+    IN PLACE: each rank writes the rows it holds, its part of the other
+    dims; nothing moves between ranks."""
+    import numpy as np
+    from repro_torch.sharding.plan import LeafSharding
+    dm = x.device_mesh
+    if dm.get_coordinate() is None:
+        return
+    local = x.to_local()
+    lshape, off = local_shape_and_offset(tuple(x.shape),
+                                         LeafSharding(dm, tuple(x.placements), None))
+    idx = np.asarray(index, dtype=np.int64)
+    lo, n = off[dim], lshape[dim]
+    mine = np.nonzero((idx >= lo) & (idx < lo + n))[0]
+    if not len(mine):
+        return
+    src = [slice(o, o + k) for o, k in zip(off, lshape)]
+    src[dim] = torch.as_tensor(mine, device=values.device)
+    dst = [slice(None)] * local.dim()
+    dst[dim] = torch.as_tensor(idx[mine] - lo, device=local.device)
+    local[tuple(dst)] = values[tuple(src)].to(local.dtype)

@@ -369,11 +369,14 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
-    def device_mesh(self):
+    def device_mesh(self, tag: str = ""):
         """The ``torch.distributed`` ``DeviceMesh`` over ``ranks``, made
-        once per grid and cached. Making one creates its process groups, a
-        collective over the whole world: every rank must call this for
-        every mesh, the ranks outside it included, in the same order.
+        once per grid and ``tag`` and cached. Making one creates its process
+        groups, a collective over the whole world: every rank must call this
+        for every mesh, the ranks outside it included, in the same order.
+        Another ``tag`` gives the same grid over process groups of its own
+        (PREPARE's, `PREPARE_TAG`), so collectives issued on another thread
+        never share a group with serving's.
 
         Raises:
             ValueError: the mesh holds devices, not ranks.
@@ -382,7 +385,7 @@ class Mesh:
             raise ValueError("a mesh of devices has no DeviceMesh; build one over "
                              "ranks with rank_mesh")
         dev_type = self.devices.reshape(-1)[0].type
-        key = (dev_type, self.axis_names, self.ranks.shape, tuple(self.ranks.reshape(-1)))
+        key = (dev_type, self.axis_names, self.ranks.shape, tuple(self.ranks.reshape(-1)), tag)
         if key not in _DEVICE_MESHES:
             from torch.distributed.device_mesh import DeviceMesh
             _DEVICE_MESHES[key] = DeviceMesh(dev_type, torch.as_tensor(self.ranks),
@@ -391,6 +394,9 @@ class Mesh:
 
 
 _DEVICE_MESHES: Dict[tuple, Any] = {}
+
+#: the tag of PREPARE's process groups (`Mesh.device_mesh`)
+PREPARE_TAG = "prepare"
 
 
 def single_device_mesh(device, axis_names: Sequence[str] = AXIS_NAMES) -> Mesh:
@@ -484,17 +490,20 @@ def spec_placements(spec: PartitionSpec, axis_names: Sequence[str]) -> Tuple[Any
     return tuple(out)
 
 
-def leaf_sharding(mesh: Mesh, spec: PartitionSpec) -> LeafSharding:
-    """``spec`` pruned to ``mesh``'s axes, on its ``DeviceMesh``."""
+def leaf_sharding(mesh: Mesh, spec: PartitionSpec, tag: str = "") -> LeafSharding:
+    """``spec`` pruned to ``mesh``'s axes, on its ``DeviceMesh`` (of
+    ``tag``)."""
     spec = prune_spec(spec, mesh.axis_names)
-    return LeafSharding(mesh.device_mesh(), spec_placements(spec, mesh.axis_names), spec)
+    return LeafSharding(mesh.device_mesh(tag), spec_placements(spec, mesh.axis_names), spec)
 
 
-def plan_to_shardings(cfg, plan: ShardingPlan, mesh: Mesh, *, n_slots: int) -> Tree:
+def plan_to_shardings(cfg, plan: ShardingPlan, mesh: Mesh, *, n_slots: int,
+                      tag: str = "") -> Tree:
     """Materialise a plan across ranks: the mesh restricted to the plan's
     pins (`restrict_mesh`), and every param and cache leaf's
     `LeafSharding` there (`param_specs`, `cache_specs` at batch
-    ``n_slots``, each pruned to the mesh's axes).
+    ``n_slots``, each pruned to the mesh's axes), over the process groups
+    of ``tag`` (`Mesh.device_mesh`).
 
     Every rank must call this for every plan, the ranks outside the
     restricted mesh included (`Mesh.device_mesh`).
@@ -503,9 +512,42 @@ def plan_to_shardings(cfg, plan: ShardingPlan, mesh: Mesh, *, n_slots: int) -> T
         ``{"params": tree, "cache": tree}`` of `LeafSharding`.
     """
     sub = restrict_mesh(mesh, plan.device_constraints)
-    return {"params": _map_specs(lambda s: leaf_sharding(sub, s), param_specs(cfg, plan)),
-            "cache": _map_specs(lambda s: leaf_sharding(sub, s),
+    return {"params": _map_specs(lambda s: leaf_sharding(sub, s, tag), param_specs(cfg, plan)),
+            "cache": _map_specs(lambda s: leaf_sharding(sub, s, tag),
                                 cache_specs(cfg, plan, batch=n_slots))}
+
+
+def is_shardings(layout: Any) -> bool:
+    """Whether an engine layout is `plan_to_shardings`' (trees of
+    `LeafSharding`) rather than `plan_to_placement`'s (devices)."""
+    return isinstance(layout, dict) and isinstance(layout.get("params"), dict)
+
+
+def plan_layout(cfg, plan: ShardingPlan, mesh: Mesh, *, n_slots: int) -> Tree:
+    """An engine's layout under ``plan`` on ``mesh``, the one function the
+    cluster calls. A mesh of devices (one process) gives the one-device
+    placement (`plan_to_placement`, unchanged). A mesh of process ranks
+    gives the shardings of the plan's restricted mesh (`plan_to_shardings`
+    at the engine's ``cache_batch``: the page count of a paged pool, its
+    slot count otherwise), even where the pins leave one rank: every rank
+    of the world runs the same cluster, and the engine's state lives on the
+    ranks its plan resolves to. Beside them, under ``"prepare"``, the same
+    shardings over PREPARE's process groups (`PREPARE_TAG`), which the
+    scratch state of PREPARE lives on.
+
+    Every rank must call this for every plan, at the same point.
+
+    Raises:
+        ValueError: a mesh of devices whose restricted mesh spans more than
+            one device (`plan_to_placement`).
+    """
+    if mesh.ranks is None:
+        return plan_to_placement(plan, mesh)
+    out = plan_to_shardings(cfg, plan, mesh, n_slots=n_slots)
+    out["prepare"] = plan_to_shardings(cfg, plan, mesh, n_slots=n_slots, tag=PREPARE_TAG)
+    out["mesh"] = restrict_mesh(mesh, plan.device_constraints)
+    out["plan"] = plan
+    return out
 
 
 def plan_to_placement(plan: ShardingPlan, mesh: Mesh) -> Dict[str, torch.device]:

@@ -26,17 +26,20 @@ B_TRAIN, S_TRAIN = 8, 16
 LR, WD = 1e-3, 0.1
 
 
-def run_job(job: str, world: int = 4, timeout: float = 180.0) -> list:
-    """Run ``job`` (a function of this module: ``job(rank, world)`` ->
-    dict) on ``world`` spawned ranks over gloo; returns each rank's dict.
-    Ranks still running after ``timeout`` seconds are killed.
+def run_job(job: str, world: int = 4, timeout: float = 180.0,
+            module: str = "_torch_dist_jobs") -> list:
+    """Run ``job`` (a function of ``module``, this one by default:
+    ``job(rank, world)`` -> dict) on ``world`` spawned ranks over gloo;
+    returns each rank's dict. Ranks still running after ``timeout`` seconds
+    are killed.
 
     Raises:
         RuntimeError: a rank died, or the job timed out.
     """
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
-        procs = [ctx.Process(target=_rank_main, args=(job, r, world, tmp)) for r in range(world)]
+        procs = [ctx.Process(target=_rank_main, args=(job, r, world, tmp, module))
+                 for r in range(world)]
         for p in procs:
             p.start()
         deadline = time.monotonic() + timeout
@@ -53,7 +56,9 @@ def run_job(job: str, world: int = 4, timeout: float = 180.0) -> list:
         return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def _rank_main(job: str, rank: int, world: int, tmp: str) -> None:
+def _rank_main(job: str, rank: int, world: int, tmp: str,
+               module: str = "_torch_dist_jobs") -> None:
+    import importlib
     import logging
 
     import torch.distributed as dist
@@ -62,7 +67,7 @@ def _rank_main(job: str, rank: int, world: int, tmp: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
                             world_size=world)
     try:
-        out = globals()[job](rank, world)
+        out = getattr(importlib.import_module(module), job)(rank, world)
     finally:
         dist.barrier()
         dist.destroy_process_group()

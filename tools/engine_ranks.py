@@ -1,0 +1,556 @@
+#!/usr/bin/env python3
+"""The serving engine laid out across four H100s: params and pool span the
+ranks a plan resolves to.
+
+    torchrun --nproc-per-node 4 tools/engine_ranks.py [--parts qwen,pod,jamba]
+    torchrun --nproc-per-node 4 tools/engine_ranks.py --device cpu --reduced
+
+One process per card (``torchrun`` gives each its rank; the group is made
+over ``env://``, a localhost rendezvous). Three parts, each freeing its
+models before the next:
+
+  qwen   Qwen1.5-MoE-A2.7B at full width (bf16, random weights from seed 0)
+         on the (1, 2, 2) mesh under `default_plan()`: the serve cell of
+         `chip_smoke.py` (8 slots, s_max 512, pages of 16, its 8 prompts x 16
+         new tokens) on an engine whose DTensor params and page pool span the
+         four ranks, held to rank 0's unsharded one-card engine: every
+         prefill's and decode step's logits within `chip_smoke.py`'s bf16
+         `PATH_LOGITS_TOL`, a pick that differs only at a near-tie within it,
+         the one-card token fed back so later steps stay comparable (the
+         sharded decode runs other GEMM row counts, so bf16 may round
+         otherwise); TTFT, TPOT and each rank's peak memory.
+  pod    the paper's step on the (2, 2, 1) mesh under
+         `default_plan(multi_pod=True)`: the same requests on a
+         `ServingCluster`; after step 2 the intent "PHI traffic must stay
+         inside pod 0." goes through `core.Orchestrator.submit(apply_to=
+         cluster)`, which swaps the engine from the 4 ranks to pod 0's 2
+         (sharded PREPARE on its own process groups, then the blocking swap)
+         with requests resident, and after step 6 it swaps back to all four;
+         prepare_s, downtime_s (beside the paper's 50 ms, as measured),
+         migrated bytes, executables and pauses of each swap; the validator
+         passes the pinned plan; the streams held to the one-card engine as
+         above.
+  jamba  Jamba-v0.1 on the (1, 2, 2) mesh, slot pool (4 slots, s_max 1024),
+         `chip_smoke.py`'s SSM prompts (17 .. 1000) x 16 new: at 16 of its
+         32 layers held to the same config served on rank 0's card as
+         above; then whole, 32 layers (~26 GB of params a rank, made
+         sharded: no card holds the model): flash 4, MoE top-k 16 and the
+         SSD scan 28 launches per prefill on each rank, each rank's peak
+         under 80 GB, TTFT and TPOT.
+
+Decode across ranks runs eagerly by design (`serving/engine.py`). Any
+failed check, collective or launch ends the run non-zero (``torchrun`` then
+stops every rank). Rank 0 prints the results and writes
+``engine_ranks.json`` beside `chip_smoke.py`'s output. ``--device cpu --reduced`` runs the same
+parts over gloo at the reduced fp32 configs (no launch counts, no memory
+peaks on the CPU).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+from datetime import timedelta
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+
+QWEN_KW = dict(n_slots=8, s_max=512, page_size=16, watermark=3)   # 260 pages: 4 | 260
+JAMBA_KW = dict(n_slots=4, s_max=1024)
+INTENT = "PHI traffic must stay inside pod 0."
+POD_SWAPS = (2, 6)      # steps after which the intent swaps to pod 0, and back
+PAPER_DOWNTIME_S = 0.05
+# Jamba-v0.1 whole, counted by hand as `chip_smoke.PREFILL_LAUNCHES` counts
+# its 16 layers: per period of 8, 1 attention, 4 MoE and 7 Mamba layers
+cs.PREFILL_LAUNCHES[("jamba-v0.1-52b", 32)] = (4, 16, 28)
+CARD_BYTES = 80e9
+
+
+def rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank()
+
+
+def say(msg: str) -> None:
+    if rank() == 0:
+        print(msg, flush=True)
+
+
+def fail(cond: bool, msg: str) -> None:
+    """End the run on every rank when ``cond`` is false (every rank checks
+    the same verdict)."""
+    if not cond:
+        print(f"engine_ranks: FAIL (rank {rank()}): {msg}", file=sys.stderr, flush=True)
+        sys.exit(1)
+
+
+def gather(obj):
+    """Every rank's ``obj``, on every rank."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def bcast(obj):
+    """Rank 0's ``obj`` on every rank."""
+    import torch.distributed as dist
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class Env:
+    """The run's device, configs and tolerances."""
+
+    def __init__(self, args):
+        import torch
+        self.cuda = args.device == "cuda"
+        self.device = (torch.device("cuda", torch.cuda.current_device()) if self.cuda
+                       else torch.device("cpu"))
+        self.reduced = args.reduced
+        self.dtype = "float32" if args.reduced else "bfloat16"
+        self.tol = cs.PATH_LOGITS_TOL[self.dtype]
+        self.card = args.card
+
+    def cfg(self, arch, layers=None):
+        from repro_torch.configs import get_config, get_reduced_config
+        if self.reduced:
+            cfg = dataclasses.replace(get_reduced_config(arch), param_dtype="float32",
+                                      activ_dtype="float32")
+        else:
+            cfg = get_config(arch)
+        return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+    def sync(self):
+        import torch
+        if self.cuda:
+            torch.cuda.synchronize()
+
+    def peak(self) -> float:
+        import torch
+        return torch.cuda.max_memory_allocated() / 1e9 if self.cuda else 0.0
+
+    def reset_peak(self):
+        import torch
+        if self.cuda:
+            torch.cuda.reset_peak_memory_stats()
+
+    def free(self):
+        import gc
+
+        import torch
+        gc.collect()
+        if self.cuda:
+            torch.cuda.empty_cache()
+
+
+def prompts_of(cfg, lens):
+    rng = np.random.default_rng(0)
+    return [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+
+
+def oracle_run(env, cfg, lens, **kw):
+    """Rank 0's unsharded one-card engine over ``lens``' prompts: each
+    request's tokens and every prefill's and decode step's logits of it, by
+    (rid, index), on the host."""
+    from repro_torch.models import Model
+    from repro_torch.serving import Request, ServingEngine, compute_metrics
+    if rank() != 0:
+        return None
+    model = Model(cfg, device=env.device, seed=0)
+    eng = ServingEngine(model, device=env.device, **kw)
+    eng.record_logits = True
+    # eager decode, so each step's router is read (a replayed graph runs no
+    # Python); a replay equals the eager step bit for bit (chip_smoke.py's
+    # graph-vs-eager check)
+    eng._capture = _eager
+    reqs = [Request(i, p, max_new_tokens=cs.SERVE_NEW_TOKENS)
+            for i, p in enumerate(prompts_of(cfg, lens))]
+    rows, routing = {}, []
+    router = Routing()
+    env.sync()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        router.take()
+        eng.step()
+        routing.append(router.take())
+        for lane, rid in eng.last_lanes:
+            rows[(rid, len(reqs[rid].tokens_out) - 1)] = \
+                eng.last_logits[lane, : eng.vocab].float().cpu()
+    env.sync()
+    router.close()
+    wall = time.perf_counter() - t0
+    for rid, lg in eng.prefill_logits.items():
+        rows[(rid, 0)] = lg[: eng.vocab].float().cpu()
+    out = {"tokens": {r.rid: list(r.tokens_out) for r in reqs}, "rows": rows,
+           "routing": routing, "metrics": compute_metrics(reqs), "wall_s": wall}
+    del eng, model
+    env.free()
+    return out
+
+
+def _eager(exe):
+    """A decode executable that runs its step eagerly instead of a graph."""
+    exe.run = exe.forward
+    return exe
+
+
+class Routing:
+    """Records, on this rank, each decode MoE layer's router logits and
+    expert picks (`models.mlp.router_topk`, the decode path's router; a
+    prefill routes through the MoE top-k kernel and is not recorded)."""
+
+    def __init__(self):
+        import threading
+
+        from repro_torch.models import mlp
+        self._mlp, self._orig, self.calls = mlp, mlp.router_topk, []
+        serving = threading.current_thread()
+
+        def recorded(m, logits, *, want_aux=True):
+            out = self._orig(m, logits, want_aux=want_aux)
+            if threading.current_thread() is serving:    # not PREPARE's scratch step
+                self.calls.append((logits.float().cpu(), out[1].cpu()))
+            return out
+
+        mlp.router_topk = recorded
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self):
+        self._mlp.router_topk = self._orig
+
+
+def _whole_rows(parts):
+    """Each MoE call's router logits and picks of every lane, from each
+    rank's ``(lo, calls)`` over its rows (ranks that share rows give the
+    same ones)."""
+    parts = sorted({lo: calls for lo, calls in parts if calls}.items())
+    if not parts:
+        return []
+    return [(__import__("torch").cat([c[i][0] for _, c in parts]),
+             __import__("torch").cat([c[i][1] for _, c in parts]))
+            for i in range(len(parts[0][1]))]
+
+
+class Forced:
+    """Holds a sharded engine to the oracle's as it serves (the checks of
+    `chip_smoke.py`'s bf16 paths). After each step rank 0 compares, for
+    every decoded lane, each MoE layer's router logits with the oracle's
+    at the same step, within `ROUTER_TOL`, up to the first layer whose
+    expert picks differ: there the request's routing splits (bf16 rounds
+    other GEMM row counts otherwise, and a near-tie picks another expert),
+    and from there on its state is another's and it is no longer held. Up
+    to its split, a request's prefill and decode logits must be within
+    `PATH_LOGITS_TOL` of the oracle's, and a pick that differs a near-tie
+    within it. The oracle's token replaces a differing pick on every rank,
+    so the next step's input is the oracle's."""
+
+    def __init__(self, env, engine, reqs, oracle):
+        self.env, self.engine, self.reqs, self.oracle = env, engine, reqs, oracle
+        self.worst = self.router_worst = 0.0
+        self.flips, self.splits = [], {}
+        self.rows = 0
+        self.k = 0
+        self.seen_prefill = set()
+        self.router = Routing()
+        engine.record_logits = True
+
+    def after_step(self):
+        from repro_torch.sharding import ctx
+        eng = self.engine
+        calls = self.router.take()
+        lo = -1
+        if eng.layout is not None and eng._is_member():
+            dm = next(iter(eng.cache.values())).device_mesh
+            lo = ctx.my_rows(dm, eng._row_axes(), eng.n_slots)[0]
+        elif eng.layout is None:
+            lo = 0
+        parts = gather((lo, calls))
+        fixes = []
+        if rank() == 0:
+            routed = _whole_rows(parts)
+            want_routed = self.oracle["routing"][self.k]
+            got = [(rid, 0, eng.prefill_logits[rid]) for rid in eng.prefill_logits
+                   if rid not in self.seen_prefill]
+            self.seen_prefill.update(rid for rid, _, _ in got)
+            for lane, rid in eng.last_lanes:
+                idx = len(self.reqs[rid].tokens_out) - 1
+                for layer, ((g_lg, g_id), (w_lg, w_id)) in enumerate(zip(routed, want_routed)):
+                    if rid in self.splits:
+                        break
+                    self.router_worst = max(self.router_worst,
+                                            float((g_lg[lane] - w_lg[lane]).abs().max()))
+                    if sorted(g_id[lane].tolist()) != sorted(w_id[lane].tolist()):
+                        self.splits[rid] = {"index": idx, "moe_layer": layer}
+                got.append((rid, idx, eng.last_logits[lane]))
+            eng.last_lanes = []
+            for rid, idx, row in got:
+                mine, theirs = self.reqs[rid].tokens_out[idx], self.oracle["tokens"][rid][idx]
+                if mine != theirs:
+                    fixes.append((rid, idx, theirs))
+                if rid in self.splits:
+                    continue
+                row = row[: eng.vocab].float().cpu()
+                want = self.oracle["rows"][(rid, idx)]
+                self.worst = max(self.worst, float((row - want).abs().max()))
+                self.rows += 1
+                if mine != theirs:
+                    self.flips.append({"rid": rid, "index": idx,
+                                       "gap": float(want[theirs] - want[mine])})
+        self.k += 1
+        for rid, idx, tok in bcast(fixes):
+            self.reqs[rid].tokens_out[idx] = tok
+
+    def verdict(self, tag):
+        self.router.close()
+        rtol = cs.ROUTER_TOL[self.env.dtype]
+        ok = (self.worst <= self.env.tol and self.router_worst <= rtol
+              and all(f["gap"] <= self.env.tol for f in self.flips))
+        ok = bcast(ok)
+        say(f"{tag} against the one-card engine: router logits max |diff| "
+            f"{self.router_worst:.4g} (limit {rtol}) up to the routing splits "
+            f"{self.splits} ({len(self.splits)} of {len(self.reqs)} requests part at a "
+            f"near-tie, held no further); logits of {self.rows} prefill and decode rows "
+            f"up to them max |diff| {self.worst:.4g} (limit {self.env.tol}); picks at "
+            f"near-ties {self.flips}  {'ok' if ok else 'FAIL'}  [{self.env.card}]")
+        fail(ok, f"{tag}: the sharded engine leaves the one-card engine")
+        return {"max_abs_diff": self.worst, "router_max_abs_diff": self.router_worst,
+                "rows": self.rows, "flips": self.flips, "splits": self.splits}
+
+
+def serve(env, engine, submit, step, cfg, lens, oracle, hold, tag, events=None):
+    """Serve ``lens``' prompts through ``submit``/``step``, ``events`` (step
+    index -> callable) fired before the step; the run's metrics, held to
+    rank 0's ``oracle`` when ``hold``."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, compute_metrics
+    reqs = [Request(i, p, max_new_tokens=cs.SERVE_NEW_TOKENS)
+            for i, p in enumerate(prompts_of(cfg, lens))]
+    forced = Forced(env, engine, reqs, oracle) if hold else None
+    env.sync()
+    env.reset_peak()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        submit(r)
+    k = 0
+    while engine.queue or any(r is not None for r in engine.slot_req):
+        if events and k in events:
+            events[k]()
+        step()
+        k += 1
+        if forced is not None:
+            forced.after_step()
+    env.sync()
+    wall = time.perf_counter() - t0
+    m = compute_metrics(reqs)
+    out = {"metrics": m, "wall_s": wall, "steps": k, "launches": dict(ops.LAUNCHES),
+           "stats": dict(engine.decode_stats)}
+    if forced is not None:
+        out["vs_one_card"] = forced.verdict(tag)
+    peaks = gather(env.peak())
+    out["peak_gb_by_rank"] = peaks
+    say(f"{tag} {len(reqs)} requests x {cs.SERVE_NEW_TOKENS} tokens in {wall:.2f} s, "
+        f"{k} steps: TTFT mean {m['ttft_mean_s'] * 1e3:.1f} ms p99 "
+        f"{m['ttft_p99_s'] * 1e3:.1f} ms, TPOT mean {m['tpot_mean_s'] * 1e3:.2f} ms p99 "
+        f"{m['tpot_p99_s'] * 1e3:.2f} ms; peak memory by rank (GB) "
+        f"{[round(p, 2) for p in peaks]}; decode {engine.decode_stats}  [{env.card}]")
+    return out
+
+
+def sharded_model(env, cfg, mesh, plan):
+    """``cfg``'s seeded weights made straight into their shards under
+    ``plan`` on ``mesh``."""
+    from repro_torch.models import Model
+    from repro_torch.sharding import plan_to_shardings
+    t0 = time.perf_counter()
+    shardings = plan_to_shardings(cfg, plan, mesh, n_slots=1)["params"]
+    model = Model(cfg, device=env.device, seed=0, shardings=shardings)
+    env.sync()
+    local = sum(x.to_local().numel() * x.to_local().element_size()
+                for x in cs._leaves(model.params))
+    say(f"[engine ranks] {cfg.name} {cfg.num_layers} layers made sharded in "
+        f"{time.perf_counter() - t0:.1f} s: {local / 1e9:.2f} GB of params on rank 0  "
+        f"[{env.card}]")
+    return model
+
+
+def part_qwen(env, mesh_shape):
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding import default_plan, rank_mesh
+    tag = "[engine ranks qwen]"
+    cfg = env.cfg(cs.SERVE_ARCH)
+    oracle = oracle_run(env, cfg, cs.SERVE_PROMPT_LENS, **QWEN_KW)
+    if rank() == 0:
+        m = oracle["metrics"]
+        say(f"{tag} one card (rank 0): TTFT mean {m['ttft_mean_s'] * 1e3:.1f} ms, TPOT mean "
+            f"{m['tpot_mean_s'] * 1e3:.2f} ms in {oracle['wall_s']:.2f} s  [{env.card}]")
+    mesh = rank_mesh(mesh_shape, device=env.device.type)
+    model = sharded_model(env, cfg, mesh, default_plan())
+    eng = ServingEngine(model, device=env.device, mesh=mesh, **QWEN_KW)
+    out = serve(env, eng, eng.submit, eng.step, cfg, cs.SERVE_PROMPT_LENS, oracle, True,
+                f"{tag} {mesh_shape}")
+    out["mesh"] = mesh_shape
+    del eng, model
+    env.free()
+    return out, oracle
+
+
+def part_pod(env, mesh_shape, oracle):
+    from repro_torch.core import Orchestrator
+    from repro_torch.serving import ServingCluster, ServingEngine
+    from repro_torch.sharding import default_plan, rank_mesh
+    tag = "[engine ranks pod]"
+    cfg = env.cfg(cs.SERVE_ARCH)
+    mesh = rank_mesh(mesh_shape, device=env.device.type)
+    plan = default_plan(multi_pod=True)
+    model = sharded_model(env, cfg, mesh, plan)
+    cluster = ServingCluster(mesh, device=env.device)
+    eng = ServingEngine(model, device=env.device, mesh=mesh, plan=plan, **QWEN_KW)
+    cluster.register("e0", eng)
+    swaps = []
+
+    def to_pod0():
+        t0 = time.perf_counter()
+        res = Orchestrator().submit(INTENT, apply_to=cluster)
+        fail(res.success, f"{tag} the intent did not validate: {res.report.summary()}")
+        rep = res.reports["e0"]
+        swaps.append(("to pod 0", rep, time.perf_counter() - t0, list(eng.ranks)))
+        verdict = cluster.verify_engine_collectives("e0")
+        say(f"{tag} intent {INTENT!r} -> plan pins {eng.plan.device_constraints}, forbids "
+            f"{eng.plan.forbidden_collective_axes}; engine on ranks {list(eng.ranks)}; "
+            f"validator: {verdict}  [{env.card}]")
+        fail(verdict is not None and not cluster._entries["e0"].quarantined,
+             f"{tag} the pinned plan's decode did not pass the validator")
+
+    def back():
+        t0 = time.perf_counter()
+        rep = cluster.reconfigure("e0", plan)
+        swaps.append(("back to all", rep, time.perf_counter() - t0, list(eng.ranks)))
+
+    out = serve(env, eng, cluster.submit, cluster.step, cfg, cs.SERVE_PROMPT_LENS, oracle,
+                True, f"{tag} {mesh_shape}",
+                events={POD_SWAPS[0]: to_pod0, POD_SWAPS[1]: back})
+    out["swaps"] = []
+    for name, rep, call_s, members in swaps:
+        downs = gather(rep.downtime_s)
+        say(f"{tag} swap {name}: ranks {members}, {rep.summary()}; downtime by rank (ms) "
+            f"{[round(d * 1e3, 1) for d in downs]}, max {max(downs) * 1e3:.1f} ms "
+            f"({'within' if max(downs) <= PAPER_DOWNTIME_S else 'over'} the paper's 50 ms); "
+            f"call {call_s:.2f} s  [{env.card}]")
+        out["swaps"].append({"name": name, "ranks": members, "prepare_s": rep.prepare_s,
+                             "downtime_s": rep.downtime_s, "downtime_s_by_rank": downs,
+                             "migrate_bytes": rep.migrate_bytes,
+                             "compiled": rep.compiled_in_prepare, "call_s": call_s})
+    out["pauses"] = len(swaps)
+    fail([s["ranks"] for s in out["swaps"]] == [[0, 1], list(range(int(np.prod(mesh_shape))))]
+         or int(np.prod(mesh_shape)) == 1, f"{tag} the swaps did not land on pod 0 and back")
+    del cluster, eng, model
+    env.free()
+    return out
+
+
+def part_jamba(env, mesh_shape, whole: bool):
+    from repro_torch.serving import ServingEngine
+    from repro_torch.sharding import default_plan, rank_mesh
+    out = {}
+    mesh = rank_mesh(mesh_shape, device=env.device.type)
+    # reduced: one period held to the card, two periods for "whole"
+    half = env.cfg(cs.HYBRID_ARCH, None if env.reduced else cs.HYBRID_SERVE_LAYERS)
+    whole_cfg = env.cfg(cs.HYBRID_ARCH, 16 if env.reduced else None)
+    lens = (17, 100, 255, 256) if env.reduced else cs.SSM_PROMPT_LENS
+    for tag, cfg, hold in (("[engine ranks jamba half]", half, True),
+                           ("[engine ranks jamba whole]", whole_cfg, False)):
+        if not hold and not whole:
+            say(f"{tag} skipped: {cfg.num_layers} layers need the four cards")
+            continue
+        oracle = oracle_run(env, cfg, lens, **JAMBA_KW) if hold else None
+        model = sharded_model(env, cfg, mesh, default_plan())
+        eng = ServingEngine(model, device=env.device, mesh=mesh, **JAMBA_KW)
+        res = serve(env, eng, eng.submit, eng.step, cfg, lens, oracle, hold,
+                    f"{tag} {cfg.num_layers} layers {mesh_shape}")
+        if env.cuda:
+            want = cs.launches_per_prefill(cfg, len(lens))
+            say(f"{tag} launches on rank 0 {res['launches']} (want {want}: "
+                f"{ {k: v // len(lens) for k, v in want.items()} } a prefill)  [{env.card}]")
+            fail(res["launches"] == want, f"{tag} launches {res['launches']} != {want}")
+            fail(max(res["peak_gb_by_rank"]) * 1e9 < CARD_BYTES,
+                 f"{tag} a rank's peak is over 80 GB")
+        out["half" if hold else "whole"] = res
+        del eng, model
+        env.free()
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--reduced", action="store_true", help="the reduced fp32 configs")
+    ap.add_argument("--parts", default="qwen,pod,jamba")
+    args = ap.parse_args(argv)
+    import torch
+    import torch.distributed as dist
+    if args.device == "cuda":
+        fail(torch.cuda.is_available(), "no CUDA device")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group("nccl", timeout=timedelta(seconds=600),
+                                device_id=torch.device("cuda", torch.cuda.current_device()))
+    else:
+        torch.set_num_threads(2)
+        dist.init_process_group("gloo", timeout=timedelta(seconds=600))
+    world = dist.get_world_size()
+    fail(world in (1, 4), f"{world} ranks: run on 4 (or 1 to try the code on one card)")
+    t_start = time.perf_counter()
+    args.card = "cpu"
+    if args.device == "cuda":
+        import subprocess
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader", "-i", str(torch.cuda.current_device())],
+                             capture_output=True, text=True, check=True).stdout.strip()
+        args.card = smi
+        say(f"[engine ranks] {world} ranks; rank 0's card: {smi}; torch {torch.__version__} "
+            f"CUDA {torch.version.cuda}")
+        if rank() == 0:         # one build of the kernels, then every rank loads it
+            cs.phase_build()
+        dist.barrier()
+    env = Env(args)
+    one = world == 1
+    qwen_mesh = (1, 1, 1) if one else (1, 2, 2)
+    pod_mesh = (1, 1, 1) if one else (2, 2, 1)
+    parts = args.parts.split(",")
+    out, oracle = {"world": world, "card": args.card}, None
+    if "qwen" in parts or "pod" in parts:
+        out["qwen"], oracle = part_qwen(env, qwen_mesh)
+    if "pod" in parts:
+        out["pod"] = part_pod(env, pod_mesh, oracle)
+    del oracle
+    env.free()
+    if "jamba" in parts:
+        out["jamba"] = part_jamba(env, qwen_mesh, whole=not one)
+    out["seconds"] = time.perf_counter() - t_start
+    say(f"[engine ranks] done in {out['seconds']:.1f} s  [{args.card}]")
+    if rank() == 0:
+        cs.OUT.mkdir(exist_ok=True)
+        (cs.OUT / "engine_ranks.json").write_text(json.dumps(out, indent=1, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
