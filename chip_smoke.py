@@ -536,6 +536,7 @@ def phase_kernels(card):
     for tag, (S, Hq, Hkv) in (("jamba", (1000, 32, 8)), ("qwen2vl", (384, 12, 2))):
         flash_times[tag] = _flash_timed(gen, S, Hq, Hkv, card, tag)
     flash_times["nemotron"] = _flash_timed(gen, 384, 96, 8, card, "nemotron", D=192)
+    flash_shards = _tp_flash_shards(gen, card)
     t = flash_times[384]
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -545,7 +546,8 @@ def phase_kernels(card):
                  "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                  "eager_ms": t["eager_ms"], "shape": "B=1 S=384 Hq=Hkv=16 D=128 bf16 causal",
                  "eager_direct_ms": t["eager_direct_ms"],
-                 "other_shapes": [flash_times[k] for k in ("jamba", "qwen2vl", "nemotron")]})
+                 "other_shapes": [flash_times[k] for k in ("jamba", "qwen2vl", "nemotron")],
+                 "tp_shards": flash_shards})
 
     # -- MoE top-k: compare ------------------------------------------------
     # every (E, k) of the repo's MoE configs, fp32 and bf16 logits; T from
@@ -658,6 +660,7 @@ def phase_kernels(card):
         say(f"[kernels] ssd_scan time S={S} H={H} P=64 N={N} chunk=256 bf16: " + ", ".join(
             f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
             for k, v in ssd_times[key].items() if k != "shape") + f"  [{card}]")
+    ssd_shards = _tp_ssd_shards(gen, card)
     t = ssd_times[1000]
     rows.append({"name": "ssd_scan", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -667,9 +670,95 @@ def phase_kernels(card):
                  "bound_by": t["bound_by"], "library_ms": None,
                  "eager_ms": t["eager_ms"], "eager_direct_ms": t["eager_direct_ms"],
                  "shape": "B=1 S=1000 H=32 G=1 P=64 N=128 chunk=256 bf16",
-                 "other_shapes": [ssd_times["jamba"]]})
+                 "other_shapes": [ssd_times["jamba"]], "tp_shards": ssd_shards})
     return rows, {"flash": flash_times, "moe_topk": mt, "ssd_scan": ssd_times,
-                  "launch_floor": floor}
+                  "launch_floor": floor, "tp_shards": {"flash": flash_shards,
+                                                       "ssd_scan": ssd_shards}}
+
+
+#: a tensor-parallel rank's heads (`lm.tp_groups`) over a model axis of 2:
+#: flash at Qwen's S=384 (16 over 16 heads -> 8 over 8) and Jamba's S=1000
+#: (32 over 8 -> 16 over 4); the scan at Mamba2's S=1000 (32 heads -> 16)
+TP_FLASH_SHARDS = (("qwen", 384, 16, 16, 2), ("jamba", 1000, 32, 8, 2))
+TP_SSD_SHARDS = (("mamba2", 1000, 32, 128, 2),)
+
+
+def _tp_flash_shards(gen, card):
+    """Flash on each rank's q heads and the K/V heads they read equals that
+    slice of the whole call bit for bit (heads are independent), fp32 and
+    bf16; the bf16 slice timed as the whole call is (`_flash_timed`)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    out = []
+    for tag, S, Hq, Hkv, tp in TP_FLASH_SHARDS:
+        hq, hkv = Hq // tp, Hkv // tp
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_case(gen, 1, S, Hq, Hkv, 128, dtype)
+            whole = ops.flash_attention(q, k, v, causal=True)
+            for r in range(tp):
+                part = ops.flash_attention(q[:, :, r * hq:(r + 1) * hq].contiguous(),
+                                           k[:, :, r * hkv:(r + 1) * hkv].contiguous(),
+                                           v[:, :, r * hkv:(r + 1) * hkv].contiguous(),
+                                           causal=True)
+                torch.cuda.synchronize()
+                same = torch.equal(part, whole[:, :, r * hq:(r + 1) * hq])
+                say(f"[kernels] flash tp shard {tag} S={S} Hq={Hq}->{hq} Hkv={Hkv}->{hkv} "
+                    f"rank {r} of {tp} {dtype}: the whole call's slice bit for bit "
+                    f"{'ok' if same else 'FAIL'}")
+                check(same, f"flash on rank {r}'s heads is not the whole call's slice "
+                            f"({tag}, {dtype})")
+        t = _flash_timed(gen, S, hq, hkv, card, f"{tag} tp shard 1 of {tp}")
+        q, k, v = _flash_case(gen, 1, S, hq, hkv, 128, torch.bfloat16)
+        ok, t["max_abs_err"] = within(ops.flash_attention(q, k, v, causal=True),
+                                      ref.flash_attention_ref(q, k, v, causal=True),
+                                      FLASH_TOL["bfloat16"])
+        check(ok, f"flash on a rank's heads disagrees with its plain version ({tag})")
+        t["whole"] = f"Hq={Hq} Hkv={Hkv}"
+        out.append(t)
+    return out
+
+
+def _tp_ssd_shards(gen, card):
+    """The scan on each rank's SSM heads (B and C whole: one group) equals
+    that slice of the whole call's output and final state bit for bit, fp32
+    and bf16; the bf16 slice timed, with its plain version and bound."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    out = []
+    for tag, S, H, N, tp in TP_SSD_SHARDS:
+        h = H // tp
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, A, Bm, Cm = _ssd_case(gen, 1, S, H, 1, 64, N, dtype)
+            y, state = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=256)
+            for r in range(tp):
+                cut = slice(r * h, (r + 1) * h)
+                y_r, s_r = ops.ssd_scan(x[:, :, cut].contiguous(), dt[:, :, cut].contiguous(),
+                                        A[cut].contiguous(), Bm, Cm, chunk=256)
+                torch.cuda.synchronize()
+                same = torch.equal(y_r, y[:, :, cut]) and torch.equal(s_r, state[:, cut])
+                say(f"[kernels] ssd_scan tp shard {tag} S={S} H={H}->{h} rank {r} of {tp} "
+                    f"{dtype}: the whole call's slice (y and state) bit for bit "
+                    f"{'ok' if same else 'FAIL'}")
+                check(same, f"ssd_scan on rank {r}'s heads is not the whole call's slice "
+                            f"({tag}, {dtype})")
+        inp = _ssd_case(gen, 1, S, h, 1, 64, N, torch.bfloat16)
+        kernel = lambda: ops.ssd_scan(*inp, chunk=256)  # noqa: E731
+        t = {"shape": f"B=1 S={S} H={h} (of {H}) G=1 P=64 N={N} chunk=256 bf16",
+             "ms": time_ms(kernel),
+             "plain_ms": time_ms(lambda: ref.ssd_scan_ref(*inp, chunk=256)),
+             "library_ms": None}
+        ok, t["max_abs_err"] = within(kernel()[0], ref.ssd_scan_ref(*inp, chunk=256)[0],
+                                      SSD_TOL["bfloat16"][0])
+        check(ok, f"ssd_scan on a rank's heads disagrees with its plain version ({tag})")
+        t["bound_ms"], t["bound_by"] = bound(*ssd_work(1, S, h, 1, 64, N, 256, 2), "bfloat16")
+        say(f"[kernels] ssd_scan time {tag} tp shard 1 of {tp} S={S} H={h} P=64 N={N} "
+            f"chunk=256 bf16: " + ", ".join(
+                f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                for k, v in t.items() if k != "shape") + f"  [{card}]")
+        out.append(t)
+    return out
 
 
 @contextlib.contextmanager

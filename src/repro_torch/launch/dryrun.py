@@ -8,7 +8,9 @@ RUNS each cell's step once on rank 0 of a fake world of 256 or 512 ranks
 devices, no memory, no arithmetic), under the counters of `launch.cost`.
 The step is the one a card runs: the model, the plan and the sharded
 builders of `launch.steps` (ZeRO-3 storage, data parallel over the batch
-axes, each layer gathered whole), with the stand-ins of
+axes; serving tensor-parallel over the model axis, each sub-layer whose dim
+divides it on its shard, the others gathered whole, as the record's ``tp``
+counts show; a train step gathers each layer whole), with the stand-ins of
 `launch.steps.{param,batch,decode}_struct` placed under the plan's specs as
 each rank's shards. The kernels are custom ops whose fake implementations
 give their output shapes after the card's own argument checks
@@ -28,7 +30,8 @@ hlo_bytes_per_device}`` (by the reference's HLO conventions, over the
 eager step's ops), ``collectives.{n, by_kind, wire_bytes_by_axis,
 wire_bytes_per_device}``, ``roofline.*`` (the H100's figures; each axis's
 wire bytes over the link its groups cross), ``params``, ``plan``,
-``accum_steps``; and ``kernel_calls``, ``links``, ``wall_s``. A cell that
+``accum_steps``; and ``kernel_calls``, ``tp`` (`ctx.tp_counts`), ``links``,
+``wall_s``. A cell that
 raises is recorded with ``"status": "error"`` and its reason, as the
 reference records one: the sweep is a survey.
 """
@@ -212,10 +215,11 @@ def count_step(inputs: StepInputs, args: Tuple[Any, ...], mesh) -> Dict[str, Any
     ``args``; returns the counter's summary."""
     cost = StepCost(mesh)
     cost.add_arguments(args)
+    ctx.reset_tp_counts()
     with cost:
         out = inputs.step(*args)
     del out
-    return cost.summary()
+    return {**cost.summary(), "tp": ctx.tp_counts()}
 
 
 def dry_run_step(inputs: StepInputs, mesh, device: torch.device) -> Dict[str, Any]:
@@ -278,6 +282,9 @@ def record_of(counts: Dict[str, Any], cfg: ModelConfig, cell: ShapeCell,
                      "roofline_fraction": compute_s / max(lower, 1e-30)},
         "params": {"total": cfg.param_count(), "active": cfg.active_param_count()},
         "kernel_calls": counts["kernel_calls"],
+        # serving's tensor-parallel sub-layers: on their model-axis shard,
+        # or gathered whole where their dim does not divide the axis
+        "tp": counts.get("tp", {}),
     }
 
 

@@ -12,15 +12,23 @@ builders place inputs and outputs under a plan's placements, and the steps
 run eagerly.
 
 The compute layout (the reference leaves it to its compiler): ZeRO-3
-storage and data parallelism over the batch axes. Each rank runs its own
-batch rows over parameters gathered to plain tensors: a layer at a time in
-prefill and decode (`lm.layer_params`, `lm.unstack`), the whole tree for a
-train step's forward and backward. So the model code and the kernels see
-plain tensors only. Gradients come back to the params' placements by a
-reduce-scatter over the batch axes (``shard_grads``) or an all-reduce, and
-AdamW updates each rank's shards, clipping by the global norm. The loss is
-the global masked mean: each rank divides its sum by the mask count over
-every rank's rows.
+storage and data parallelism over the batch axes, and in serving tensor
+parallelism over the plan's tensor axis. Each rank runs its own batch rows
+over plain tensors, so the model code and the kernels see plain tensors
+only. Prefill and decode gather a layer at a time over the FSDP axes only
+and keep each tensor-axis shard local (`lm.layer_params` with the groups
+of `lm.tp_groups`: heads, ``d_ff`` columns, experts, SSM heads, the vocab),
+summing the partial outputs over the tensor axis at each residual add, the
+embedding's masked lookup and nowhere else; a group whose dim does not
+divide the axis runs gathered whole, and is counted so (`ctx.note_tp`).
+The logits leave as this rank's vocab columns, with no gather, and a cache
+leaf the tensor axis shards (an SSM state's heads and channels) is used in
+place. A train step gathers the whole tree for its forward and backward
+(the enc-dec stacks are gathered whole in serving too). Gradients come back
+to the params' placements by a reduce-scatter over the batch axes
+(``shard_grads``) or an all-reduce, and AdamW updates each rank's shards,
+clipping by the global norm. The loss is the global masked mean: each rank
+divides its sum by the mask count over every rank's rows.
 
 ``batch_struct``, ``decode_struct`` and ``param_struct`` give the inputs of
 a shape cell as meta tensors (shapes and dtypes, no memory): the stand-ins
@@ -33,8 +41,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch import tree as tree_util
-from repro_torch.models import Model
-from repro_torch.models.common import torch_dtype
+from repro_torch.models import Model, lm
+from repro_torch.models.common import padded_vocab, torch_dtype
 from repro_torch.optim import AdamW
 from repro_torch.sharding import ctx
 from repro_torch.sharding.plan import (
@@ -343,10 +351,25 @@ def jit_train_step(model: Model, optimizer: AdamW, mesh: Mesh, plan: ShardingPla
     return train_step
 
 
-def _serving_params(params: Tree) -> Tree:
-    """The leaves outside the layer stacks gathered whole; the stacks stay
-    sharded, gathered a layer at a time as the model reaches them."""
-    return {k: v if k in STACKED else ctx.full_tree(v) for k, v in params.items()}
+def _serving_params(cfg, params: Tree) -> Tree:
+    """The leaves outside the layer stacks gathered whole, but the
+    embedding and the LM head, which keep this rank's vocab shard where
+    the vocab runs local (`lm.tp_groups`); the stacks stay sharded, cut a
+    layer at a time as the model reaches them. Called inside the step's
+    `ctx.activation_sharding`."""
+    vocab = cfg.encdec is None and lm.tp_groups(cfg)["vocab"]
+    axis = ctx.tp_axis()
+    return {k: v if k in STACKED else
+            ctx.local_of(v, axis) if vocab and k in ("embed", "lm_head") else ctx.full_tree(v)
+            for k, v in params.items()}
+
+
+def _tp_keys(cfg) -> Tuple[Optional[str], frozenset]:
+    """The tensor axis of the current step and the cache keys it keeps as
+    this rank's shard (`lm.tp_cache_local`); inside the step's context."""
+    if cfg.encdec is not None:
+        return None, frozenset()
+    return ctx.tp_axis(), lm.tp_cache_local(cfg, lm.tp_groups(cfg))
 
 
 def _logits_sharding(mesh: Mesh, plan: ShardingPlan, cell) -> LeafSharding:
@@ -354,10 +377,25 @@ def _logits_sharding(mesh: Mesh, plan: ShardingPlan, cell) -> LeafSharding:
     return leaf_sharding(mesh, P(b_ax, plan.tp if plan.shard_vocab else None))
 
 
-def _cache_out(local: Tree, csh: Tree, batch: int) -> Tree:
-    """Each rank's cache rows (batch on axis 1) as DTensors under ``csh``."""
-    return {k: ctx.from_rows(v, csh[k], (v.shape[0], batch) + tuple(v.shape[2:]), dim=1)
-            for k, v in local.items()}
+def _logits_out(logits: torch.Tensor, lsh: LeafSharding, B: int, v_pad: int,
+                axis: Optional[str]) -> Any:
+    """Each rank's logits rows (all its vocab columns, or its shard of them)
+    as a DTensor under ``lsh``."""
+    keep = (axis,) if axis is not None and logits.shape[1] < v_pad else ()
+    return ctx.from_rows(logits, lsh, (B, v_pad), dim=0, keep=keep)
+
+
+def _cache_out(local: Tree, csh: Tree, batch: int, axis: Optional[str] = None,
+               kept: frozenset = frozenset()) -> Tree:
+    """Each rank's cache rows (batch on axis 1) as DTensors under ``csh``;
+    the leaves in ``kept`` hold this rank's shard of mesh axis ``axis``."""
+    out = {}
+    for k, v in local.items():
+        keep = (axis,) if k in kept else ()
+        shape = list(ctx.full_shape(v.shape, csh[k], keep))
+        shape[1] = batch
+        out[k] = ctx.from_rows(v, csh[k], tuple(shape), dim=1, keep=keep)
+    return out
 
 
 def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
@@ -368,21 +406,24 @@ def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
     bsh = named(mesh, batch_specs(model.cfg, plan, cell))
     csh = named(mesh, cache_specs(model.cfg, plan, batch=cell.global_batch))
     lsh = _logits_sharding(mesh, plan, cell)
+    v_pad = padded_vocab(model.cfg.vocab_size)
 
     def prefill(params: Tree, batch: Dict[str, Any]):
         check_even(params, psh, "params")
         check_even({k: v for k, v in batch.items() if k in bsh}, bsh, "batch")
-        params = _serving_params(ctx.place_tree(params, psh))
+        params = ctx.place_tree(params, psh)
         placed = {k: ctx.place(v, bsh[k]) if k in bsh else v for k, v in batch.items()}
         B = placed["tokens"].shape[0]
         row_axes = _row_axes(mesh, placed["tokens"], 0)
         _check_rows(mesh, row_axes, B, "a prefill batch")
         local = {k: ctx.local_rows(v, _batch_dim(k)) if k in bsh else v
                  for k, v in placed.items()}
-        with torch.no_grad(), ctx.activation_sharding(mesh, plan, row_axes=row_axes):
-            logits, cache = model.prefill(local, params=params)
-        return (ctx.from_rows(logits, lsh, (B, logits.shape[1]), dim=0),
-                _cache_out(cache, csh, B))
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, row_axes=row_axes,
+                                                      tensor_parallel=True):
+            axis, kept = _tp_keys(model.cfg)
+            logits, cache = model.prefill(local, params=_serving_params(model.cfg, params))
+        return (_logits_out(logits, lsh, B, v_pad, axis),
+                _cache_out(cache, csh, B, axis, kept))
 
     return prefill
 
@@ -390,31 +431,37 @@ def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
 def jit_decode_step(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
     """``(params, tokens (B, 1), cache, pos) -> (logits, cache)`` under
     ``plan`` on ``mesh``, all as DTensors under their specs (``pos``
-    replicated). A cache placed by its rows alone is written in place; one
-    whose other dims shard too (the SSM state over the tensor axis, K/V
-    over a sequence axis) is gathered to the rank's rows for the step and
-    cut back after."""
+    replicated). A cache placed by its rows alone, or by its rows and the
+    tensor axis where the step keeps that shard (an SSM state whose heads
+    run local), is written in place; one whose other dims shard too (K/V
+    over a sequence axis, an SSM state whose heads run gathered) is
+    gathered to the rank's rows for the step and cut back after."""
     psh = named(mesh, param_specs(model.cfg, plan))
     csh = named(mesh, cache_specs(model.cfg, plan, batch=cell.global_batch))
     b_ax = plan.batch_axes if cell.global_batch > 1 else None
     tsh = leaf_sharding(mesh, P(b_ax, None))
     lsh = _logits_sharding(mesh, plan, cell)
+    v_pad = padded_vocab(model.cfg.vocab_size)
 
     def decode(params: Tree, tokens: torch.Tensor, cache: Tree, pos):
         check_even(params, psh, "params")
         check_even(tokens, tsh, "tokens")
         check_even(cache, csh, "cache")
-        params = _serving_params(ctx.place_tree(params, psh))
+        params = ctx.place_tree(params, psh)
         tokens = ctx.place(tokens, tsh)
         cache = ctx.place_tree(cache, csh)
         B = tokens.shape[0]
         row_axes = _row_axes(mesh, tokens, 0)
         _check_rows(mesh, row_axes, B, "a decode batch")
-        local = {k: ctx.local_rows(v, 1) for k, v in cache.items()}
-        with torch.no_grad(), ctx.activation_sharding(mesh, plan, row_axes=row_axes):
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, row_axes=row_axes,
+                                                      tensor_parallel=True):
+            axis, kept = _tp_keys(model.cfg)
+            local = {k: ctx.local_rows(v, 1, keep=(axis,) if k in kept else ())
+                     for k, v in cache.items()}
             logits, local = model.decode_step(ctx.local_rows(tokens, 0), local,
-                                              ctx.full(pos), params=params)
-        return (ctx.from_rows(logits, lsh, (B, logits.shape[1]), dim=0),
-                _cache_out(local, csh, B))
+                                              ctx.full(pos),
+                                              params=_serving_params(model.cfg, params))
+        return (_logits_out(logits, lsh, B, v_pad, axis),
+                _cache_out(local, csh, B, axis, kept))
 
     return decode

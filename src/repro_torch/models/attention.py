@@ -19,6 +19,14 @@ Modes:
             the new entry into the cache IN PLACE and attends over it in
             plain ops (the reference has no decode kernel either); MLA in the
             absorbed form
+
+In a tensor-parallel serving step (`sharding.ctx.tp`), a layer whose
+projections are this rank's head shards (`lm.tp_groups`; read off their
+widths) attends over its own q heads and the K/V heads they read, and
+returns its partial output projection, which the layer sums over the
+tensor axis. The cache stays whole over that axis, as the reference's
+specs keep it: new K/V heads computed on their shards are gathered before
+they are written.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import flash_attention_ref
 from repro_torch.models.common import apply_rope, mrope_cos_sin, rmsnorm, rope_cos_sin
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import constrain
 
 Cache = Dict[str, torch.Tensor]
@@ -148,7 +157,8 @@ def gqa_attention(
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    # this rank's q and K/V heads: all of them, or its shard (`lm.tp_groups`)
+    hq, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     q = (x @ p["wq"]).reshape(B, S, hq, hd)
     k = (x @ p["wk"]).reshape(B, S, hkv, hd)
     v = (x @ p["wv"]).reshape(B, S, hkv, hd)
@@ -157,6 +167,16 @@ def gqa_attention(
     if cs is not None:
         q = apply_rope(q, *cs)
         k = apply_rope(k, *cs)
+    # the K/V heads the rank's q heads read: [k0, k1) of the cache's heads;
+    # K/V computed on their shards are gathered whole for the cache
+    k0, k1 = _kv_heads_read(cfg, hq, hkv)
+    if hkv < cfg.num_kv_heads:
+        k_own, v_own = k, v
+        k, v = ctx.tp_gather(k, 2), ctx.tp_gather(v, 2)
+    elif hq < cfg.num_heads:
+        k_own, v_own = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+    else:
+        k_own, v_own = k, v
 
     scale = hd ** -0.5
     if mode == "train":
@@ -164,7 +184,7 @@ def gqa_attention(
         out = _train_attn(q, k, v, scale=scale, causal=causal)
     elif mode == "prefill":
         new_cache = {"k": k, "v": v}
-        out = _full_attn(q, k, v, scale=scale, causal=causal)
+        out = _full_attn(q, k_own, v_own, scale=scale, causal=causal)
     elif mode == "decode":
         if cache is None or pos is None or S != 1:
             raise ValueError("decode needs a cache, a position and one token per row")
@@ -179,12 +199,28 @@ def gqa_attention(
             k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
             v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
         new_cache = cache
+        if (k0, k1) != (0, k_cache.shape[2]):
+            k_cache, v_cache = k_cache[:, :, k0:k1], v_cache[:, :, k0:k1]
         out = sdpa(q, k_cache, v_cache, scale=scale, causal=False, kv_len=pos + 1)
     else:
         raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
 
     out = out.reshape(B, S, hq * hd) @ p["wo"]
     return out, new_cache
+
+
+def _kv_heads_read(cfg: ModelConfig, hq: int, hkv: int) -> Tuple[int, int]:
+    """The ``[k0, k1)`` of the K/V heads this rank's ``hq`` q heads read
+    (GQA maps q head ``h`` to K/V head ``h // (Hq / Hkv)``): every head
+    unless the q heads are the rank's shard of the tensor axis."""
+    if hq == cfg.num_heads:
+        return 0, cfg.num_kv_heads
+    n, r = ctx.tp()
+    group = cfg.num_heads // cfg.num_kv_heads
+    if hkv < cfg.num_kv_heads:
+        return r * hkv, (r + 1) * hkv
+    k0 = r * hq // group
+    return k0, (r * hq + hq - 1) // group + 1
 
 
 # ---------------------------------------------------------------------------
@@ -252,12 +288,19 @@ def mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], object]]:
     }
 
 
+def _mla_heads(cfg: ModelConfig, p: dict) -> int:
+    """This rank's MLA heads: all of them, or its shard of the tensor axis
+    (``w_uk``'s width, `lm.tp_groups`)."""
+    m = cfg.mla or MLAConfig()
+    return p["w_uk"].shape[1] // m.qk_nope_head_dim
+
+
 def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
     m = cfg.mla or MLAConfig()
     B, S, _ = x.shape
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     q_lat = rmsnorm(x @ p["w_dq"], p["q_norm"]["scale"], cfg.norm_eps)
-    q = (q_lat @ p["w_uq"]).reshape(B, S, cfg.num_heads, qk_head)
+    q = (q_lat @ p["w_uq"]).reshape(B, S, _mla_heads(cfg, p), qk_head)
     q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_pe, cos, sin)
 
@@ -275,7 +318,7 @@ def _mla_expand(cfg: ModelConfig, p: dict, q_nope, q_pe, ckv, kpe):
     the latent, and Q as (nope | rope)."""
     m = cfg.mla or MLAConfig()
     B, S = ckv.shape[:2]
-    hq = cfg.num_heads
+    hq = _mla_heads(cfg, p)
     k_nope = (ckv @ p["w_uk"]).reshape(B, S, hq, m.qk_nope_head_dim)
     v = (ckv @ p["w_uv"]).reshape(B, S, hq, m.v_head_dim)
     k = torch.cat([k_nope, kpe[:, :, None, :].expand(B, S, hq, m.qk_rope_head_dim)], dim=-1)
@@ -301,7 +344,7 @@ def mla_attention(
     ``R + Dr``-wide cache directly (no per-step K/V re-expansion)."""
     m = cfg.mla or MLAConfig()
     B, S, _ = x.shape
-    hq = cfg.num_heads
+    hq = _mla_heads(cfg, p)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     # rotary over the whole qk_rope_head_dim
     cos, sin = rope_cos_sin(positions, m.qk_rope_head_dim, cfg.rope_theta)

@@ -34,6 +34,7 @@ from repro_torch.models.common import (
     sinusoidal_positions,
 )
 from repro_torch.models.lm import Cache, Leaf, Params
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import constrain
 
 
@@ -171,6 +172,7 @@ def decode_stack(
 
     per_layer = []
     for i, lp in enumerate(lm.unstack(params["dec_layers"])):
+        ctx.note_tp("encdec", False)     # gathered whole in serving (no TP yet)
         if mode == "decode":
             x, _, _ = layer(x, lp, {k: cache[f"self/{k}"][i] for k in "kv"},
                             {k: cache[f"cross/{k}"][i] for k in "kv"})

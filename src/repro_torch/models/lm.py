@@ -38,6 +38,7 @@ from repro_torch.models.common import (
     param_dtype_of,
     vocab_mask,
 )
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import batch_sum, constrain, is_dtensor, layer_slice
 
 Params = Dict[str, Any]
@@ -253,11 +254,130 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     return init_layout(param_layout(cfg), gen, device=device)
 
 
-def layer_params(layers: Params, i: int) -> Params:
+def layer_params(layers: Params, i: int, local: frozenset = frozenset(),
+                 axis: Optional[str] = None, path: str = "") -> Params:
     """Layer ``i``'s slice of the stacked layer tree: views, no copies; a
-    DTensor leaf gathers that layer's shards alone (`ctx.layer_slice`)."""
-    return {k: (layer_params(v, i) if isinstance(v, dict) else layer_slice(v, i))
-            for k, v in layers.items()}
+    DTensor leaf gathers that layer's shards alone (`ctx.layer_slice`), or,
+    where its path is in ``local``, keeps this rank's shard of mesh axis
+    ``axis`` and gathers the others (`ctx.layer_local`)."""
+    out = {}
+    for k, v in layers.items():
+        sub = f"{path}/{k}" if path else k
+        if isinstance(v, dict):
+            out[k] = layer_params(v, i, local, axis, sub)
+        elif sub in local:
+            out[k] = ctx.layer_local(v, i, axis)
+        else:
+            out[k] = layer_slice(v, i)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism in serving
+# ---------------------------------------------------------------------------
+
+#: each tensor-parallel group's leaves (the tensor-axis-sharded leaves of
+#: the reference's spec trees, `sharding.plan`), by the sub-layer kind
+TP_LEAVES = {
+    "attn": ("mixer", ("wq", "wo")),
+    "attn_kv": ("mixer", ("wk", "wv")),
+    "mla": ("mixer", ("w_uq", "w_uk", "w_uv", "wo")),
+    "ssm": ("mixer", ("w_z", "w_x", "w_dt", "conv_x_w", "conv_x_b", "dt_bias", "A_log",
+                      "D", "norm_scale", "out_proj")),
+    "mlp": ("ffn", ("w_up", "w_gate", "w_down")),
+    "experts": ("ffn", ("w_up", "w_gate", "w_down")),
+    "shared": ("ffn/shared", ("w_up", "w_gate", "w_down")),
+}
+
+
+def tp_groups(cfg: ModelConfig) -> Dict[str, bool]:
+    """Which tensor-parallel groups of a serving step run on this rank's
+    shard of the tensor axis (`ctx.tp`) and which gather whole, by the
+    reference's divisibility rule: a group runs on its shard when the dim
+    it splits divides by the axis's extent. Every group is False where no
+    tensor axis splits the step.
+
+      * ``attn``: the q heads (``wq`` columns, ``wo`` rows) when the plan
+        shards heads and ``num_heads`` divides; ``attn_kv``: the K/V heads
+        too, when ``num_kv_heads`` divides as well (otherwise K/V are
+        computed whole, and each rank's q heads must read one K/V head:
+        the extent a multiple of the K/V heads);
+      * ``mla``: MLA's heads (``w_uq``/``w_uk``/``w_uv`` columns, ``wo``
+        rows), the latent whole;
+      * ``ssm``: the SSM heads (one group of B/C, `ssm.ssm_dims`);
+      * ``mlp`` / ``shared``: the ``d_ff`` (``d_shared``) columns and rows;
+      * ``experts``: the experts, when the expert axis is the tensor axis;
+      * ``vocab``: the embedding's rows and the LM head's columns.
+    """
+    n, _ = ctx.tp()
+    names = ("attn", "attn_kv", "mla", "ssm", "mlp", "experts", "shared", "vocab")
+    if n == 1:
+        return {k: False for k in names}
+    plan = ctx.current()[1]
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    heads = plan.shard_attn_heads and hq > 0 and hq % n == 0
+    kv = heads and hkv > 0 and hkv % n == 0
+    out = {"attn": heads and (kv or n % hkv == 0), "attn_kv": kv, "mla": heads,
+           "ssm": False, "mlp": cfg.d_ff > 0 and cfg.d_ff % n == 0,
+           "experts": False, "shared": False,
+           "vocab": plan.shard_vocab and padded_vocab(cfg.vocab_size) % n == 0}
+    if cfg.ssm is not None:
+        _, H, _, _, _ = ssd.ssm_dims(cfg)
+        out["ssm"] = cfg.ssm.n_groups == 1 and H % n == 0
+    if cfg.moe is not None:
+        m = cfg.moe
+        out["experts"] = (plan.ep_axis == plan.tp_axis
+                          and ffn.padded_experts(m.num_experts) % n == 0)
+        out["shared"] = bool(m.num_shared_experts) and m.d_shared % n == 0
+    return out
+
+
+def _local_paths(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
+    """The layer-tree paths (``[pos{off}/]mixer/wq`` ...) of the leaves the
+    groups that run on their shard keep local."""
+    out = set()
+    for pre, (mixer, f) in zip(sub_prefixes(cfg), layer_kinds(cfg)):
+        names = [mixer] + (["attn_kv"] if mixer == "attn" else [])
+        names += {"mlp": ["mlp"], "moe": ["experts", "shared"], "none": []}[f]
+        for g in names:
+            if groups[g]:
+                sub, leaves = TP_LEAVES[g]
+                out.update(f"{pre}{sub}/{leaf}" for leaf in leaves)
+    return frozenset(out)
+
+
+def _note_layer(cfg: ModelConfig, kind, groups: Dict[str, bool]) -> Tuple[bool, bool]:
+    """Count one sub-layer's groups (`ctx.note_tp`); returns whether its
+    mixer's and its ffn's outputs are partial sums over the tensor axis."""
+    mixer, f = kind
+    ctx.note_tp(mixer, groups[mixer])
+    if mixer == "attn":
+        ctx.note_tp("attn_kv", groups["attn_kv"])
+    if f == "mlp":
+        ctx.note_tp("mlp", groups["mlp"])
+        return groups[mixer], groups["mlp"]
+    if f == "moe":
+        ctx.note_tp("experts", groups["experts"])
+        if cfg.moe.num_shared_experts:
+            ctx.note_tp("shared", groups["shared"])
+        return groups[mixer], groups["experts"] or (bool(cfg.moe.num_shared_experts)
+                                                     and groups["shared"])
+    return groups[mixer], False
+
+
+def _embed_lookup(params: Params, tokens: torch.Tensor, v_pad: int) -> torch.Tensor:
+    """The embedding rows of ``tokens``. An embedding whose vocab rows this
+    rank holds a shard of (fewer rows than ``v_pad``) looks up the tokens
+    in its range, zero elsewhere, and sums over the tensor axis: each
+    token's row comes from the one rank that holds it, exactly."""
+    emb = params["embed"]
+    n_local = emb.shape[0]
+    if n_local == v_pad:
+        return emb[tokens]
+    idx = tokens.long() - ctx.tp()[1] * n_local
+    inside = (idx >= 0) & (idx < n_local)
+    rows = emb[idx.clamp(0, n_local - 1)] * inside[..., None].to(emb.dtype)
+    return ctx.tp_sum(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -314,9 +434,12 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
+def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, False)):
     """One sub-layer: returns (x, its new cache (None in train mode), its
-    MoE aux loss (None unless a train-mode MoE layer))."""
+    MoE aux loss (None unless a train-mode MoE layer)). ``partial``: whether
+    the mixer's and the ffn's outputs are this rank's partial sums over the
+    tensor axis (`tp_groups`); each is then summed over the axis once, at
+    its residual add."""
     mixer, f = kind
     h = apply_norm(cfg, p["mixer_norm"], x)
     if mixer == "ssm":
@@ -327,6 +450,8 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
     else:
         out, new_cache = attn.gqa_attention(
             cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
+    if partial[0]:
+        out = ctx.tp_sum(out)
     x = x + constrain(out, "batch", "sp" if mode == "train" else None, None)
     if f == "none":
         return x, new_cache, None
@@ -337,6 +462,8 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos):
                                want_aux=(mode == "train"))
     else:
         out = ffn.mlp(cfg, p["ffn"], h)
+    if partial[1]:
+        out = ctx.tp_sum(out)
     return x + constrain(out, "batch", "sp" if mode == "train" else None, None), new_cache, aux
 
 
@@ -345,7 +472,8 @@ def unstack(layers: Params):
     leaf a view from one `unbind` of its stacked leaf, so autograd writes
     each stacked gradient once (indexing each layer would add a full-size
     zero gradient per layer). A DTensor leaf gathers one layer at a time, as
-    the steps are taken (`ctx.layer_slice`)."""
+    the steps are taken (`ctx.layer_slice`): the enc-dec stacks in serving,
+    and a train step's, gather whole."""
     views = tree_util.map_tree(lambda _, v: v if is_dtensor(v) else v.unbind(0), layers)
     steps = len(tree_util.leaves(views)[0])
     for i in range(steps):
@@ -424,11 +552,20 @@ def forward(
     prompt (conv histories in the activation dtype, ``ssm`` fp32). Decode
     writes into ``cache`` in place and returns it. Serving computes no aux
     loss (None). ``positions`` defaults to the token positions (``pos`` in
-    decode), as three equal streams ``(3, B, S)`` for M-RoPE."""
+    decode), as three equal streams ``(3, B, S)`` for M-RoPE.
+
+    In a tensor-parallel serving step (`ctx.tp`), the groups `tp_groups`
+    names run on this rank's shards: ``params`` then hold the embedding's
+    vocab shard where ``vocab`` runs local (`launch.steps`), the layers are
+    cut here, and the cache's SSM leaves are this rank's heads and channels
+    (`tp_cache_local`)."""
     B, S = tokens.shape
     kinds = layer_kinds(cfg)
     prefixes = sub_prefixes(cfg)
-    x = params["embed"][tokens].to(dtype_of(cfg))
+    groups = tp_groups(cfg) if mode != "train" else None
+    if groups is not None and ctx.tp()[0] > 1:
+        ctx.note_tp("vocab", groups["vocab"])
+    x = _embed_lookup(params, tokens, padded_vocab(cfg.vocab_size)).to(dtype_of(cfg))
     x = constrain(x, "batch", "sp" if mode == "train" else None, None)
     if positions is None:
         if mode == "decode":
@@ -444,15 +581,18 @@ def forward(
                                remat=remat, remat_policy=remat_policy)
         return apply_norm(cfg, params["final_norm"], x), None, aux
 
+    local = _local_paths(cfg, groups)
+    axis = ctx.tp_axis()
     per_step = []
     for i in range(n_scan_steps(cfg)):
-        lp = layer_params(params["layers"], i)
+        lp = layer_params(params["layers"], i, local, axis)
         new_lc: Cache = {}
         for pre, kind in zip(prefixes, kinds):
             sc = ({k[len(pre):]: v[i] for k, v in cache.items() if k.startswith(pre)}
                   if mode == "decode" else None)
             x, out, _ = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
-                                   positions=positions, mode=mode, cache=sc, pos=pos)
+                                   positions=positions, mode=mode, cache=sc, pos=pos,
+                                   partial=_note_layer(cfg, kind, groups))
             x = constrain(x, "batch", None, None)
             if mode == "prefill":
                 new_lc.update({pre + k: v for k, v in out.items()})
@@ -464,7 +604,20 @@ def forward(
     return x, new_cache, None
 
 
+def tp_cache_local(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
+    """The cache keys a tensor-parallel step keeps as this rank's shard of
+    the tensor axis: an SSM sub-layer's ``conv_x`` channels and ``ssm``
+    heads where its heads run local (`tp_groups`); K/V and the MLA latent
+    stay whole (replicated over the axis, as the reference's specs)."""
+    if not groups["ssm"]:
+        return frozenset()
+    return frozenset(pre + k for pre, (mixer, _) in zip(sub_prefixes(cfg), layer_kinds(cfg))
+                     if mixer == "ssm" for k in ("conv_x", "ssm"))
+
+
 def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """``hidden`` through the LM head (the tied embedding's transpose):
+    this rank's vocab columns where the head is its shard (`tp_groups`)."""
     if cfg.tie_embeddings:
         return hidden @ params["embed"].T
     return hidden @ params["lm_head"]

@@ -5,6 +5,12 @@ The MoE keeps the reference's grouped, capacity-bucketed dense dispatch
 token. Prefill routes through the MoE top-k kernel; decode and training
 keep the plain `router_topk`, as the reference does (training with the
 Switch aux loss).
+
+In a tensor-parallel serving step (`sharding.ctx.tp`), an MLP whose
+``d_ff`` columns and rows are this rank's shard, and an MoE whose experts
+(and shared expert) are, return this rank's partial output, which the layer
+sums over the tensor axis once (`lm.tp_groups`). The router stays
+replicated: routing, capacity and drops are the global ones.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import top_k
 from repro_torch.models.common import act_fn
+from repro_torch.sharding import ctx
 from repro_torch.sharding.ctx import batch_sum, constrain, global_rows, row_shards
 
 # ---------------------------------------------------------------------------
@@ -132,7 +139,13 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     Returns (out, aux_loss), the aux loss only if ``want_aux`` (training;
     serving never reads it), else None. ``kernel`` routes through
     `kops.moe_topk` (prefill); otherwise through the plain `router_topk`
-    (decode, and training, which differentiates through it)."""
+    (decode, and training, which differentiates through it).
+
+    Where the experts are this rank's shard of the tensor axis (fewer than
+    ``E_pad`` in ``p["w_up"]``, `lm.tp_groups`), the dispatch keeps only
+    theirs, and the output is this rank's partial sum; the shared expert's
+    part is then its partial sum too, or, where it runs whole, rank 0's
+    alone, so the sum over the axis counts it once."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -177,6 +190,11 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     disp = torch.einsum(
         "gske,gskc->gsec", e_one.to(dt),
         one_hot(torch.where(keep, pos, cap), cap + 1).to(dt)[..., :-1])
+    n_local = p["w_up"].shape[0]
+    experts_local = n_local < E_pad
+    if experts_local:               # this rank's experts [e0, e0 + n_local)
+        e0 = ctx.tp()[1] * n_local
+        disp = disp[:, :, e0:e0 + n_local]
     x_e = torch.einsum("gsec,gsd->gecd", disp, xg)            # (G, E_pad, cap, d)
     x_e = constrain(x_e, "batch", "ep", None, None)            # expert parallel
 
@@ -189,10 +207,20 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # (G, E_pad, cap, d)
     y_e = constrain(y_e, "batch", "ep", None, None)
 
-    combine = disp * (e_one.to(weights.dtype) * weights[..., None]).sum(dim=2)[..., None]
+    wsum = (e_one.to(weights.dtype) * weights[..., None]).sum(dim=2)
+    if experts_local:
+        wsum = wsum[:, :, e0:e0 + n_local]
+    combine = disp * wsum[..., None]
     out = torch.einsum("gsec,gecd->gsd", combine.to(y_e.dtype), y_e)
 
     out = out.reshape(T_pad, d)[:T]
     if m.num_shared_experts:
-        out = out + mlp(cfg, p["shared"], xt[:T])
+        shared_local = p["shared"]["w_up"].shape[-1] < m.d_shared
+        if experts_local and not shared_local and ctx.tp()[1] != 0:
+            pass                    # counted once, on rank 0 of the axis
+        elif shared_local and not experts_local:
+            out = (out if ctx.tp()[1] == 0 else torch.zeros_like(out)) + mlp(
+                cfg, p["shared"], xt[:T])
+        else:
+            out = out + mlp(cfg, p["shared"], xt[:T])
     return out.reshape(B, S, d), aux

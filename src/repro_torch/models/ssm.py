@@ -10,6 +10,15 @@ Projections are split (w_z / w_x / w_B / w_C / w_dt), as in the reference.
 State per layer:
   {"conv_x": (B, K-1, d_in), "conv_B": (B, K-1, G*N), "conv_C": (B, K-1, G*N),
    "ssm": (B, H, P, N) fp32}
+
+In a tensor-parallel serving step (`sharding.ctx.tp`), a block whose
+``w_z``/``w_x``/``w_dt`` columns, per-head vectors and ``out_proj`` rows
+are this rank's head shard (`lm.tp_groups`; read off ``w_dt``'s width)
+runs the scan (or the recurrent step) on those heads alone, over its own
+``conv_x`` channels and ``ssm`` heads of the state, and returns its
+partial output projection. B and C stay whole (one group), and the gated
+norm's mean of squares is taken over the whole ``d_inner``: summed over
+the tensor axis and divided by the global width.
 """
 from __future__ import annotations
 
@@ -22,6 +31,7 @@ from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import heads_of_groups, ssd_scan_ref
 from repro_torch.models.common import gated_rmsnorm
+from repro_torch.sharding import ctx
 
 State = Dict[str, torch.Tensor]
 
@@ -144,8 +154,10 @@ def ssm_block(
     the reference's casts do), and returns it."""
     s = cfg.ssm or SSMConfig()
     Bb, S, _ = xin.shape
-    d_in, H, P, N, _ = ssm_dims(cfg)
+    d_full, H_full, P, N, _ = ssm_dims(cfg)
     G, K = s.n_groups, s.d_conv
+    H = p["w_dt"].shape[-1]         # this rank's heads: all, or its shard
+    d_in = H * P
 
     z = xin @ p["w_z"]
     x_raw = xin @ p["w_x"]
@@ -191,8 +203,22 @@ def ssm_block(
 
     y = y_core + x * p["D"][None, None, :, None].to(x.dtype)
     y = y.reshape(Bb, S, d_in).to(xin.dtype)
-    y = gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
+    if H == H_full:
+        y = gated_rmsnorm(y, z, p["norm_scale"], cfg.norm_eps)
+    else:
+        y = gated_rmsnorm_shard(y, z, p["norm_scale"], cfg.norm_eps, d_full)
     return y @ p["out_proj"], new_state
+
+
+def gated_rmsnorm_shard(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float,
+                        width: int) -> torch.Tensor:
+    """`gated_rmsnorm` of a row whose ``width`` channels are split over the
+    tensor axis, on this rank's channels: the mean of squares is the sum
+    over every rank's channels (`ctx.tp_sum`) over ``width``, as one device
+    takes it over the whole row."""
+    xf = x.float() * F.silu(z.float())
+    var = ctx.tp_sum(xf.square().sum(dim=-1, keepdim=True)) / width
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def state_shapes(cfg: ModelConfig, batch: int) -> Dict[str, Tuple[int, ...]]:

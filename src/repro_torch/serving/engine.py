@@ -47,10 +47,14 @@ the same engine with the same requests, so the host state (queue, lanes,
 positions, page tables, the allocator) is equal on every rank and admission
 decides as on one device. The compute is the sharded steps'
 (`launch.steps`): each rank of the engine's mesh gathers a layer's params
-whole and runs its own rows of the decode batch (a one-prompt prefill is
-not split: every rank runs it), and a paged step exchanges only the pages
-the tables name (`kvpool.gather_named_pages`), writing each new entry on
-the rank that holds its page. Token values live on the engine's ranks only
+over the FSDP axes, keeps its shard of the tensor axis (heads, ``d_ff``
+columns, experts, SSM heads, vocab: `lm.tp_groups`) and runs its own rows
+of the decode batch on it (a one-prompt prefill is not split over the rows:
+every rank of a tensor-axis group runs its shard of it), the partial
+outputs summed over the tensor axis; the greedy pick reads the vocab
+shards (`ctx.tp_argmax`). A paged step exchanges only the pages the tables
+name (`kvpool.gather_named_pages`), writing each new entry on the rank
+that holds its page. Token values live on the engine's ranks only
 (a rank outside them records -1 for each, and keeps every count); a swap
 onto ranks that did not hold the engine sends them the resident requests'
 tokens with their state. Such an engine decodes eagerly, BY DESIGN (counted
@@ -78,7 +82,7 @@ import torch
 
 from repro_torch import tree as tree_util
 from repro_torch.models import Model
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import padded_vocab, resolve_device
 from repro_torch.models.lm import is_positional
 from repro_torch.obs import events as obs_events
 from repro_torch.serving import kvpool, migration
@@ -290,10 +294,12 @@ class ServingEngine:
         #: and PREPARE's) and their seconds; PREPARE executables a swap
         #: installed or discarded (bound to a pool the swap replaced)
         #: ``multi_rank_eager`` counts the steps of a multi-rank layout, eager
-        #: by design (see the module doc)
+        #: by design (see the module doc); ``tp_local`` / ``tp_gathered`` its
+        #: decode steps' sub-layers that ran on their tensor-axis shard or
+        #: gathered whole (`ctx.note_tp`; none where the axis has one rank)
         self.decode_stats = {"eager": 0, "replays": 0, "captures": 0,
                              "capture_s": 0.0, "installs": 0, "discards": 0,
-                             "multi_rank_eager": 0}
+                             "multi_rank_eager": 0, "tp_local": 0, "tp_gathered": 0}
         #: when set, `step` keeps the step's logits ``(n_slots, V_pad)`` in
         #: ``last_logits`` (on every rank of a multi-rank engine's mesh) and
         #: the ``(lane, rid)`` pairs it decoded in ``last_lanes``, for checks
@@ -532,14 +538,50 @@ class ServingEngine:
         dist.broadcast_object_list(box, src=self.ranks[0])
         return list(box[0])
 
+    def _tp(self, layout: Dict[str, Any], dm, **kw):
+        """The tensor-parallel serving context of ``layout`` over ``dm``'s
+        process groups (PREPARE's own, or serving's)."""
+        return ctx.activation_sharding(layout["mesh"], layout["plan"], tensor_parallel=True,
+                                       device_mesh=dm, **kw)
+
+    def _pick(self, logits: torch.Tensor) -> torch.Tensor:
+        """Each row's greedy pick over the real vocab, from this rank's
+        logits: all the columns, or its vocab shard (`ctx.tp_argmax`, the
+        first maximum of the whole row either way)."""
+        n_local = logits.shape[1]
+        if n_local == padded_vocab(self.model.cfg.vocab_size):
+            return torch.argmax(logits[:, : self.vocab], dim=-1)
+        lo = ctx.tp()[1] * n_local
+        keep = max(0, min(self.vocab - lo, n_local))
+        if keep < n_local:
+            logits = logits.clone()
+            logits[:, keep:] = -float("inf")
+        return ctx.tp_argmax(logits, lo)
+
+    def _whole_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """This rank's logits with every vocab column (gathered over the
+        tensor axis where it holds a shard)."""
+        if logits.shape[1] == padded_vocab(self.model.cfg.vocab_size):
+            return logits
+        return ctx.tp_gather(logits, 1)
+
     def _sharded_prefill(self, params: Dict[str, Any], layout: Dict[str, Any],
                          batch: Dict[str, Any]):
         """One prompt's prefill on a layout across ranks (a rank of its mesh
-        only): the batch is not split, every rank runs it over the layers
-        gathered whole (`launch.steps`' serving params)."""
+        only): the batch is not split over the rows; every rank runs it over
+        the layers gathered over the FSDP axes, on its tensor-axis shards
+        (`launch.steps`' serving params). Returns ``(pick, logits, cache)``:
+        the greedy pick, the whole logits row where the engine records
+        logits (else None), and the prompt's cache (its SSM leaves this
+        rank's shard where their heads ran local)."""
         from repro_torch.launch.steps import _serving_params
-        with torch.no_grad(), ctx.activation_sharding(layout["mesh"], layout["plan"]):
-            return self.model.prefill(batch, params=_serving_params(params))
+        dm = next(iter(tree_util.leaves(params))).device_mesh
+        with torch.no_grad(), self._tp(layout, dm):
+            logits, cache = self.model.prefill(batch,
+                                               params=_serving_params(self.model.cfg, params))
+            pick = self._pick(logits)
+            whole = self._whole_logits(logits) if self.record_logits else None
+        return pick, whole, cache
 
     def _sharded_decode(self, params: Dict[str, Any], cache: Dict[str, Any],
                         layout: Dict[str, Any], dm, tokens: np.ndarray, pos: np.ndarray,
@@ -549,17 +591,18 @@ class ServingEngine:
         of the batch (``dm``'s chunk over the row axes) over the layers
         gathered whole; a paged pool's named pages are gathered first and
         each new entry written on the rank that holds its page; a slot pool
-        runs its own slots. Returns every lane's greedy pick."""
-        from repro_torch.launch.steps import _serving_params
+        runs its own slots (its SSM leaves' tensor-axis shard in place where
+        their heads run local). Returns every lane's greedy pick."""
+        from repro_torch.launch.steps import _serving_params, _tp_keys
         n = self.n_slots
         row_axes = self._row_axes(layout)
         lo, hi = ctx.my_rows(dm, row_axes, n)
         dev = self.device
         tok = torch.as_tensor(tokens[lo:hi], device=dev)
         p = torch.as_tensor(pos[lo:hi], device=dev)
-        with torch.no_grad(), ctx.activation_sharding(layout["mesh"], layout["plan"],
-                                                      row_axes=row_axes, rows=n):
-            served = _serving_params(params)
+        with torch.no_grad(), self._tp(layout, dm, row_axes=row_axes, rows=n):
+            served = _serving_params(self.model.cfg, params)
+            axis, kept = _tp_keys(self.model.cfg)
             if tables is not None:
                 pages = sorted(set(int(x) for x in tables.reshape(-1)))
                 named = kvpool.gather_named_pages(cache, pages)
@@ -572,15 +615,17 @@ class ServingEngine:
                        for k, v in dense.items()}
                 kvpool.scatter_token_sharded(cache, new, tables, pos)
             else:
-                local = {k: ctx.local_rows(v, 1) for k, v in cache.items()}
+                keep = {k: (axis,) if k in kept else () for k in cache}
+                local = {k: ctx.local_rows(v, 1, keep=keep[k]) for k, v in cache.items()}
                 logits, local = self.model.decode_step(tok, local, p, params=served)
                 for k, v in cache.items():
                     if v.to_local().data_ptr() != local[k].data_ptr():
                         v.to_local().copy_(ctx.from_rows(local[k], _sharding_of(v),
-                                                         tuple(v.shape), dim=1).to_local())
-            picks = torch.argmax(logits[:, : self.vocab], dim=-1)
+                                                         tuple(v.shape), dim=1,
+                                                         keep=keep[k]).to_local())
+            picks = self._pick(logits)
             if self.record_logits and cache is self.cache:
-                self.last_logits = ctx.rows_whole(logits, dm, row_axes, n)
+                self.last_logits = ctx.rows_whole(self._whole_logits(logits), dm, row_axes, n)
             return ctx.rows_whole(picks, dm, row_axes, n).cpu().numpy()
 
     def _scratch_state(self, sh: Dict[str, Any]):
@@ -958,12 +1003,12 @@ class ServingEngine:
             t_pre0 = obs_events.now() if rec is not None else 0.0
             if self.layout is None:
                 logits, cache1 = self.model.prefill(batch)
+                tok = int(np.argmax(logits[0, : self.vocab].float().cpu().numpy()))
             elif self._is_member():
-                logits, cache1 = self._sharded_prefill(self.params, self.layout, batch)
+                pick, logits, cache1 = self._sharded_prefill(self.params, self.layout, batch)
+                tok = int(pick[0])
             else:       # outside the engine's ranks: counts, no values
-                logits, cache1 = None, None
-            tok = (int(np.argmax(logits[0, : self.vocab].float().cpu().numpy()))
-                   if logits is not None else -1)
+                logits, cache1, tok = None, None, -1
             if self.record_logits and logits is not None:
                 self.prefill_logits[req.rid] = logits[0].clone()
             t_pre1 = obs_events.now() if rec is not None else 0.0
@@ -1220,11 +1265,15 @@ class ServingEngine:
         if self.layout is not None:
             # across ranks: eager by design (module doc); a rank outside the
             # engine's mesh keeps the counts and records no values
+            before = ctx.tp_counts()
             picks = (self._sharded_decode(self.params, self.cache, self.layout,
                                           next(iter(self.cache.values())).device_mesh,
                                           tokens, self.slot_pos.copy(),
                                           self.page_tables if self.paged else None)
                      if self._is_member() else np.full(self.n_slots, -1, dtype=np.int64))
+            after = ctx.tp_counts()
+            for k in ("tp_local", "tp_gathered"):
+                self.decode_stats[k] += after.get(k, 0) - before.get(k, 0)
             self.decode_stats["eager"] += 1
             self.decode_stats["multi_rank_eager"] += 1
         else:

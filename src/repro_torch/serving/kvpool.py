@@ -253,7 +253,10 @@ def make_paged_decode(model, pax: Axes, sax: Axes):
 # split over the batch axes (DTensor's chunk rule), every other dim whole on
 # each rank. The allocator and the page tables stay on the host, equal on
 # every rank, so admission decides as on one device; the functions below
-# move only the pages the tables name.
+# move only the pages the tables name. The K/V heads stay whole over the
+# tensor axis, as the reference's specs keep them: a tensor-parallel decode
+# step's attention reads its own q heads' K/V heads of the dense rows, and
+# writes every head of the new entry (gathered over that axis).
 
 
 def local_pages(leaf) -> Tuple[int, int]:

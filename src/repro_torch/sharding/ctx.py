@@ -7,13 +7,22 @@ reference's sites, by logical dim names) read it. Outside any context
 `constrain` is the identity. Inside one it applies the reference's
 divisibility rule and redistributes a DTensor to the resolved placements; a
 plain tensor passes as it is, because the port's sharded steps keep their
-activations rank-local: each rank runs its own batch rows over parameters
-gathered a layer at a time (`layer_slice`), so the model code and the
-kernels only ever see plain tensors.
+activations rank-local: each rank runs its own batch rows, so the model code
+and the kernels only ever see plain tensors.
 
 The context also records the mesh axes the batch rows are split over, so
 the few reductions that must be global (the train loss's mask count, the
 MoE aux loss's statistics) sum over them (`batch_sum`).
+
+A serving step enters the context with ``tensor_parallel=True``. Then the
+plan's tensor axis (`tp`: its extent and this rank's coordinate) splits the
+work as the reference's compiler splits it: each rank computes on its own
+shard of that axis (`layer_local`, `local_of`), the partial results are
+summed over the axis where the math needs a sum (`tp_sum`), the new K/V
+heads are gathered for the replicated cache (`tp_gather`), and the greedy
+pick reads the vocab shards (`tp_argmax`). Each sub-layer notes whether it
+ran on its shard or gathered whole (`note_tp`, read by `tp_counts`). A
+train step gathers every leaf whole (no ``tensor_parallel``).
 """
 from __future__ import annotations
 
@@ -44,14 +53,18 @@ def is_dtensor(x: Any) -> bool:
 
 @contextlib.contextmanager
 def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None,
-                        rows: Optional[int] = None):
+                        rows: Optional[int] = None, tensor_parallel: bool = False,
+                        device_mesh: Any = None):
     """Enter ``(mesh, plan)`` for the model's `constrain` calls.
     ``row_axes``: the mesh axes this step splits the batch rows over (none
     by default: every rank holds every row). ``rows``: the global row count
     of each (micro)batch the step runs, which DTensor's chunk rule cuts over
     those axes (trailing ranks may hold fewer rows, or none); None when the
-    rows split evenly."""
-    _stack().append((mesh, plan, tuple(row_axes or ()), rows))
+    rows split evenly. ``tensor_parallel``: the step computes on the
+    tensor axis's shards (`tp`), a serving step. ``device_mesh``: the
+    ``DeviceMesh`` whose groups the step's own collectives use (the
+    mesh's untagged one by default; PREPARE passes its own)."""
+    _stack().append((mesh, plan, tuple(row_axes or ()), rows, tensor_parallel, device_mesh))
     try:
         yield
     finally:
@@ -154,6 +167,181 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the tensor axis of a serving step
+# ---------------------------------------------------------------------------
+
+
+def _tp_context():
+    """``(DeviceMesh, mesh dim of the tensor axis, its extent)`` of the
+    current tensor-parallel context, or None where no axis splits the work:
+    outside a context, without ``tensor_parallel``, a plan without a tensor
+    axis, a mesh of devices rather than ranks, an axis of one rank, or a
+    rank outside the mesh."""
+    s = _stack()
+    if not s or not s[-1][4]:
+        return None
+    mesh, plan = s[-1][:2]
+    ax = getattr(plan, "tp_axis", None)
+    if ax is None or mesh.ranks is None or mesh.shape.get(ax, 1) == 1:
+        return None
+    dm = s[-1][5] if s[-1][5] is not None else mesh.device_mesh()
+    if dm.get_coordinate() is None:
+        return None
+    return dm, mesh.axis_names.index(ax), mesh.shape[ax]
+
+
+def tp() -> Tuple[int, int]:
+    """``(extent, this rank's coordinate)`` of the tensor axis the current
+    serving step splits its work over; ``(1, 0)`` where none does."""
+    c = _tp_context()
+    if c is None:
+        return 1, 0
+    dm, k, n = c
+    return n, dm.get_coordinate()[k]
+
+
+def tp_axis() -> Optional[str]:
+    """The tensor axis's name where it splits the current step, else None."""
+    c = _tp_context()
+    return None if c is None else c[0].mesh_dim_names[c[1]]
+
+
+def _tp_group_name() -> str:
+    dm, k, _ = _tp_context()
+    return dm.get_group(k).group_name
+
+
+def tp_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the tensor axis (an all-reduce; every rank gets
+    the same sum); ``x`` itself where no tensor axis splits the step."""
+    n, _ = tp()
+    if n == 1:
+        return x
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(x.contiguous(), "sum", _tp_group_name()))
+
+
+def tp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every tensor-axis rank's ``x`` put together along ``dim``, in rank
+    order (an all-gather); ``x`` itself where no tensor axis splits the
+    step."""
+    n, _ = tp()
+    if n == 1:
+        return x
+    ops = torch.ops._c10d_functional
+    y = x.movedim(dim, 0).contiguous()
+    out = ops.wait_tensor(ops.all_gather_into_tensor(y, n, _tp_group_name()))
+    return out.movedim(0, dim)
+
+
+def tp_argmax(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """The argmax of each row of the whole ``(R, V)`` matrix whose columns
+    ``[offset, offset + x.shape[1])`` this rank holds in ``x``: each rank's
+    first maximum is exchanged over the tensor axis, and the lowest global
+    index among the maxima wins, which is ``torch.argmax`` of the whole row
+    (its first maximal value). Returns ``(R,)`` int64 global indices, the
+    same on every rank of the axis."""
+    local = torch.argmax(x, dim=-1)
+    n, _ = tp()
+    if n == 1:
+        return local + offset
+    val = x.gather(-1, local[:, None])[:, 0].double()
+    mine = torch.stack([val, (local + offset).double()], dim=-1)      # (R, 2)
+    every = tp_gather(mine[None], 0)                                  # (n, R, 2)
+    vals, idx = every[..., 0], every[..., 1]
+    best = vals.max(dim=0).values
+    cand = torch.where(vals == best[None], idx, torch.full_like(idx, float("inf")))
+    return cand.min(dim=0).values.long()
+
+
+def _keep_local(local: torch.Tensor, v: Any, axis: str, *, drop_dim0: bool) -> torch.Tensor:
+    """``local`` (this rank's shard of DTensor ``v``, its layer dim dropped
+    when ``drop_dim0``) gathered over every mesh dim but ``axis``'s: the
+    rank's plain shard of ``axis``, whole along every other dim."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    dm = v.device_mesh
+    k = dm.mesh_dim_names.index(axis)
+    tdim = v.placements[k].dim
+    shift = 1 if drop_dim0 else 0
+    shape = list(v.shape[shift:])
+    shape[tdim - shift] = v.shape[tdim] // dm.size(k)
+    placements = [Replicate() if j == k else
+                  (Shard(p.dim - shift) if isinstance(p, Shard) else p)
+                  for j, p in enumerate(v.placements)]
+    if all(not isinstance(p, Shard) for p in placements):
+        return local
+    part = DTensor.from_local(local, dm, placements, run_check=False,
+                              shape=torch.Size(shape), stride=_contiguous_stride(shape))
+    return part.full_tensor()
+
+
+def _splits_alone(v: Any, axis: Optional[str], *, skip_dim0: bool) -> bool:
+    """Whether DTensor ``v`` shards one dim over ``axis`` (not its layer dim
+    when ``skip_dim0``), evenly, and no other mesh dim shards that dim."""
+    from torch.distributed.tensor import Shard
+    dm = v.device_mesh
+    if axis is None or axis not in dm.mesh_dim_names:
+        return False
+    k = dm.mesh_dim_names.index(axis)
+    p = v.placements[k]
+    if not isinstance(p, Shard) or (skip_dim0 and p.dim == 0):
+        return False
+    others = [q for j, q in enumerate(v.placements)
+              if j != k and isinstance(q, Shard) and q.dim == p.dim]
+    return not others and v.shape[p.dim] % dm.size(k) == 0
+
+
+def layer_local(v: Any, i: int, axis: Optional[str]) -> torch.Tensor:
+    """Layer ``i`` of a stacked leaf as a plain tensor that keeps this
+    rank's shard of mesh axis ``axis`` (the tensor or expert axis) and
+    gathers every other axis's shards (the FSDP axes): `layer_slice` where
+    the leaf does not shard a dim over ``axis`` alone and evenly."""
+    if not is_dtensor(v) or not _splits_alone(v, axis, skip_dim0=True):
+        return layer_slice(v, i)
+    return _keep_local(v.to_local()[i], v, axis, drop_dim0=True)
+
+
+def local_of(v: Any, axis: Optional[str]) -> torch.Tensor:
+    """`layer_local` of an unstacked leaf: this rank's shard of ``axis``,
+    whole along every other axis; the whole leaf where it does not shard a
+    dim over ``axis`` alone and evenly."""
+    if not is_dtensor(v) or not _splits_alone(v, axis, skip_dim0=False):
+        return full(v)
+    return _keep_local(v.to_local(), v, axis, drop_dim0=False)
+
+
+def note_tp(name: str, local: bool) -> None:
+    """Count one sub-layer ``name`` of a tensor-parallel step as run on its
+    shard (``local``) or gathered whole (`tp_counts`); nothing where no
+    tensor axis splits the step."""
+    if tp()[0] == 1:
+        return
+    c = _live_counts()
+    key = f"{name}:{'local' if local else 'gathered'}"
+    c[key] = c.get(key, 0) + 1
+    c["tp_local" if local else "tp_gathered"] = c.get("tp_local" if local else "tp_gathered",
+                                                       0) + 1
+
+
+def _live_counts() -> dict:
+    """This thread's running counts of `note_tp` (``"<name>:local"``,
+    ``"<name>:gathered"``, and the totals ``"tp_local"`` /
+    ``"tp_gathered"``), the dict itself."""
+    if not hasattr(_STATE, "tp_counts"):
+        _STATE.tp_counts = {}
+    return _STATE.tp_counts
+
+
+def tp_counts() -> dict:
+    """A copy of this thread's `note_tp` counts."""
+    return dict(_live_counts())
+
+
+def reset_tp_counts() -> None:
+    _live_counts().clear()
+
+
 def full(x: Any) -> Any:
     """A DTensor gathered to a plain tensor on every rank; anything else as
     it is."""
@@ -252,32 +440,55 @@ def place_tree(tree: Any, shardings: Any) -> Any:
     return place(tree, shardings)
 
 
-def row_placements(placements, dim: int) -> Tuple[Any, ...]:
-    """Only the placements that shard dim ``dim`` (the batch), the rest
-    replicated: the layout a rank's own rows have."""
+def row_placements(placements, dim: int, keep: Sequence[int] = ()) -> Tuple[Any, ...]:
+    """Only the placements that shard dim ``dim`` (the batch), and those of
+    the mesh dims in ``keep``, the rest replicated: the layout a rank's own
+    rows have (with its own shard of the kept mesh dims)."""
     from torch.distributed.tensor import Replicate, Shard
-    return tuple(p if isinstance(p, Shard) and p.dim == dim else Replicate()
-                 for p in placements)
+    return tuple(p if isinstance(p, Shard) and (p.dim == dim or j in keep) else Replicate()
+                 for j, p in enumerate(placements))
 
 
-def local_rows(x: Any, dim: int) -> torch.Tensor:
+def _mesh_dims(dm, axes: Sequence[str]) -> Tuple[int, ...]:
+    return tuple(dm.mesh_dim_names.index(a) for a in axes if a in dm.mesh_dim_names)
+
+
+def local_rows(x: Any, dim: int, keep: Sequence[str] = ()) -> torch.Tensor:
     """This rank's batch rows of DTensor ``x`` (batch on dim ``dim``), with
-    every other dim whole: what the rank computes on. A plain tensor is
+    every other dim whole but those the mesh axes in ``keep`` shard, which
+    stay this rank's shard: what the rank computes on. A plain tensor is
     returned as it is."""
     if not is_dtensor(x):
         return x
-    rows = row_placements(x.placements, dim)
+    rows = row_placements(x.placements, dim, _mesh_dims(x.device_mesh, keep))
     if tuple(x.placements) != rows:
         x = x.redistribute(x.device_mesh, list(rows))
     return x.to_local()
 
 
-def from_rows(local: torch.Tensor, sharding, shape, dim: int) -> Any:
+def full_shape(shape, sharding, keep: Sequence[str] = ()) -> Tuple[int, ...]:
+    """The global shape of an array under ``sharding`` (a `LeafSharding`)
+    of which a rank holds ``shape``, every dim whole but those the mesh
+    axes in ``keep`` shard (evenly), which are its shard: those dims times
+    their axis's extent."""
+    from torch.distributed.tensor import Shard
+    out = list(shape)
+    for j in _mesh_dims(sharding.mesh, keep):
+        p = sharding.placements[j]
+        if isinstance(p, Shard):
+            out[p.dim] *= sharding.mesh.size(j)
+    return tuple(out)
+
+
+def from_rows(local: torch.Tensor, sharding, shape, dim: int, keep: Sequence[str] = ()) -> Any:
     """A DTensor under ``sharding`` from each rank's rows ``local`` (batch
-    on dim ``dim``, every other dim whole): shards of other dims are cut
-    locally, no data moves."""
+    on dim ``dim``, every other dim whole but those the mesh axes in
+    ``keep`` shard, already this rank's shard): shards of other dims are
+    cut locally, no data moves."""
     from repro_torch.sharding.plan import LeafSharding
-    rows = LeafSharding(sharding.mesh, row_placements(sharding.placements, dim), sharding.spec)
+    rows = LeafSharding(sharding.mesh,
+                        row_placements(sharding.placements, dim,
+                                       _mesh_dims(sharding.mesh, keep)), sharding.spec)
     x = to_dtensor(local, rows, shape)
     if rows.placements != tuple(sharding.placements):
         x = x.redistribute(sharding.mesh, list(sharding.placements))
@@ -452,9 +663,10 @@ def my_rows(dm, row_axes: Sequence[str], rows: int) -> Tuple[int, int]:
 
 def write_rows(x: Any, index: Sequence[int], values: torch.Tensor, dim: int) -> None:
     """Write ``values`` (``x``'s shape with ``dim`` cut to ``len(index)``,
-    every other dim whole) into DTensor ``x`` at ``index`` along ``dim``,
-    IN PLACE: each rank writes the rows it holds, its part of the other
-    dims; nothing moves between ranks."""
+    every other dim whole or already this rank's shard of it, as a
+    tensor-parallel prefill leaves it) into DTensor ``x`` at ``index`` along
+    ``dim``, IN PLACE: each rank writes the rows it holds, its part of the
+    other dims; nothing moves between ranks."""
     import numpy as np
     from repro_torch.sharding.plan import LeafSharding
     dm = x.device_mesh
@@ -468,7 +680,8 @@ def write_rows(x: Any, index: Sequence[int], values: torch.Tensor, dim: int) -> 
     mine = np.nonzero((idx >= lo) & (idx < lo + n))[0]
     if not len(mine):
         return
-    src = [slice(o, o + k) for o, k in zip(off, lshape)]
+    src = [slice(o, o + k) if values.shape[d] == x.shape[d] else slice(0, k)
+           for d, (o, k) in enumerate(zip(off, lshape))]
     src[dim] = torch.as_tensor(mine, device=values.device)
     dst = [slice(None)] * local.dim()
     dst[dim] = torch.as_tensor(idx[mine] - lo, device=local.device)

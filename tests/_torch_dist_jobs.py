@@ -26,15 +26,19 @@ B_TRAIN, S_TRAIN = 8, 16
 LR, WD = 1e-3, 0.1
 
 
-def run_job(job: str, world: int = 4, timeout: float = 180.0,
-            module: str = "_torch_dist_jobs") -> list:
+def run_job(job: str, world: int = 4, timeout: float = 1200.0,
+            module: str = "_torch_dist_jobs", stall: float = 300.0) -> list:
     """Run ``job`` (a function of ``module``, this one by default:
     ``job(rank, world)`` -> dict) on ``world`` spawned ranks over gloo;
-    returns each rank's dict. Ranks still running after ``timeout`` seconds
-    are killed.
+    returns each rank's dict. The ranks are killed when no rank has
+    finished a part (`_part`) for ``stall`` seconds (a rank that raised
+    inside a collective leaves the others waiting), or when the job has run
+    ``timeout`` seconds in all. Both limits are far above the job's time
+    on a loaded machine: a part is a few seconds alone, and the whole
+    test suite's other workers may slow it several times.
 
     Raises:
-        RuntimeError: a rank died, or the job timed out.
+        RuntimeError: a rank died, or the job stalled or timed out.
     """
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory() as tmp:
@@ -42,18 +46,36 @@ def run_job(job: str, world: int = 4, timeout: float = 180.0,
                  for r in range(world)]
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
+        start = last = time.monotonic()
+        seen = 0
+        why = None
+        while any(p.is_alive() for p in procs):
+            time.sleep(0.5)
+            now = time.monotonic()
+            done = sum(len(f.read_text()) for f in Path(tmp).glob("progress*"))
+            if done != seen:
+                seen, last = done, now
+            if now - last > stall:
+                why = f"stalled: no part finished for {stall:.0f} s"
+            elif now - start > timeout:
+                why = f"timed out after {timeout:.0f} s"
+            if why:
+                break
         alive = [p for p in procs if p.is_alive()]
         for p in alive:
             p.kill()
             p.join()
+        for p in procs:
+            p.join()
         if alive:
-            raise RuntimeError(f"job {job} timed out after {timeout} s")
+            raise RuntimeError(f"job {job} {why}")
         if any(p.exitcode != 0 for p in procs):
             raise RuntimeError(f"job {job}: exit codes {[p.exitcode for p in procs]}")
         return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+#: where this rank notes each part it finishes (`run_job`'s stall check)
+_PROGRESS: list = []
 
 
 def _rank_main(job: str, rank: int, world: int, tmp: str,
@@ -63,6 +85,7 @@ def _rank_main(job: str, rank: int, world: int, tmp: str,
 
     import torch.distributed as dist
     torch.set_num_threads(1)
+    _PROGRESS.append(Path(tmp) / f"progress{rank}")
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
     dist.init_process_group("gloo", init_method=f"file://{tmp}/store", rank=rank,
                             world_size=world)
@@ -83,6 +106,9 @@ def _part(out: dict, name: str, fn, *args) -> None:
     except Exception:
         out[name] = {"error": traceback.format_exc()}
     out.setdefault("seconds", {})[name] = time.perf_counter() - t0
+    for f in _PROGRESS:
+        with open(f, "a") as fh:
+            fh.write(".")
 
 
 # ---------------------------------------------------------------------------

@@ -75,7 +75,9 @@ def port(cells):
             records[cell] = {"status": "ok", "argument_bytes": rec["memory"]["argument_bytes"],
                              "model_flops": rec["roofline"]["model_flops"],
                              "params": rec["params"], "accum_steps": rec["accum_steps"],
-                             "kernel_calls": rec["kernel_calls"]}
+                             "kernel_calls": rec["kernel_calls"], "tp": rec["tp"],
+                             "flops": rec["cost"]["hlo_flops_per_device"],
+                             "peak_bytes": rec["memory"]["peak_bytes"]}
         except Exception as e:  # noqa: BLE001 — the status is what is compared
             records[cell] = {"status": "error", "error": f"{type(e).__name__}: {e}"}
     return {"records": records}
@@ -84,7 +86,7 @@ def port(cells):
 def mesh2x2(_cells):
     """One prefill of reduced Minitron-4B cut to one layer (B=2, S=8) over a
     2 x 2 ``("data", "model")`` fake mesh under `default_plan()`: the
-    collectives rank 0 issues, one by one."""
+    collectives rank 0 issues, one by one, and its tensor-parallel counts."""
     import dataclasses
 
     import torch
@@ -94,6 +96,7 @@ def mesh2x2(_cells):
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.cost import StepCost
     from repro_torch.models import Model
+    from repro_torch.sharding import ctx
     from repro_torch.sharding.plan import default_plan
     from torch._subclasses.fake_tensor import FakeTensorMode
     cfg = dataclasses.replace(get_reduced_config("minitron_4b"), num_layers=1)
@@ -104,9 +107,10 @@ def mesh2x2(_cells):
         args = tuple(dryrun.place_fake(s, sh, torch.device("cpu"))
                      for s, sh in zip(inputs.structs, inputs.shardings))
         cost = StepCost(mesh)
+        ctx.reset_tp_counts()
         with cost:
             inputs.step(*args)
-    return {"collectives": cost.collectives, "summary": cost.summary()}
+    return {"collectives": cost.collectives, "summary": cost.summary(), "tp": ctx.tp_counts()}
 
 
 if __name__ == "__main__":

@@ -164,7 +164,8 @@ def _engine_part(arch, mname, mesh, plan):
         out["verdicts"][key] = verdict
         out["layouts"].append({"members": list(eng.ranks),
                                "local_params": sum(v.to_local().numel() for v in _leaves(eng.params))
-                               if eng.params is not None else None})
+                               if eng.params is not None else None,
+                               "shard_params": _shard_numel(eng)})
 
     for k, until in enumerate(SCHEDULE):
         while len(out["steps"]) < until:
@@ -182,15 +183,31 @@ def _engine_part(arch, mname, mesh, plan):
         note()
     out["streams"] = {r.rid: list(r.tokens_out) for r in eng.done}
     out["stats"] = dict(eng.decode_stats)
-    # the same requests on one engine that never leaves one device
-    solo = ServingEngine(model, n_slots=N_SLOTS, s_max=S_MAX, page_size=PAGE,
-                         watermark=WATERMARK if paged else 0, device="cpu")
-    for i, prompt in enumerate(_requests(cfg)):
-        solo.submit(Request(rid=i, prompt=prompt, max_new_tokens=MAX_NEW[i]))
-    solo.run()
-    out["solo_streams"] = {r.rid: list(r.tokens_out) for r in solo.done}
     out["rank"] = dist.get_rank()
+    if out["rank"] == 0:
+        # the same requests on one engine that never leaves one device (on
+        # rank 0 alone, the rank the test reads: a one-device run needs no
+        # other rank, and the others go on to the next part meanwhile)
+        solo = ServingEngine(model, n_slots=N_SLOTS, s_max=S_MAX, page_size=PAGE,
+                             watermark=WATERMARK if paged else 0, device="cpu")
+        for i, prompt in enumerate(_requests(cfg)):
+            solo.submit(Request(rid=i, prompt=prompt, max_new_tokens=MAX_NEW[i]))
+        solo.run()
+        out["solo_streams"] = {r.rid: list(r.tokens_out) for r in solo.done}
     return out
+
+
+def _shard_numel(eng):
+    """The elements of this rank's shard of every param leaf under the
+    engine's layout, by DTensor's chunk rule on the plan's specs (its
+    model-axis shards included); None on one device."""
+    if eng.layout is None:
+        return None
+    from repro_torch import tree as tree_util
+    from repro_torch.sharding import ctx
+    sh = dict(tree_util.items(eng.layout["params"]))
+    return sum(int(np.prod(ctx.local_shape_and_offset(tuple(x.shape), sh[k])[0]))
+               for k, x in tree_util.items(eng.model.params))
 
 
 def _leaves(tree):

@@ -1,7 +1,8 @@
 """The reference's side of `tests/test_torch_engine_ranks.py`, run in a
 process of its own (``python tests/_torch_engine_ranks_ref.py WEIGHTS_DIR
 CASES``) over four placeholder host devices (``XLA_FLAGS``, set before JAX
-starts), printing one JSON line.
+starts, also keeps XLA's CPU work on one intra-op thread, so the child
+takes one core beside the port's ranks), printing one JSON line.
 
 For each case ``arch:mesh`` it runs `_torch_engine_ranks_jobs`'s serving
 case with `repro.serving.ServingCluster` over a ``jax.sharding.Mesh`` of
@@ -18,7 +19,8 @@ import os
 import pickle
 import sys
 
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+os.environ["XLA_FLAGS"] = ("--xla_force_host_platform_device_count=4 "
+                           "--xla_cpu_multi_thread_eigen=false intra_op_parallelism_threads=1")
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 

@@ -14,8 +14,9 @@
     status, the argument bytes, the model FLOPs and the parameter counts of
     four cells (`CELLS`). Reduced Mamba2-370m's ``train_4k`` fails on both
     sides, as its 8 SSM heads do not split over the model axis of 16;
-  * on a 2 x 2 fake mesh, the collectives of one gathered layer against a
-    reckoning by hand from the spec trees.
+  * on a 2 x 2 fake mesh, the collectives of one tensor-parallel layer
+    against a reckoning by hand from the spec trees; reduced Minitron's
+    ``decode_32k`` on the fake world with its tensor-parallel counts.
 
 The processes run at once, from one module fixture (~25 s).
 """
@@ -174,28 +175,56 @@ def test_reduced_prefill_runs_the_kernels_as_fake_ops(jobs):
 
 
 def test_collectives_of_one_gathered_layer_on_2x2(jobs):
-    """Each parameter leaf is gathered once (the stacks a layer at a time,
-    here the one layer; the rest whole): over the model axis first, its
-    result the leaf's data shard, then over the data axis, its result the
-    whole leaf. A ring of two moves half the result."""
+    """The tensor-parallel prefill of one layer (B = 2, S = 8) by hand.
+    Each parameter leaf that shards over ``data`` is gathered over it once,
+    its result the leaf's ``model`` shard (every model-axis dim of reduced
+    Minitron divides 2, so none is gathered over ``model``). Over ``model``:
+    an all-gather of the new K and of the new V heads (the cache keeps every
+    head), and an all-reduce at the embedding's masked lookup and at each
+    sub-layer's residual add (attention, MLP) of a rank's ``(1, 8, d)``
+    rows. A ring of two moves half an all-gather's result and an
+    all-reduce's operand once."""
     cfg = dataclasses.replace(get_reduced_config("minitron_4b"), num_layers=1)
     specs = dict(tree_util.items(param_specs(cfg, default_plan())))
     layout = dict(tree_util.items(lm.map_layout(lambda _, leaf: leaf, lm.param_layout(cfg))))
     count = {"data": 0, "model": 0}
     wire = {"data": 0.0, "model": 0.0}
+    kinds = {"all-gather": 0, "all-reduce": 0}
     for name, leaf in layout.items():
         nbytes = leaf.dtype.itemsize
         for n in leaf.shape:
             nbytes *= n
         axes = {a for d in range(len(specs[name])) for a in specs[name].axes(d)}
-        if "model" in axes:
-            count["model"] += 1
-            wire["model"] += nbytes / (2 if "data" in axes else 1) / 2
         if "data" in axes:
             count["data"] += 1
-            wire["data"] += nbytes / 2
+            kinds["all-gather"] += 1
+            wire["data"] += nbytes / (2 if "model" in axes else 1) / 2
+    act = torch_dtype(cfg.activ_dtype).itemsize
+    kv = 1 * 8 * (cfg.num_kv_heads // 2) * cfg.resolved_head_dim * act    # a rank's heads
+    rows = 1 * 8 * cfg.d_model * act
+    count["model"] += 2 + 3
+    kinds["all-gather"] += 2
+    kinds["all-reduce"] += 3
+    wire["model"] += 2 * kv + 3 * rows
     got = jobs["mesh2x2"]
     per_axis = {a: sum(1 for c in got["collectives"] if c["axis"] == a) for a in count}
     assert per_axis == count
-    assert got["summary"]["collectives"]["by_kind"] == {"all-gather": sum(count.values())}
+    assert got["summary"]["collectives"]["by_kind"] == kinds
     assert got["summary"]["collectives"]["wire_bytes_by_axis"] == wire
+    assert got["tp"] == {"vocab:local": 1, "attn:local": 1, "attn_kv:local": 1,
+                         "mlp:local": 1, "tp_local": 4}
+
+
+def test_reduced_decode_tensor_parallel_on_the_fake_world(jobs):
+    """Reduced Minitron-4B's ``decode_32k`` on the fake 16 x 16 world: its
+    4 q heads (and 2 K/V heads) do not divide the model axis of 16, so its
+    attention runs gathered, counted so; the MLP's 192 columns and the
+    vocab's 256 run on their shards. It counts fewer FLOPs a rank than the
+    gathered layout's 173.4 M, and peaks below its 138.5 MB."""
+    rec = jobs["port"]["records"]["minitron_4b:decode_32k"]
+    cfg = get_reduced_config("minitron_4b")
+    L = cfg.num_layers
+    assert rec["tp"] == {"vocab:local": 1, "attn:gathered": L, "attn_kv:gathered": L,
+                         "mlp:local": L, "tp_local": 1 + L, "tp_gathered": 2 * L}
+    assert rec["flops"] < 173.4e6
+    assert rec["peak_bytes"] < 138.5e6

@@ -1,7 +1,9 @@
 """Sharding across ranks on a real 4-rank gloo mesh on the CPU.
 
 One job (`_torch_dist_jobs.sharding_job`) runs once for the module on four
-spawned ranks (one thread each, killed after 180 s), over two meshes of
+spawned ranks (one thread each, killed when no part finishes for 300 s,
+or after 1200 s in all; ~30 s alone, 90 s beside the other five workers
+of the whole suite's `-n 6` run), over two meshes of
 ``("pod", "data", "model")``: ``(1, 2, 2)`` under `default_plan()` and
 ``(2, 2, 1)`` under `default_plan(multi_pod=True)`. The tests below assert
 on what each rank found:
@@ -13,7 +15,9 @@ on what each rank found:
   * `SyntheticLM.sharded_batch_at`: each rank's rows, put together, are
     `batch_at` (batches of 4, 6 and 1 rows);
   * `jit_prefill` / `jit_decode_step` on reduced fp32 Minitron, Qwen-MoE,
-    Mamba2, Jamba and Whisper: logits and the prefill cache within atol
+    Mamba2, Jamba and Whisper (tensor-parallel over the model axis of 2 on
+    ``(1, 2, 2)``, Whisper's layers gathered): logits and the prefill
+    cache within atol
     1e-5 + rtol 1e-5 of the one-device model's, greedy streams equal (the
     MoE tokens a rank holds form drop-free groups, as the global ones do:
     `moe_ffn` refuses a split where they would not);
@@ -47,7 +51,7 @@ MESHES = {"1x2x2": (1, 2, 2), "2x2x1": (2, 2, 1)}
 
 @pytest.fixture(scope="module")
 def ranks():
-    return run_job("sharding_job", world=4, timeout=180.0)
+    return run_job("sharding_job", world=4, timeout=1200.0, stall=300.0)
 
 
 def _ok(result):

@@ -1,0 +1,208 @@
+"""Tensor-parallel serving: `jit_prefill` and `jit_decode_step` computing on
+each rank's model-axis shards (heads, ``d_ff`` columns, experts, SSM heads,
+vocab), on a 4-rank gloo mesh on the CPU, against the one-device port and
+the reference's builders on four placeholder JAX devices.
+
+The module fixture starts at once (~45 s of wall time alone, several times
+that beside the rest of the suite on a loaded machine):
+
+  * ONE job of 4 gloo ranks (`_torch_tp_jobs.tp_job`, one thread each,
+    killed when no part finishes for `STALL_S` or after `LIMIT_S` in all):
+    reduced fp32 Minitron-4B, Qwen1.5-MoE, Mamba2-370m, Jamba, MiniCPM3
+    (MLA) and Qwen2-VL (M-RoPE), each on ``(1, 2, 2)`` under
+    `default_plan()` (a model axis of 2: tensor-parallel) and ``(2, 2, 1)``
+    under `default_plan(multi_pod=True)` (a model axis of 1); Minitron cut
+    to heads that do not divide the axis; the gated norm and the vocab
+    argmax on shards;
+  * the reference's `jit_prefill` / `jit_decode_step` on the same weights
+    and prompts, in one child process per mesh (`_torch_tp_ref.py`,
+    ``XLA_FLAGS`` for 4 host devices and one intra-op thread).
+
+Every step's logits are held to the other sides' within ``REL`` of the
+largest logit of the step (fp32 sums over the shards reassociate), and the
+greedy picks are equal.
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+from _torch_dist_jobs import _fp32, run_job
+from _torch_tp_jobs import N_NEW, TP_ARCHS
+
+from repro_torch import tree as tree_util
+from repro_torch.models import Model
+
+ROOT = Path(__file__).resolve().parents[1]
+MESHES = ("1x2x2", "2x2x1")
+REL = 1e-5
+#: the rank job is killed when no part finishes for STALL_S seconds, every
+#: process after LIMIT_S in all: the fixture takes ~45 s alone and took
+#: 202 s beside the other five workers of the whole suite's `-n 6` run
+STALL_S = 300
+LIMIT_S = 1200
+
+
+@pytest.fixture(scope="module")
+def jobs():
+    tmp = tempfile.mkdtemp()
+    for arch in TP_ARCHS:
+        tree = tree_util.map_tree(lambda _, x: x.numpy(), Model(_fp32(arch), device="cpu").params)
+        with open(os.path.join(tmp, f"{arch}.pkl"), "wb") as f:
+            pickle.dump(tree, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    refs = {m: subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_tp_ref.py"), tmp,
+         os.path.join(tmp, f"ref_{m}.npz"), ",".join(f"{a}:{m}" for a in TP_ARCHS)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+        for m in MESHES}
+    deadline = time.monotonic() + LIMIT_S
+    old = os.environ.get("TP_WEIGHTS")
+    os.environ["TP_WEIGHTS"] = tmp
+    try:
+        ranks = run_job("tp_job", world=4, timeout=LIMIT_S, stall=STALL_S,
+                        module="_torch_tp_jobs")
+    finally:
+        if old is None:
+            os.environ.pop("TP_WEIGHTS", None)
+        else:
+            os.environ["TP_WEIGHTS"] = old
+    ref, status = {}, {}
+    for m, p in refs.items():
+        try:
+            stdout, stderr = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            p.kill()
+        assert p.returncode == 0, f"reference failed:\n{stderr[-3000:]}"
+        status.update(json.loads(stdout.strip().splitlines()[-1]))
+        with np.load(os.path.join(tmp, f"ref_{m}.npz")) as z:
+            ref.update({k: z[k] for k in z.files})
+    return {"ranks": ranks, "ref": ref, "status": status}
+
+
+def _ok(result):
+    assert not (isinstance(result, dict) and "error" in result), result.get("error")
+    return result
+
+
+def _close(got, want):
+    """Each step's logits within `REL` of the step's largest logit."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape, (i, g.shape, w.shape)
+        assert float(np.abs(g - w).max()) <= REL * float(np.abs(w).max()), i
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_steps_match_one_device_port(jobs, arch, mesh):
+    """Prefill and four greedy decode steps: every rank's logits (put
+    together) within REL of the one-device port's, the greedy picks equal;
+    on ``(1, 2, 2)`` the logits leave as each rank's rows and vocab
+    columns."""
+    for out in jobs["ranks"]:
+        r = _ok(out[f"serve:{arch}:{mesh}"])
+        assert len(r["logits"]) == N_NEW + 1
+        _close(r["logits"], r["one_logits"])
+        assert np.array_equal(r["picks"], r["one_picks"])
+    placements = {"1x2x2": "(Replicate(), Shard(dim=0), Shard(dim=1))",
+                  "2x2x1": "(Shard(dim=0), Shard(dim=0), Shard(dim=1))"}[mesh]
+    assert r["logits_placements"] == placements
+
+
+@pytest.mark.parametrize("mesh", MESHES)
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tp_steps_match_reference_builders(jobs, arch, mesh):
+    """The same steps against the reference's `jit_prefill` and
+    `jit_decode_step` on four devices of that mesh, fed their own greedy
+    picks: logits within REL, picks equal."""
+    st = jobs["status"][f"{arch}:{mesh}"]
+    assert st["status"] == "ok", st.get("trace")
+    want = [jobs["ref"][f"{arch}:{mesh}:{i}"] for i in range(N_NEW + 1)]
+    r = _ok(jobs["ranks"][0][f"serve:{arch}:{mesh}"])
+    _close(r["logits"], want)
+    V = _fp32(arch).vocab_size
+    assert np.array_equal(r["picks"], np.stack([w[:, :V].argmax(-1) for w in want], 1))
+
+
+#: the tensor-parallel groups of each reduced config, all dividing 2
+GROUPS = {
+    "minitron_4b": ("attn", "attn_kv", "mlp"),
+    "qwen2_moe_a2_7b": ("attn", "attn_kv", "experts", "shared"),
+    "mamba2_370m": ("ssm",),
+    "jamba_v0_1_52b": ("attn", "attn_kv", "ssm", "mlp", "experts"),
+    "minicpm3_4b": ("mla", "mlp"),
+    "qwen2_vl_2b": ("attn", "attn_kv", "mlp"),
+}
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_every_dividing_dim_ran_local(jobs, arch):
+    """On ``(1, 2, 2)`` every group of the config (and the vocab) ran on its
+    model-axis shard, in the prefill and in every decode step, none
+    gathered; on ``(2, 2, 1)``, a model axis of one rank, nothing is
+    counted."""
+    cfg = _fp32(arch)
+    per_layer = {"ssm": 0, "attn": 0, "mla": 0, "mlp": 0, "moe": 0}
+    from repro_torch.models.lm import layer_kinds, n_scan_steps
+    for mixer, f in layer_kinds(cfg):
+        per_layer[mixer] += n_scan_steps(cfg)
+        if f != "none":
+            per_layer[f] += n_scan_steps(cfg)
+    want = {"vocab:local": 1}
+    for g in GROUPS[arch]:
+        n = {"attn_kv": per_layer["attn"], "experts": per_layer["moe"],
+             "shared": per_layer["moe"]}.get(g, per_layer.get(g))
+        want[f"{g}:local"] = n
+    want["tp_local"] = sum(want.values())
+    for out in jobs["ranks"]:
+        counts = _ok(out[f"serve:{arch}:1x2x2"])["counts"]
+        assert counts["prefill"] == want
+        assert counts["decode"] == [want] * N_NEW
+        assert _ok(out[f"serve:{arch}:2x2x1"])["counts"] == {"prefill": {},
+                                                             "decode": [{}] * N_NEW}
+
+
+def test_heads_that_do_not_divide_run_gathered(jobs):
+    """Minitron cut to 3 q heads over 1 K/V head on the model axis of 2:
+    attention gathers its layers whole and is counted so, the MLP and the
+    vocab run on their shards; the logits and picks are the one-device
+    port's."""
+    L = _fp32("minitron_4b").num_layers
+    for out in jobs["ranks"]:
+        r = _ok(out["odd"])
+        want = {"vocab:local": 1, "attn:gathered": L, "attn_kv:gathered": L, "mlp:local": L,
+                "tp_local": 1 + L, "tp_gathered": 2 * L}
+        assert r["counts"]["prefill"] == want
+        assert r["counts"]["decode"] == [want] * N_NEW
+        _close(r["logits"], r["one_logits"])
+        assert np.array_equal(r["picks"], r["one_picks"])
+
+
+def test_gated_norm_takes_the_global_mean(jobs):
+    """The SSM block's gated norm on each rank's half of a row: the mean of
+    squares is the whole row's (summed over the model axis), equal to the
+    one-device norm; the halves normed by their own means would be far
+    off."""
+    for out in jobs["ranks"]:
+        r = _ok(out["norm"])
+        assert r["tp"] == 2
+        assert r["err"] <= 1e-6 * r["scale"]
+        assert r["local_mean_err"] > 0.1 * r["scale"]
+
+
+def test_vocab_argmax_takes_the_lowest_index(jobs):
+    """The greedy pick across vocab shards: on ties (within a shard, across
+    shards, at their border, a constant row) the lowest index wins, as
+    ``torch.argmax`` of the whole row; equal on every rank."""
+    for out in jobs["ranks"]:
+        r = _ok(out["tie"])
+        assert r["tp"] == 2
+        assert r["got"] == r["want"] == [3, 9, 13, 0, 7]

@@ -8,8 +8,10 @@ Reads the JSON records `python -m repro_torch.launch.dryrun` writes (one a
 cell and mesh). Each mesh's cell shows the argument and peak GB a rank
 (peak marked ``*`` where it exceeds the card's memory), the FLOPs a rank,
 the wire GB a rank moves over each mesh axis, and the roofline term that
-bounds the step; a cell that raised shows its error's type and its first
-words.
+bounds the step, and the tensor-parallel groups a serving step ran
+gathered whole where their dim does not divide the model axis (``tp``
+counts of the record); a cell that raised shows its error's type and its
+first words.
 """
 from __future__ import annotations
 
@@ -31,9 +33,11 @@ def cell_text(rec: dict) -> str:
     m, rf, col = rec["memory"], rec["roofline"], rec["collectives"]
     peak = m["peak_bytes"] / 1e9
     wire = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in sorted(col["wire_bytes_by_axis"].items()))
+    gathered = sorted({k.split(":")[0] for k in rec.get("tp", {}) if k.endswith(":gathered")})
     return (f"{m['argument_bytes'] / 1e9:.2f} / {peak:.2f}{'' if m['fits'] else '*'} GB, "
             f"{rec['cost']['hlo_flops_per_device'] / 1e12:.1f} TF, wire GB {wire or 'none'}, "
-            f"{TERMS[rf['bottleneck']]}")
+            f"{TERMS[rf['bottleneck']]}"
+            + (f", gathered: {' '.join(gathered)}" if gathered else ""))
 
 
 def main(argv=None) -> None:

@@ -2,12 +2,19 @@
 """The serving engine laid out across four H100s: params and pool span the
 ranks a plan resolves to.
 
-    torchrun --nproc-per-node 4 tools/engine_ranks.py [--parts qwen,pod,jamba]
+    torchrun --nproc-per-node 4 tools/engine_ranks.py [--parts builders,qwen,pod,jamba]
     torchrun --nproc-per-node 4 tools/engine_ranks.py --device cpu --reduced
 
 One process per card (``torchrun`` gives each its rank; the group is made
-over ``env://``, a localhost rendezvous). Three parts, each freeing its
+over ``env://``, a localhost rendezvous). Four parts, each freeing its
 models before the next:
+
+  builders  the tensor-parallel `jit_prefill` and three greedy
+         `jit_decode_step`s on the (1, 2, 2) mesh at full width in fp32, cut
+         to a few layers (Qwen1.5-MoE 4, Minitron-4B 2, Mamba2-370m 4,
+         MiniCPM3-4B 2; seeded weights made sharded), each held to the same
+         config on rank 0's card: every step's logits within `BUILDER_REL`
+         of the step's largest logit, picks equal, every group local.
 
   qwen   Qwen1.5-MoE-A2.7B at full width (bf16, random weights from seed 0)
          on the (1, 2, 2) mesh under `default_plan()`: the serve cell of
@@ -37,6 +44,15 @@ models before the next:
          sharded: no card holds the model): flash 4, MoE top-k 16 and the
          SSD scan 28 launches per prefill on each rank, each rank's peak
          under 80 GB, TTFT and TPOT.
+
+On (1, 2, 2) the plan's model axis of 2 runs prefill and decode
+tensor-parallel (`models/lm.py::tp_groups`): each rank computes on its
+half of the heads, ``d_ff`` columns, experts, SSM heads and vocab, the
+partial outputs summed over the axis; the engine's ``decode_stats`` count
+the sub-layers that ran on their shard (``tp_local``) and those gathered
+whole (``tp_gathered``, none for these models: every such dim divides 2),
+and the run fails if a step on that mesh ran none local. On (2, 2, 1) the
+model axis has one rank and nothing is counted.
 
 Decode across ranks runs eagerly by design (`serving/engine.py`). Any
 failed check, collective or launch ends the run non-zero (``torchrun`` then
@@ -73,6 +89,12 @@ PAPER_DOWNTIME_S = 0.05
 # its 16 layers: per period of 8, 1 attention, 4 MoE and 7 Mamba layers
 cs.PREFILL_LAUNCHES[("jamba-v0.1-52b", 32)] = (4, 16, 28)
 CARD_BYTES = 80e9
+#: the builders part: (arch, layers) at full width in fp32, and how far a
+#: step's logits may be from one card's, relative to its largest logit
+#: (fp32 sums over the shards reassociate; no tf32)
+BUILDER_CASES = (("qwen2_moe_a2_7b", 4), ("minitron_4b", 2), ("mamba2_370m", 4),
+                 ("minicpm3_4b", 2))
+BUILDER_REL = 1e-4
 
 
 def rank() -> int:
@@ -182,10 +204,14 @@ def oracle_run(env, cfg, lens, **kw):
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
+    seen = set()
     while eng.queue or any(r is not None for r in eng.slot_req):
         router.take()
         eng.step()
-        routing.append(router.take())
+        prefill, decode = router.take()
+        admitted = [rid for rid in eng.prefill_logits if rid not in seen]
+        seen.update(admitted)
+        routing.append({"prefill": prefill, "decode": decode, "admitted": admitted})
         for lane, rid in eng.last_lanes:
             rows[(rid, len(reqs[rid].tokens_out) - 1)] = \
                 eng.last_logits[lane, : eng.vocab].float().cpu()
@@ -208,31 +234,44 @@ def _eager(exe):
 
 
 class Routing:
-    """Records, on this rank, each decode MoE layer's router logits and
-    expert picks (`models.mlp.router_topk`, the decode path's router; a
-    prefill routes through the MoE top-k kernel and is not recorded)."""
+    """Records, on this rank, each MoE layer's router logits and expert
+    picks: a prefill's through the MoE top-k kernel (`kernels.ops.moe_topk`),
+    a decode step's through `models.mlp.router_topk`; `take` returns and
+    clears both lists."""
 
     def __init__(self):
         import threading
 
+        from repro_torch.kernels import ops
         from repro_torch.models import mlp
-        self._mlp, self._orig, self.calls = mlp, mlp.router_topk, []
+        self._mlp, self._ops = mlp, ops
+        self._orig, self._orig_kernel = mlp.router_topk, ops.moe_topk
+        self.calls, self.prefill_calls = [], []
         serving = threading.current_thread()
 
         def recorded(m, logits, *, want_aux=True):
             out = self._orig(m, logits, want_aux=want_aux)
             if threading.current_thread() is serving:    # not PREPARE's scratch step
-                self.calls.append((logits.float().cpu(), out[1].cpu()))
+                self.calls.append((logits.float().cpu(), out[1].long().cpu()))
+            return out
+
+        def recorded_kernel(logits, k, **kw):
+            out = self._orig_kernel(logits, k, **kw)
+            if threading.current_thread() is serving:
+                self.prefill_calls.append((logits.float().cpu(), out[1].long().cpu()))
             return out
 
         mlp.router_topk = recorded
+        ops.moe_topk = recorded_kernel
 
     def take(self):
-        calls, self.calls = self.calls, []
-        return calls
+        out = (self.prefill_calls, self.calls)
+        self.prefill_calls, self.calls = [], []
+        return out
 
     def close(self):
         self._mlp.router_topk = self._orig
+        self._ops.moe_topk = self._orig_kernel
 
 
 def _whole_rows(parts):
@@ -250,15 +289,17 @@ def _whole_rows(parts):
 class Forced:
     """Holds a sharded engine to the oracle's as it serves (the checks of
     `chip_smoke.py`'s bf16 paths). After each step rank 0 compares, for
-    every decoded lane, each MoE layer's router logits with the oracle's
-    at the same step, within `ROUTER_TOL`, up to the first layer whose
-    expert picks differ: there the request's routing splits (bf16 rounds
-    other GEMM row counts otherwise, and a near-tie picks another expert),
-    and from there on its state is another's and it is no longer held. Up
-    to its split, a request's prefill and decode logits must be within
-    `PATH_LOGITS_TOL` of the oracle's, and a pick that differs a near-tie
-    within it. The oracle's token replaces a differing pick on every rank,
-    so the next step's input is the oracle's."""
+    each request admitted in it, each MoE layer's router logits of its
+    prefill with the oracle's, and for every decoded lane each MoE layer's
+    router logits at the same step, within `ROUTER_TOL`, up to the first
+    layer whose expert picks differ for a token: there the request's
+    routing splits (bf16 rounds other GEMM row counts, and a
+    tensor-parallel layer's partial sums, otherwise, and a near-tie picks
+    another expert), and from there on its state is another's and it is no
+    longer held. Up to its split, a request's prefill and decode logits
+    must be within `PATH_LOGITS_TOL` of the oracle's, and a pick that
+    differs a near-tie within it. The oracle's token replaces a differing
+    pick on every rank, so the next step's input is the oracle's."""
 
     def __init__(self, env, engine, reqs, oracle):
         self.env, self.engine, self.reqs, self.oracle = env, engine, reqs, oracle
@@ -273,7 +314,7 @@ class Forced:
     def after_step(self):
         from repro_torch.sharding import ctx
         eng = self.engine
-        calls = self.router.take()
+        prefill_calls, calls = self.router.take()
         lo = -1
         if eng.layout is not None and eng._is_member():
             dm = next(iter(eng.cache.values())).device_mesh
@@ -284,10 +325,16 @@ class Forced:
         fixes = []
         if rank() == 0:
             routed = _whole_rows(parts)
-            want_routed = self.oracle["routing"][self.k]
+            want_step = self.oracle["routing"][self.k]
+            want_routed = want_step["decode"]
             got = [(rid, 0, eng.prefill_logits[rid]) for rid in eng.prefill_logits
                    if rid not in self.seen_prefill]
             self.seen_prefill.update(rid for rid, _, _ in got)
+            admitted = [rid for rid, _, _ in got]
+            fail(admitted == want_step["admitted"],
+                 f"admitted {admitted} where the one-card engine admitted "
+                 f"{want_step['admitted']}")
+            self._prefill_routing(admitted, prefill_calls, want_step["prefill"])
             for lane, rid in eng.last_lanes:
                 idx = len(self.reqs[rid].tokens_out) - 1
                 for layer, ((g_lg, g_id), (w_lg, w_id)) in enumerate(zip(routed, want_routed)):
@@ -303,8 +350,8 @@ class Forced:
                 mine, theirs = self.reqs[rid].tokens_out[idx], self.oracle["tokens"][rid][idx]
                 if mine != theirs:
                     fixes.append((rid, idx, theirs))
-                if rid in self.splits:
-                    continue
+                if rid in self.splits and idx >= self.splits[rid]["index"]:
+                    continue        # from its split on (a prefill row before it counts)
                 row = row[: eng.vocab].float().cpu()
                 want = self.oracle["rows"][(rid, idx)]
                 self.worst = max(self.worst, float((row - want).abs().max()))
@@ -315,6 +362,29 @@ class Forced:
         self.k += 1
         for rid, idx, tok in bcast(fixes):
             self.reqs[rid].tokens_out[idx] = tok
+
+    def _prefill_routing(self, admitted, got, want):
+        """Each admitted request's prefill routing, layer by layer, against
+        the oracle's (one block of MoE calls per request, in admission
+        order): router logits within the limit up to the first layer where
+        a token's expert picks differ, the request's split (at index 0)."""
+        if not admitted:
+            return
+        per = len(want) // len(admitted)
+        fail(len(got) == len(want) and per * len(admitted) == len(want),
+             f"prefill MoE calls {len(got)} where the one-card engine made {len(want)}")
+        for j, rid in enumerate(admitted):
+            for layer in range(per):
+                (g_lg, g_id), (w_lg, w_id) = got[j * per + layer], want[j * per + layer]
+                self.router_worst = max(self.router_worst, float((g_lg - w_lg).abs().max()))
+                if not torch_equal_sets(g_id, w_id):
+                    row = int((g_id.sort(dim=-1).values != w_id.sort(dim=-1).values)
+                              .any(dim=-1).nonzero()[0])
+                    top = w_lg[row].sort(descending=True).values
+                    k = w_id.shape[1]
+                    self.splits[rid] = {"index": 0, "moe_layer": layer, "in": "prefill",
+                                        "token": row, "gap": float(top[k - 1] - top[k])}
+                    break
 
     def verdict(self, tag):
         self.router.close()
@@ -331,6 +401,12 @@ class Forced:
         fail(ok, f"{tag}: the sharded engine leaves the one-card engine")
         return {"max_abs_diff": self.worst, "router_max_abs_diff": self.router_worst,
                 "rows": self.rows, "flips": self.flips, "splits": self.splits}
+
+
+def torch_equal_sets(a, b) -> bool:
+    """Whether every row of two ``(T, k)`` expert-id tensors picks the same
+    set of experts."""
+    return bool((a.sort(dim=-1).values == b.sort(dim=-1).values).all())
 
 
 def serve(env, engine, submit, step, cfg, lens, oracle, hold, tag, events=None):
@@ -361,6 +437,10 @@ def serve(env, engine, submit, step, cfg, lens, oracle, hold, tag, events=None):
     m = compute_metrics(reqs)
     out = {"metrics": m, "wall_s": wall, "steps": k, "launches": dict(ops.LAUNCHES),
            "stats": dict(engine.decode_stats)}
+    tp_axis = engine.layout["mesh"].shape.get("model", 1) if engine.layout is not None else 1
+    fail(tp_axis == 1 or (engine.decode_stats["tp_local"] > 0
+                          and engine.decode_stats["tp_gathered"] == 0),
+         f"{tag} a tensor-parallel mesh ran its sub-layers gathered: {engine.decode_stats}")
     if forced is not None:
         out["vs_one_card"] = forced.verdict(tag)
     peaks = gather(env.peak())
@@ -465,6 +545,81 @@ def part_pod(env, mesh_shape, oracle):
     return out
 
 
+def part_builders(env, mesh_shape):
+    """The tensor-parallel builders against rank 0's card (module doc)."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.steps import jit_decode_step, jit_prefill
+    from repro_torch.models import Model
+    from repro_torch.models.lm import is_positional
+    from repro_torch.sharding import ctx, default_plan, rank_mesh
+    tag = "[engine ranks builders]"
+    B, S, new = 4, 64, 3
+    out = {}
+    mesh = rank_mesh(mesh_shape, device=env.device.type)
+    for arch, layers in BUILDER_CASES:
+        cfg = dataclasses.replace(env.cfg(arch, layers), param_dtype="float32",
+                                  activ_dtype="float32")
+        rng = np.random.default_rng(3)
+        tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(B, S)).astype(np.int32),
+                                 device=env.device)
+        V, s_max = cfg.vocab_size, S + new + 1
+
+        def run(model, prefill, decode):
+            logits, cache = prefill({"tokens": tokens})
+            full = model.init_cache(B, s_max, dtype=torch.float32)
+            for k, v in cache.items():
+                v = ctx.full(v)
+                if is_positional(k):
+                    full[k][:, :, :v.shape[2]] = v
+                else:
+                    full[k].copy_(v)
+            steps = [ctx.full(logits).float().cpu()]
+            for i in range(new):
+                t = steps[-1][:, :V].argmax(-1).to(torch.int32).to(env.device)
+                logits, full = decode(t[:, None], full, torch.tensor(S + i, device=env.device))
+                steps.append(ctx.full(logits).float().cpu())
+            return steps
+
+        one = None
+        if rank() == 0:
+            model = Model(cfg, device=env.device, seed=0)
+            with torch.no_grad():
+                one = run(model, model.prefill, model.decode_step)
+            del model
+            env.free()
+        model = sharded_model(env, cfg, mesh, default_plan())
+        plan = default_plan()
+        pre = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", S, B))
+        dec = jit_decode_step(model, mesh, plan, ShapeCell("d", "decode", s_max, B))
+        ctx.reset_tp_counts()
+        env.sync()
+        t0 = time.perf_counter()
+        got = run(model, lambda b: pre(model.params, b),
+                  lambda t, c, p: dec(model.params, t, c, p))
+        env.sync()
+        secs = time.perf_counter() - t0
+        counts = ctx.tp_counts()
+        ok = True
+        if rank() == 0:
+            rel = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, one))
+            picks = all(torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
+                        for a, b in zip(got, one))
+            ok = rel <= BUILDER_REL and picks and not counts.get("tp_gathered") and (
+                mesh.shape["model"] == 1 or counts.get("tp_local", 0) > 0)
+            out[arch] = {"layers": cfg.num_layers, "rel": rel, "picks_equal": picks,
+                         "counts": counts, "seconds": secs}
+            say(f"{tag} {cfg.name} {cfg.num_layers} layers fp32 {mesh_shape}: prefill and "
+                f"{new} decode steps, logits within {rel:.3e} of one card's (limit "
+                f"{BUILDER_REL}), picks equal {picks}; {counts}; {secs:.2f} s  "
+                f"{'ok' if ok else 'FAIL'}  [{env.card}]")
+        fail(bcast(ok), f"{tag} {arch}: the tensor-parallel steps leave one card's")
+        del model, pre, dec
+        env.free()
+    return out
+
+
 def part_jamba(env, mesh_shape, whole: bool):
     from repro_torch.serving import ServingEngine
     from repro_torch.sharding import default_plan, rank_mesh
@@ -501,7 +656,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reduced", action="store_true", help="the reduced fp32 configs")
-    ap.add_argument("--parts", default="qwen,pod,jamba")
+    ap.add_argument("--parts", default="builders,qwen,pod,jamba")
     args = ap.parse_args(argv)
     import torch
     import torch.distributed as dist
@@ -534,6 +689,8 @@ def main(argv=None) -> int:
     pod_mesh = (1, 1, 1) if one else (2, 2, 1)
     parts = args.parts.split(",")
     out, oracle = {"world": world, "card": args.card}, None
+    if "builders" in parts:
+        out["builders"] = part_builders(env, qwen_mesh)
     if "qwen" in parts or "pod" in parts:
         out["qwen"], oracle = part_qwen(env, qwen_mesh)
     if "pod" in parts:
