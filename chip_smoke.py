@@ -155,9 +155,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              `prefill` / `decode_step` bit for bit; the collectives of one
              sharded decode step by op and group; Mamba2-370m whole (B=4 x
              S=1024) under deterministic algorithms, one sharded train step
-             equal to `make_train_step`'s bit for bit (loss, params, moments),
-             and a save and a restore under the mesh's shardings equal to the
-             state bit for bit.
+             (each layer gathered in its checkpointed scan step) equal to
+             `make_train_step`'s bit for bit (loss, params, moments), and a
+             save and a restore under the mesh's shardings equal to the state
+             bit for bit; then the tensor-parallel train step on a model axis
+             of 2 emulated by two threads (`tools/tp_emulate.py`, the axis's
+             collectives exchanged between them): fp32 Minitron-4B and
+             Qwen1.5-MoE at full width and 2 layers (B=2 x S=1024,
+             sequence-parallel), the loss and the first moments against the
+             whole step's, the replicated leaves' gradients equal on both
+             threads, every group on its shard.
 15. dryrun — in a child process (the fake world and the sharded phase's NCCL
              group must not meet in one process): the dry run
              (`launch.dryrun`) of four steps on a fake world of one rank,
@@ -3280,9 +3287,52 @@ def _sharded_train(card, mesh, cfg, lr):
     return out
 
 
+#: the emulated tensor-parallel train step: the loss within this of the
+#: whole step's (relative), and the first moments within atol 1e-7 + rtol
+#: 1e-4 of it at all but this share of their coordinates (fp32 sums over
+#: the two shards reassociate; no tf32)
+TP_TRAIN_LOSS_REL = 1e-5
+TP_TRAIN_M_SHARE = 1e-3
+
+
+def _tp_train_emulated(card):
+    """The tensor-parallel train step on the card, a model axis of 2
+    emulated by two threads (`tools/tp_emulate.py`'s `train_case`): fp32
+    Minitron-4B and Qwen1.5-MoE at full width and 2 layers against the whole
+    step; the loss and the first moments within `TP_TRAIN_LOSS_REL` and
+    `TP_TRAIN_M_SHARE`, the replicated leaves' gradients equal on both
+    threads, every group on its shard."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    import tp_emulate
+    dev = torch.device("cuda")
+    out = {}
+    for arch in tp_emulate.TRAIN_ARCHS:
+        cfg, batch = tp_emulate.train_config(arch, dev, False)
+        r = tp_emulate.train_case(dev, cfg, batch, tp_emulate.TRAIN_LR, card,
+                                  "[sharded tp train emulated]",
+                                  loss_chunk=tp_emulate.TRAIN_LOSS_CHUNK)
+        for key in ("loss", "loss_rank1"):
+            check(abs(r[key] - r["whole_loss"]) <= TP_TRAIN_LOSS_REL * abs(r["whole_loss"]),
+                  f"[sharded tp train] {arch} {key} {r[key]} against the whole step's "
+                  f"{r['whole_loss']}")
+        check(r["m_outside"] <= TP_TRAIN_M_SHARE * r["m_total"],
+              f"[sharded tp train] {arch}: m outside the tolerance at {r['m_outside']} of "
+              f"{r['m_total']} coordinates")
+        check(r["replicated_grads_equal"],
+              f"[sharded tp train] {arch}: the replicated leaves' gradients differ between "
+              "the two ranks")
+        check(r["counts"].get("tp_local", 0) > 0 and not r["counts"].get("tp_gathered"),
+              f"[sharded tp train] {arch}: groups ran gathered: {r['counts']}")
+        out[arch] = r
+        free_device()
+    return out
+
+
 def phase_sharded(card):
-    """The sharded builders on a one-rank NCCL mesh of the card (see the
-    module docstring, phase 14); each model freed before the next."""
+    """The sharded builders on a one-rank NCCL mesh of the card, and the
+    tensor-parallel train step on two emulated ranks (see the module
+    docstring, phase 14); each model freed before the next."""
     from repro_torch.configs import get_config
     from repro_torch.sharding import rank_mesh
     t0 = time.perf_counter()
@@ -3293,6 +3343,7 @@ def phase_sharded(card):
         free_device()
         out["train"] = _sharded_train(card, mesh, get_config(SSM_ARCH), TRAIN_LR[SSM_ARCH])
         free_device()
+    out["tp_train"] = _tp_train_emulated(card)
     out["seconds"] = time.perf_counter() - t0
     say(f"[sharded] phase {out['seconds']:.1f} s  [{card}]")
     return out

@@ -24,8 +24,11 @@ dry run's prediction to the truth:
     mesh axis their group spans; they add no FLOPs or bytes;
   * kernel calls: the ``repro_torch`` custom ops dispatched, by name;
   * live memory: every storage an op creates counts from then until it is
-    freed; ``peak_transient`` is the most live at once over the step. The
-    step's inputs are its arguments (`argument_bytes`), live before it.
+    freed; ``peak_transient`` is the most live at once over the step, and
+    ``peak_tensors`` the largest storages live then (the op that made each,
+    its shape, dtype and bytes; taken where the live bytes last rose by a
+    percent, so within a percent of the peak). The step's inputs are its
+    arguments (`argument_bytes`), live before it.
 
 Rank 0 is counted: the fullest rank, since the sharded steps refuse a split
 of rows that is not even (`launch.steps._check_rows`) and DTensor's chunk
@@ -33,6 +36,7 @@ rule gives the first ranks the larger shards.
 """
 from __future__ import annotations
 
+import itertools
 import weakref
 from collections import Counter
 from typing import Any, Dict, Iterable, List, Tuple
@@ -98,7 +102,11 @@ class StepCost(_StepCount):
         self.argument_bytes = 0
         self.live = 0
         self.peak_transient = 0
+        self.peak_tensors: List[Dict[str, Any]] = []
         self._seen = WeakIdKeyDictionary()
+        self._made: Dict[int, tuple] = {}       # live storage -> (bytes, op, shape, dtype)
+        self._ids = itertools.count()
+        self._snapped = 0
         self._groups = _group_axes(mesh) if mesh is not None else {}
 
     # -- arguments and live memory -----------------------------------------
@@ -116,7 +124,7 @@ class StepCost(_StepCount):
         self.argument_bytes += added
         return added
 
-    def _track(self, outs: List[torch.Tensor]) -> None:
+    def _track(self, outs: List[torch.Tensor], op: str = "?") -> None:
         for t in outs:
             st = t.untyped_storage()
             if st in self._seen:
@@ -124,11 +132,23 @@ class StepCost(_StepCount):
             n = st.nbytes()
             self._seen[st] = None
             self.live += n
-            self.peak_transient = max(self.peak_transient, self.live)
-            weakref.finalize(st, self._free, n)
+            key = next(self._ids)
+            self._made[key] = (n, op, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+            weakref.finalize(st, self._free, n, key)
+            if self.live > self.peak_transient:
+                self.peak_transient = self.live
+                if self.live > 1.01 * self._snapped:
+                    self._snap()
 
-    def _free(self, n: int) -> None:
+    def _snap(self, top: int = 5) -> None:
+        self._snapped = self.live
+        self.peak_tensors = [{"op": op, "shape": list(shape), "dtype": dtype, "bytes": n}
+                             for n, op, shape, dtype in sorted(self._made.values(),
+                                                               key=lambda m: -m[0])[:top]]
+
+    def _free(self, n: int, key: int) -> None:
         self.live -= n
+        self._made.pop(key, None)
 
     # -- dispatch ----------------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -144,12 +164,12 @@ class StepCost(_StepCount):
         if ns in _COLLECTIVE_NS:
             out = func(*args, **kwargs)
             self._collective(func, args, kwargs, ins, _tensors(out))
-            self._track([t for t in _tensors(out) if t.device.type != "meta"])
+            self._track([t for t in _tensors(out) if t.device.type != "meta"], func._opname)
             return out
         out = super().__torch_dispatch__(func, types, args, kwargs)
         if ns == "repro_torch":
             self.kernel_calls[func._opname] += 1
-        self._track(_tensors(out))
+        self._track(_tensors(out), func._opname)
         return out
 
     def _collective(self, func, args, kwargs, ins, outs) -> None:
@@ -200,7 +220,7 @@ class StepCost(_StepCount):
                                 "wire_bytes_by_axis": by_axis,
                                 "wire_bytes_per_device": sum(by_axis.values())},
                 "argument_bytes": self.argument_bytes,
-                "peak_transient": self.peak_transient}
+                "peak_transient": self.peak_transient, "peak_tensors": self.peak_tensors}
 
 
 def _group_axes(mesh) -> Dict[str, Tuple[str, int]]:

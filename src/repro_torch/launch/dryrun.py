@@ -7,10 +7,12 @@ RUNS each cell's step once on rank 0 of a fake world of 256 or 512 ranks
 (`launch.mesh`), on fake tensors (`FakeTensorMode`: shapes, dtypes and
 devices, no memory, no arithmetic), under the counters of `launch.cost`.
 The step is the one a card runs: the model, the plan and the sharded
-builders of `launch.steps` (ZeRO-3 storage, data parallel over the batch
-axes; serving tensor-parallel over the model axis, each sub-layer whose dim
-divides it on its shard, the others gathered whole, as the record's ``tp``
-counts show; a train step gathers each layer whole), with the stand-ins of
+builders of `launch.steps` (ZeRO-3 storage, each layer gathered over the
+FSDP axes as the step reaches it, data parallel over the batch axes;
+tensor-parallel over the model axis, each sub-layer whose dim divides it on
+its shard, the others gathered whole, as the record's ``tp`` counts show,
+in serving and in train; a train step's residual stream sequence-parallel
+where the plan says so), with the stand-ins of
 `launch.steps.{param,batch,decode}_struct` placed under the plan's specs as
 each rank's shards. The kernels are custom ops whose fake implementations
 give their output shapes after the card's own argument checks
@@ -271,7 +273,9 @@ def record_of(counts: Dict[str, Any], cfg: ModelConfig, cell: ShapeCell,
         "memory": {"argument_bytes": counts["argument_bytes"],
                    "temp_bytes": counts["peak_transient"],
                    "peak_bytes": peak, "hbm_capacity": hbm_bytes,
-                   "fits": peak <= hbm_bytes},
+                   "fits": peak <= hbm_bytes,
+                   # the largest storages live at the peak, by the op that made each
+                   "peak_tensors": counts.get("peak_tensors", [])},
         "cost": {"hlo_flops_per_device": counts["flops"],
                  "hlo_bytes_per_device": counts["bytes"]},
         "collectives": {**col, "links": links},
@@ -282,8 +286,9 @@ def record_of(counts: Dict[str, Any], cfg: ModelConfig, cell: ShapeCell,
                      "roofline_fraction": compute_s / max(lower, 1e-30)},
         "params": {"total": cfg.param_count(), "active": cfg.active_param_count()},
         "kernel_calls": counts["kernel_calls"],
-        # serving's tensor-parallel sub-layers: on their model-axis shard,
-        # or gathered whole where their dim does not divide the axis
+        # the tensor-parallel sub-layers (serving and train): on their
+        # model-axis shard, or gathered whole where their dim does not
+        # divide the axis
         "tp": counts.get("tp", {}),
     }
 

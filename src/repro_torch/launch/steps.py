@@ -12,23 +12,27 @@ builders place inputs and outputs under a plan's placements, and the steps
 run eagerly.
 
 The compute layout (the reference leaves it to its compiler): ZeRO-3
-storage and data parallelism over the batch axes, and in serving tensor
-parallelism over the plan's tensor axis. Each rank runs its own batch rows
-over plain tensors, so the model code and the kernels see plain tensors
-only. Prefill and decode gather a layer at a time over the FSDP axes only
-and keep each tensor-axis shard local (`lm.layer_params` with the groups
-of `lm.tp_groups`: heads, ``d_ff`` columns, experts, SSM heads, the vocab),
-summing the partial outputs over the tensor axis at each residual add, the
-embedding's masked lookup and nowhere else; a group whose dim does not
-divide the axis runs gathered whole, and is counted so (`ctx.note_tp`).
-The logits leave as this rank's vocab columns, with no gather, and a cache
+storage and data parallelism over the batch axes, and tensor parallelism
+over the plan's tensor axis. Each rank runs its own batch rows over plain
+tensors, so the model code and the kernels see plain tensors only. Every
+step gathers a layer at a time over the FSDP axes only and keeps each
+tensor-axis shard local (`lm.layer_params`, `lm.train_steps`, with the
+groups of `lm.tp_groups`: heads, ``d_ff`` columns, experts, SSM heads, the
+vocab), summing the partial outputs over the tensor axis at each residual
+add, the embedding's masked lookup and, in train, the vocab-parallel loss;
+a group whose dim does not divide the axis runs gathered whole, and is
+counted so (`ctx.note_tp`; the enc-dec stacks are gathered whole). Serving
+logits leave as this rank's vocab columns, with no gather, and a cache
 leaf the tensor axis shards (an SSM state's heads and channels) is used in
-place. A train step gathers the whole tree for its forward and backward
-(the enc-dec stacks are gathered whole in serving too). Gradients come back
-to the params' placements by a reduce-scatter over the batch axes
-(``shard_grads``) or an all-reduce, and AdamW updates each rank's shards,
-clipping by the global norm. The loss is the global masked mean: each rank
-divides its sum by the mask count over every rank's rows.
+place. A train step gathers each layer inside its checkpointed scan step
+through `ctx.gather_shard`, whose backward returns the layer's gradient to
+the params' placements (a reduce-scatter over the FSDP axes that split the
+rows, ``shard_grads``, or an all-reduce then a cut), and differentiates
+through the tensor axis's sums by the rules of `sharding.ctx`; where the
+plan says ``sequence_parallel`` its residual stream holds this rank's
+piece of the sequence. AdamW updates each rank's shards, clipping by the
+global norm. The loss is the global masked mean: each rank divides its sum
+by the mask count over every rank's rows.
 
 ``batch_struct``, ``decode_struct`` and ``param_struct`` give the inputs of
 a shape cell as meta tensors (shapes and dtypes, no memory): the stand-ins
@@ -163,32 +167,69 @@ def _split_micro(batch: Dict[str, torch.Tensor], accum: int) -> List[Dict[str, t
     return [{k: v[i] for k, v in split.items()} for i in range(accum)]
 
 
-def _loss_and_grads(model: Model, params: Tree, batch: Dict[str, torch.Tensor]):
+def _loss_and_grads(model: Model, params: Tree, batch: Dict[str, torch.Tensor],
+                    sharded: bool = False):
     """(loss, metrics, grads in `tree.items` order) of one (micro)batch.
     The gradient is taken with respect to detached aliases of the
-    parameters, so the parameters themselves never require grad."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_util.leaves(params)]
-    with torch.enable_grad():
-        loss, metrics = model.train_loss(batch, params=tree_util.like(params, leaves))
+    parameters (of each rank's shard of a DTensor leaf), so the parameters
+    themselves never require grad. ``sharded``: the step's model computes
+    on `_train_params` (inside the step's context), and each gradient is
+    its shard's, summed over the ranks that split the rows by the gathers'
+    backward (`ctx.gather_shard`).
+
+    Autograd's device threads are off: the backward runs here, on the
+    thread whose context the collectives' rules and each checkpointed
+    step's recompute read (TRAP, the recompute: every rank issues the same
+    collectives in the same order), in the same order with and without a
+    mesh."""
+    leaves = [ctx.local_shard(p).detach().requires_grad_(True)
+              for p in tree_util.leaves(params)]
+    with torch.enable_grad(), torch.autograd.set_multithreading_enabled(False):
+        tree = (_train_params(model.cfg, params, leaves) if sharded
+                else tree_util.like(params, leaves))
+        loss, metrics = model.train_loss(batch, params=tree)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+def _train_params(cfg, params: Tree, leaves: List[torch.Tensor]) -> Tree:
+    """The tree a sharded train step's model computes on, over ``leaves``
+    (each rank's shard of each leaf of DTensor tree ``params``, in `items`
+    order): the stacked layers as DTensors over those shards, gathered a
+    layer at a time by the model (`lm.train_steps`); every other leaf
+    gathered here (`ctx.gather_shard`), the embedding and the LM head
+    keeping their vocab shard where the vocab runs local (`lm.tp_groups`).
+    Inside the step's context."""
+    vocab = cfg.encdec is None and lm.tp_groups(cfg)["vocab"]
+    axis = ctx.tp_axis()
+
+    def one(path, p, leaf):
+        top = path.split("/", 1)[0]
+        sh = LeafSharding(p.device_mesh, tuple(p.placements), P())
+        if top in STACKED:
+            return ctx.to_dtensor(leaf, sh, p.shape)
+        keep = axis if vocab and top in ("embed", "lm_head") else None
+        return ctx.gather_shard(leaf, ctx.gather_plan(p, keep, stacked=False))
+
+    return tree_util.map_tree(one, params, tree_util.like(params, leaves))
+
+
 def _accumulate(model: Model, params: Tree, micro: List[Dict[str, torch.Tensor]],
-                cast: Optional[torch.dtype]):
+                cast: Optional[torch.dtype], sharded: bool = False):
     """(loss, metrics, grads) over the microbatches: one of them as it is,
     several averaged (the metrics the last one's), the gradients cast to
-    ``cast`` and accumulated in it (fp32 without it)."""
+    ``cast`` and accumulated in it (fp32 without it); ``sharded`` as
+    `_loss_and_grads` takes it."""
     if len(micro) == 1:
-        loss, metrics, grads = _loss_and_grads(model, params, micro[0])
+        loss, metrics, grads = _loss_and_grads(model, params, micro[0], sharded)
         if cast is not None:
             grads = [g.to(cast) for g in grads]
         return loss, metrics, grads
     acc_dtype = cast or torch.float32
     gsum, lsum = None, 0.0
     for mb in micro:
-        loss, metrics, grads = _loss_and_grads(model, params, mb)
+        loss, metrics, grads = _loss_and_grads(model, params, mb, sharded)
         if cast is not None:
             grads = [g.to(cast) for g in grads]
         if gsum is None:
@@ -269,11 +310,17 @@ def make_train_step(model: Model, optimizer: AdamW, mesh: Optional[Mesh] = None,
     With a ``mesh`` and a ``plan``, ``params`` and ``opt_state`` are
     DTensors under the plan's specs and the batch is a DTensor whose rows
     split over the batch axes (or plain, every rank holding all of it).
-    Each rank runs its rows of each microbatch over the gathered params;
-    the loss and metrics come back summed over the ranks that split the
-    rows (replicated DTensor scalars). ``shard_grads`` reduce-scatters the
-    gradients straight to the params' placements; without it they are
-    all-reduced, then cut to them.
+    Each rank runs its rows of each microbatch on its shards: a layer at a
+    time gathered over the FSDP axes inside each checkpointed scan step,
+    the groups of `lm.tp_groups` on their tensor-axis shards, the residual
+    stream sequence-parallel where the plan says so (`lm.forward`). The
+    loss and metrics come back summed over the ranks that split the rows
+    (replicated DTensor scalars). Each layer's gradient comes back to the
+    params' placements as the backward leaves it: ``shard_grads``
+    reduce-scatters it over the FSDP axes that split the rows; without it
+    it is all-reduced, then cut. ``grad_reduce_dtype`` casts it before that
+    reduction (the wire carries that dtype), and the accumulator of
+    ``accum_steps`` holds each rank's shards alone.
 
     A microbatch's rows need not split evenly over the batch axes: each rank
     takes its chunk by DTensor's rule (`_my_rows`), and a rank left without
@@ -296,7 +343,6 @@ def make_train_step(model: Model, optimizer: AdamW, mesh: Optional[Mesh] = None,
         return train_step
     if plan is None:
         raise ValueError("a sharded train step needs a plan beside its mesh")
-    from torch.distributed.tensor import Partial, Replicate
 
     def train_step(params: Tree, opt_state: Tree, batch: Dict[str, torch.Tensor]):
         row_axes = _row_axes(mesh, batch["tokens"], 0)
@@ -304,22 +350,16 @@ def make_train_step(model: Model, optimizer: AdamW, mesh: Optional[Mesh] = None,
         micro = [whole] if accum_steps == 1 else _split_micro(whole, accum_steps)
         micro = [{k: _my_rows(mesh, row_axes, v, _batch_dim(k)) for k, v in mb.items()}
                  for mb in micro]
-        flat = tree_util.leaves(params)
-        gathered = tree_util.like(params, [ctx.full(p) for p in flat])
         rows = whole["tokens"].shape[0] // accum_steps
-        with ctx.activation_sharding(mesh, plan, row_axes=row_axes, rows=rows):
-            loss, metrics, grads = _accumulate(model, gathered, micro, cast)
+        with ctx.activation_sharding(mesh, plan, row_axes=row_axes, rows=rows,
+                                     tensor_parallel=True, shard_grads=shard_grads,
+                                     grad_dtype=cast):
+            loss, metrics, grads = _accumulate(model, params, micro, cast, sharded=True)
             loss = ctx.batch_sum(loss)
             metrics = {k: ctx.batch_sum(v) for k, v in metrics.items()}
-        del gathered
-        partial = [Partial() if a in row_axes else Replicate() for a in mesh.axis_names]
-        dm = mesh.device_mesh()
-        placed = []
-        for p, g in zip(flat, grads):
-            g = ctx.to_dtensor(g, LeafSharding(dm, tuple(partial), P()), g.shape)
-            if not shard_grads:
-                g = g.redistribute(dm, [Replicate()] * len(partial))
-            placed.append(g.redistribute(dm, list(p.placements)))
+        flat = tree_util.leaves(params)
+        placed = [ctx.to_dtensor(g, LeafSharding(p.device_mesh, tuple(p.placements), P()),
+                                 p.shape) for p, g in zip(flat, grads)]
         del grads
         optimizer.update(tree_util.like(params, placed), opt_state, params)
         return (params, opt_state, _replicated(mesh, loss),

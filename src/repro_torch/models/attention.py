@@ -20,13 +20,15 @@ Modes:
             plain ops (the reference has no decode kernel either); MLA in the
             absorbed form
 
-In a tensor-parallel serving step (`sharding.ctx.tp`), a layer whose
-projections are this rank's head shards (`lm.tp_groups`; read off their
-widths) attends over its own q heads and the K/V heads they read, and
-returns its partial output projection, which the layer sums over the
-tensor axis. The cache stays whole over that axis, as the reference's
-specs keep it: new K/V heads computed on their shards are gathered before
-they are written.
+In a tensor-parallel step (`sharding.ctx.tp`), a layer whose projections
+are this rank's head shards (`lm.tp_groups`; read off their widths)
+attends over its own q heads and the K/V heads they read, and returns its
+partial output projection, which the layer sums over the tensor axis. The
+cache stays whole over that axis, as the reference's specs keep it: new K/V
+heads computed on their shards are gathered before they are written. In
+train, every replicated tensor that enters a shard's computation (the
+normed input; K/V computed whole; MLA's latent and its query's) crosses
+`ctx.tp_enter`, whose backward sums the shards' parts of its gradient.
 """
 from __future__ import annotations
 
@@ -159,9 +161,12 @@ def gqa_attention(
     hd = cfg.resolved_head_dim
     # this rank's q and K/V heads: all of them, or its shard (`lm.tp_groups`)
     hq, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
-    q = (x @ p["wq"]).reshape(B, S, hq, hd)
-    k = (x @ p["wk"]).reshape(B, S, hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, hkv, hd)
+    # the replicated x enters the shards' projections (`ctx.tp_enter`)
+    xs = ctx.tp_enter(x) if hq < cfg.num_heads else x
+    q = (xs @ p["wq"]).reshape(B, S, hq, hd)
+    xkv = xs if hkv < cfg.num_kv_heads else x
+    k = (xkv @ p["wk"]).reshape(B, S, hkv, hd)
+    v = (xkv @ p["wv"]).reshape(B, S, hkv, hd)
 
     cs = _positional_cos_sin(cfg, positions)
     if cs is not None:
@@ -172,8 +177,13 @@ def gqa_attention(
     k0, k1 = _kv_heads_read(cfg, hq, hkv)
     if hkv < cfg.num_kv_heads:
         k_own, v_own = k, v
-        k, v = ctx.tp_gather(k, 2), ctx.tp_gather(v, 2)
+        if mode != "train":
+            k, v = ctx.tp_gather(k, 2), ctx.tp_gather(v, 2)
     elif hq < cfg.num_heads:
+        # TRAP, replicated leaves: K/V computed whole (replicated) enter
+        # the q heads' shard before the rank's slice, so wk/wv take every
+        # rank's part of their gradient
+        k, v = ctx.tp_enter(k), ctx.tp_enter(v)
         k_own, v_own = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
     else:
         k_own, v_own = k, v
@@ -181,7 +191,7 @@ def gqa_attention(
     scale = hd ** -0.5
     if mode == "train":
         new_cache: Optional[Cache] = None
-        out = _train_attn(q, k, v, scale=scale, causal=causal)
+        out = _train_attn(q, k_own, v_own, scale=scale, causal=causal)
     elif mode == "prefill":
         new_cache = {"k": k, "v": v}
         out = _full_attn(q, k_own, v_own, scale=scale, causal=causal)
@@ -300,6 +310,8 @@ def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor, cos, sin):
     B, S, _ = x.shape
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     q_lat = rmsnorm(x @ p["w_dq"], p["q_norm"]["scale"], cfg.norm_eps)
+    if _mla_heads(cfg, p) < cfg.num_heads:
+        q_lat = ctx.tp_enter(q_lat)
     q = (q_lat @ p["w_uq"]).reshape(B, S, _mla_heads(cfg, p), qk_head)
     q_nope, q_pe = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, apply_rope(q_pe, cos, sin)
@@ -352,6 +364,9 @@ def mla_attention(
 
     if mode in ("train", "prefill"):
         ckv, kpe = _mla_latent_kv(cfg, p, x, cos, sin)
+        new_cache: Optional[Cache] = {"ckv": ckv, "kpe": kpe} if mode == "prefill" else None
+        if hq < cfg.num_heads:     # the whole latent enters the rank's heads
+            ckv, kpe = ctx.tp_enter(ckv), ctx.tp_enter(kpe)
         q, k, v = _mla_expand(cfg, p, q_nope, q_pe, ckv, kpe)
         if S >= FLASH_THRESHOLD:
             # v's head dim differs from q's: pad it for the chunked path
@@ -364,7 +379,6 @@ def mla_attention(
             out = constrain(out, "batch", "seq", None, None)
         else:
             out = sdpa(q, k, v, scale=scale, causal=True)
-        new_cache: Optional[Cache] = {"ckv": ckv, "kpe": kpe} if mode == "prefill" else None
     elif mode == "decode":
         if cache is None or pos is None or S != 1:
             raise ValueError("decode needs a cache, a position and one token per row")

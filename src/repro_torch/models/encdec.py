@@ -91,9 +91,25 @@ def _checkpointed(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
+def _train_stack(body, x, layers: Params, *, remat: bool, count: bool = False):
+    """``x`` through a stack in train mode, a layer at a time: each layer
+    gathered whole inside its checkpointed ``body(x, lp)`` (`lm.train_steps`:
+    the model axis too, as Whisper has no tensor parallelism yet), counted
+    ``encdec:gathered`` once per forward where ``count`` (the decoder's, as
+    serving counts)."""
+    step = _checkpointed(lambda x, lp, gather: body(x, gather(lp)), remat)
+    for lp, gather in lm.train_steps(layers, axis=None):
+        if count:
+            ctx.note_tp("encdec", False)
+        x = step(x, lp, gather)
+    return x
+
+
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
-           remat: bool = True) -> torch.Tensor:
-    """Stub frame embeddings ``(B, F, d)`` -> encoder output ``(B, F, d)``."""
+           remat: bool = True, mode: str = "train") -> torch.Tensor:
+    """Stub frame embeddings ``(B, F, d)`` -> encoder output ``(B, F, d)``;
+    ``mode`` "train" (each layer gathered in its own step, recomputed in
+    backward when ``remat``) or "prefill"."""
     B, F_enc, d = frames.shape
     x = frames.to(dtype_of(cfg))
     x = x + sinusoidal_positions(F_enc, d, device=x.device).to(x.dtype)[None]
@@ -107,9 +123,11 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
         h = apply_norm(cfg, lp["mlp_norm"], x)
         return constrain(x + ffn.mlp(cfg, lp["mlp"], h), "batch", "sp", None)
 
-    body = _checkpointed(body, remat)
-    for lp in lm.unstack(params["enc_layers"]):
-        x = body(x, lp)
+    if mode == "train":
+        x = _train_stack(body, x, params["enc_layers"], remat=remat)
+    else:
+        for lp in lm.unstack(params["enc_layers"]):
+            x = body(x, lp)
     return apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -165,9 +183,8 @@ def decode_stack(
                 new_self, new_cross)
 
     if mode == "train":
-        body = _checkpointed(lambda x, lp: layer(x, lp)[0], remat)
-        for lp in lm.unstack(params["dec_layers"]):
-            x = body(x, lp)
+        x = _train_stack(lambda x, lp: layer(x, lp)[0], x, params["dec_layers"], remat=remat,
+                         count=True)
         return apply_norm(cfg, params["dec_norm"], x), None
 
     per_layer = []
@@ -224,7 +241,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Cache]:
     """``batch``: ``frames`` and ``tokens (B, S)``. Returns (last-token
     logits ``(B, V_pad)``, cache)."""
-    enc_out = encode(cfg, params, batch["frames"], remat=False)
+    enc_out = encode(cfg, params, batch["frames"], remat=False, mode="prefill")
     hidden, cache = decode_stack(cfg, params, batch["tokens"], mode="prefill",
                                  enc_out=enc_out, remat=False)
     return logits_fn(cfg, params, hidden[:, -1:, :])[:, 0, :], cache

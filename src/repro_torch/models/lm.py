@@ -273,7 +273,7 @@ def layer_params(layers: Params, i: int, local: frozenset = frozenset(),
 
 
 # ---------------------------------------------------------------------------
-# tensor parallelism in serving
+# tensor parallelism
 # ---------------------------------------------------------------------------
 
 #: each tensor-parallel group's leaves (the tensor-axis-sharded leaves of
@@ -291,7 +291,7 @@ TP_LEAVES = {
 
 
 def tp_groups(cfg: ModelConfig) -> Dict[str, bool]:
-    """Which tensor-parallel groups of a serving step run on this rank's
+    """Which tensor-parallel groups of a step run on this rank's
     shard of the tensor axis (`ctx.tp`) and which gather whole, by the
     reference's divisibility rule: a group runs on its shard when the dim
     it splits divides by the axis's extent. Every group is False where no
@@ -348,7 +348,9 @@ def _local_paths(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
 
 def _note_layer(cfg: ModelConfig, kind, groups: Dict[str, bool]) -> Tuple[bool, bool]:
     """Count one sub-layer's groups (`ctx.note_tp`); returns whether its
-    mixer's and its ffn's outputs are partial sums over the tensor axis."""
+    mixer's and its ffn's outputs are partial sums over the tensor axis. An
+    MoE whose experts and shared expert are not both on their shards sums
+    its shard's part itself (`mlp.moe_ffn`), and returns a whole output."""
     mixer, f = kind
     ctx.note_tp(mixer, groups[mixer])
     if mixer == "attn":
@@ -360,8 +362,8 @@ def _note_layer(cfg: ModelConfig, kind, groups: Dict[str, bool]) -> Tuple[bool, 
         ctx.note_tp("experts", groups["experts"])
         if cfg.moe.num_shared_experts:
             ctx.note_tp("shared", groups["shared"])
-        return groups[mixer], groups["experts"] or (bool(cfg.moe.num_shared_experts)
-                                                     and groups["shared"])
+        return groups[mixer], groups["experts"] and (not cfg.moe.num_shared_experts
+                                                     or groups["shared"])
     return groups[mixer], False
 
 
@@ -369,7 +371,8 @@ def _embed_lookup(params: Params, tokens: torch.Tensor, v_pad: int) -> torch.Ten
     """The embedding rows of ``tokens``. An embedding whose vocab rows this
     rank holds a shard of (fewer rows than ``v_pad``) looks up the tokens
     in its range, zero elsewhere, and sums over the tensor axis: each
-    token's row comes from the one rank that holds it, exactly."""
+    token's row comes from the one rank that holds it, exactly (the sum
+    feeds the replicated residual stream: `ctx.tp_reduce`)."""
     emb = params["embed"]
     n_local = emb.shape[0]
     if n_local == v_pad:
@@ -377,7 +380,7 @@ def _embed_lookup(params: Params, tokens: torch.Tensor, v_pad: int) -> torch.Ten
     idx = tokens.long() - ctx.tp()[1] * n_local
     inside = (idx >= 0) & (idx < n_local)
     rows = emb[idx.clamp(0, n_local - 1)] * inside[..., None].to(emb.dtype)
-    return ctx.tp_sum(rows)
+    return ctx.tp_reduce(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -434,14 +437,28 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
 # ---------------------------------------------------------------------------
 
 
-def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, False)):
+def _exit(out: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
+    """A sub-layer's output as its residual add takes it: a partial sum over
+    the tensor axis summed (`ctx.tp_reduce`; under sequence parallelism
+    reduce-scattered into this rank's piece, `ctx.sp_scatter`), a whole
+    output as it is (cut to the piece, `ctx.sp_cut`)."""
+    if sp:
+        return ctx.sp_scatter(out, 1) if partial else ctx.sp_cut(out, 1)
+    return ctx.tp_reduce(out) if partial else out
+
+
+def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, False),
+               sp=False):
     """One sub-layer: returns (x, its new cache (None in train mode), its
     MoE aux loss (None unless a train-mode MoE layer)). ``partial``: whether
     the mixer's and the ffn's outputs are this rank's partial sums over the
     tensor axis (`tp_groups`); each is then summed over the axis once, at
-    its residual add."""
+    its residual add. ``sp``: ``x`` is this rank's piece of the sequence (a
+    sequence-parallel train step); each sub-layer then runs on the whole
+    sequence, gathered before its norm, and its output is reduce-scattered
+    (or cut) back into the piece (`_exit`)."""
     mixer, f = kind
-    h = apply_norm(cfg, p["mixer_norm"], x)
+    h = apply_norm(cfg, p["mixer_norm"], ctx.sp_gather(x, 1) if sp else x)
     if mixer == "ssm":
         out, new_cache = ssd.ssm_block(cfg, p["mixer"], h, mode=mode, state=cache)
     elif mixer == "mla":
@@ -450,21 +467,21 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, 
     else:
         out, new_cache = attn.gqa_attention(
             cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
-    if partial[0]:
-        out = ctx.tp_sum(out)
-    x = x + constrain(out, "batch", "sp" if mode == "train" else None, None)
+    x = x + constrain(_exit(out, partial[0], sp), "batch", "sp" if mode == "train" else None,
+                      None)
     if f == "none":
         return x, new_cache, None
-    h = apply_norm(cfg, p["ffn_norm"], x)
+    # TRAP, SP and the MoE groups: the MoE runs on the whole sequence, so
+    # its dispatch groups and capacity are the reference's
+    h = apply_norm(cfg, p["ffn_norm"], ctx.sp_gather(x, 1) if sp else x)
     aux = None
     if f == "moe":
         out, aux = ffn.moe_ffn(cfg, p["ffn"], h, kernel=(mode == "prefill"),
                                want_aux=(mode == "train"))
     else:
         out = ffn.mlp(cfg, p["ffn"], h)
-    if partial[1]:
-        out = ctx.tp_sum(out)
-    return x + constrain(out, "batch", "sp" if mode == "train" else None, None), new_cache, aux
+    return (x + constrain(_exit(out, partial[1], sp), "batch",
+                          "sp" if mode == "train" else None, None), new_cache, aux)
 
 
 def unstack(layers: Params):
@@ -472,13 +489,37 @@ def unstack(layers: Params):
     leaf a view from one `unbind` of its stacked leaf, so autograd writes
     each stacked gradient once (indexing each layer would add a full-size
     zero gradient per layer). A DTensor leaf gathers one layer at a time, as
-    the steps are taken (`ctx.layer_slice`): the enc-dec stacks in serving,
-    and a train step's, gather whole."""
+    the steps are taken (`ctx.layer_slice`): the enc-dec stacks in serving.
+    A train step takes `train_steps` instead."""
     views = tree_util.map_tree(lambda _, v: v if is_dtensor(v) else v.unbind(0), layers)
     steps = len(tree_util.leaves(views)[0])
     for i in range(steps):
         yield tree_util.map_tree(lambda _, vs: layer_slice(vs, i) if is_dtensor(vs) else vs[i],
                                  views)
+
+
+def train_steps(layers: Params, local: frozenset = frozenset(), axis: Optional[str] = None):
+    """The stacked layer tree of a train step, one scan step at a time:
+    yields ``(lp, gather)``, ``lp`` the step's leaves (views from one
+    `unbind` of each stacked leaf; of a DTensor leaf, of this rank's shard)
+    and ``gather(lp)`` the layer the model computes on: each DTensor leaf
+    gathered over its FSDP axes, and over the tensor axis ``axis`` unless
+    its path is in ``local`` (`ctx.gather_shard`: its gradient comes back
+    to the shard, summed over the ranks that split the rows). A
+    checkpointed step calls ``gather`` inside, so its backward gathers the
+    layer again and no gathered layer is saved."""
+    plans = dict(tree_util.items(tree_util.map_tree(
+        lambda path, v: ctx.gather_plan(v, axis if path in local else None, stacked=True),
+        layers)))
+    views = tree_util.map_tree(
+        lambda _, v: (v.to_local() if is_dtensor(v) else v).unbind(0), layers)
+
+    def gather(lp: Params) -> Params:
+        return tree_util.map_tree(lambda path, t: ctx.gather_shard(t, plans[path]), lp)
+
+    steps = len(tree_util.leaves(views)[0])
+    for i in range(steps):
+        yield tree_util.map_tree(lambda _, vs: vs[i], views), gather
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -504,29 +545,39 @@ def _remat_context(name: Optional[str]):
     raise ValueError(f"unknown remat policy {name!r}")
 
 
-def _train_layers(cfg, layers, x, positions, *, remat, remat_policy):
+def _train_layers(cfg, layers, x, positions, *, remat, remat_policy, groups, sp):
     """The scan in train mode: no cache; each scan step recomputed in
     backward under `torch.utils.checkpoint` when ``remat``. Returns (x, the
-    MoE aux loss summed over the layers)."""
+    MoE aux loss summed over the layers). Each step's layer is gathered
+    inside the step (`train_steps`), keeping the tensor-axis shard of the
+    groups ``groups`` runs local; ``sp``: ``x`` is this rank's piece of the
+    sequence (`_run_layer`)."""
     kinds, prefixes = layer_kinds(cfg), sub_prefixes(cfg)
     context_fn = _remat_context(remat_policy)
+    local = _local_paths(cfg, groups)
 
-    def step(x, lp):
+    def step(x, lp, gather, partial):
+        lp = gather(lp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for pre, kind in zip(prefixes, kinds):
+        for pre, kind, part in zip(prefixes, kinds, partial):
             x, _, a = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
-                                 positions=positions, mode="train", cache=None, pos=None)
+                                 positions=positions, mode="train", cache=None, pos=None,
+                                 partial=part, sp=sp)
             x = constrain(x, "batch", "sp", None)
             if a is not None:
                 aux = aux + a
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in unstack(layers):
+    for lp, gather in train_steps(layers, local, ctx.tp_axis()):
+        # TRAP, the recompute: counted here, once per forward, not in the
+        # step that the backward runs again
+        partial = [_note_layer(cfg, kind, groups) for kind in kinds]
         if remat:
-            x, a = checkpoint(step, x, lp, use_reentrant=False, context_fn=context_fn)
+            x, a = checkpoint(step, x, lp, gather, partial, use_reentrant=False,
+                              context_fn=context_fn)
         else:
-            x, a = step(x, lp)
+            x, a = step(x, lp, gather, partial)
         aux = aux + a
     return x, aux
 
@@ -554,16 +605,19 @@ def forward(
     loss (None). ``positions`` defaults to the token positions (``pos`` in
     decode), as three equal streams ``(3, B, S)`` for M-RoPE.
 
-    In a tensor-parallel serving step (`ctx.tp`), the groups `tp_groups`
-    names run on this rank's shards: ``params`` then hold the embedding's
-    vocab shard where ``vocab`` runs local (`launch.steps`), the layers are
-    cut here, and the cache's SSM leaves are this rank's heads and channels
-    (`tp_cache_local`)."""
+    In a tensor-parallel step (`ctx.tp`), the groups `tp_groups` names run
+    on this rank's shards: ``params`` then hold the embedding's vocab shard
+    where ``vocab`` runs local (`launch.steps`), the layers are cut here,
+    and the cache's SSM leaves are this rank's heads and channels
+    (`tp_cache_local`). A train step gathers and cuts each layer inside its
+    checkpointed scan step (`train_steps`) and, where the plan says
+    ``sequence_parallel``, carries its residual stream as this rank's piece
+    of the sequence between the sub-layers."""
     B, S = tokens.shape
     kinds = layer_kinds(cfg)
     prefixes = sub_prefixes(cfg)
-    groups = tp_groups(cfg) if mode != "train" else None
-    if groups is not None and ctx.tp()[0] > 1:
+    groups = tp_groups(cfg)
+    if ctx.tp()[0] > 1:
         ctx.note_tp("vocab", groups["vocab"])
     x = _embed_lookup(params, tokens, padded_vocab(cfg.vocab_size)).to(dtype_of(cfg))
     x = constrain(x, "batch", "sp" if mode == "train" else None, None)
@@ -577,8 +631,13 @@ def forward(
             positions = positions.expand(3, B, S)
 
     if mode == "train":
-        x, aux = _train_layers(cfg, params["layers"], x, positions,
-                               remat=remat, remat_policy=remat_policy)
+        sp = ctx.sp_on(S)
+        if sp:
+            x = ctx.sp_cut(x, 1)
+        x, aux = _train_layers(cfg, params["layers"], x, positions, remat=remat,
+                               remat_policy=remat_policy, groups=groups, sp=sp)
+        if sp:
+            x = ctx.sp_gather(x, 1)
         return apply_norm(cfg, params["final_norm"], x), None, aux
 
     local = _local_paths(cfg, groups)
@@ -615,9 +674,18 @@ def tp_cache_local(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
                      if mixer == "ssm" for k in ("conv_x", "ssm"))
 
 
+def _head_cols(cfg: ModelConfig, params: Params) -> int:
+    """The LM head's vocab columns this rank holds: all ``V_pad``, or its
+    shard where the vocab runs local (`tp_groups`)."""
+    return params["embed"].shape[0] if cfg.tie_embeddings else params["lm_head"].shape[1]
+
+
 def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
     """``hidden`` through the LM head (the tied embedding's transpose):
-    this rank's vocab columns where the head is its shard (`tp_groups`)."""
+    this rank's vocab columns where the head is its shard (`tp_groups`),
+    the replicated ``hidden`` entering the shard's product (`ctx.tp_enter`)."""
+    if _head_cols(cfg, params) < padded_vocab(cfg.vocab_size):
+        hidden = ctx.tp_enter(hidden)
     if cfg.tie_embeddings:
         return hidden @ params["embed"].T
     return hidden @ params["lm_head"]
@@ -640,6 +708,12 @@ def cross_entropy(
     (the padded ids masked). ``chunk`` cuts the sequence into chunks, each
     recomputed in backward, so the ``(B, S, V)`` logits never exist at once.
 
+    Where the LM head is this rank's vocab shard (`tp_groups`), the loss is
+    vocab-parallel: the row maximum is all-reduced with MAX (outside
+    autograd: the shift cancels), the sum of exponentials and the gold
+    logit, taken on the shard that holds it, are summed over the tensor
+    axis (`ctx.tp_reduce`), and each shard masks the padded ids it holds.
+
     Raises:
         ValueError: ``chunk`` does not divide the sequence.
     """
@@ -647,15 +721,25 @@ def cross_entropy(
     if mask is None:
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     v_pad = padded_vocab(cfg.vocab_size)
-    vmask = (vocab_mask(cfg.vocab_size, v_pad, device=hidden.device)
+    cols = _head_cols(cfg, params)
+    off = ctx.tp()[1] * cols if cols < v_pad else 0
+    vmask = (vocab_mask(cfg.vocab_size, v_pad, device=hidden.device)[off:off + cols]
              if v_pad != cfg.vocab_size else None)
 
     def chunk_loss(h, t, m):
         logits = logits_fn(cfg, params, h).float()
         if vmask is not None:
             logits = logits + vmask
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, t[..., None].long())[..., 0]
+        if cols == v_pad:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, t[..., None].long())[..., 0]
+        else:
+            top = ctx.tp_max(logits.detach().amax(dim=-1))
+            lse = torch.log(ctx.tp_reduce(torch.exp(logits - top[..., None]).sum(dim=-1))) + top
+            idx = t.long() - off
+            inside = (idx >= 0) & (idx < cols)
+            mine = logits.gather(-1, idx.clamp(0, cols - 1)[..., None])[..., 0]
+            gold = ctx.tp_reduce(torch.where(inside, mine, torch.zeros_like(mine)))
         return ((lse - gold) * m).sum()
 
     if chunk is None or chunk >= S:

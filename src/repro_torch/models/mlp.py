@@ -6,11 +6,12 @@ token. Prefill routes through the MoE top-k kernel; decode and training
 keep the plain `router_topk`, as the reference does (training with the
 Switch aux loss).
 
-In a tensor-parallel serving step (`sharding.ctx.tp`), an MLP whose
-``d_ff`` columns and rows are this rank's shard, and an MoE whose experts
-(and shared expert) are, return this rank's partial output, which the layer
-sums over the tensor axis once (`lm.tp_groups`). The router stays
-replicated: routing, capacity and drops are the global ones.
+In a tensor-parallel step (`sharding.ctx.tp`), an MLP whose ``d_ff``
+columns and rows are this rank's shard, and an MoE whose experts and shared
+expert are, return this rank's partial output, which the layer sums over
+the tensor axis once (`lm.tp_groups`). The router stays replicated:
+routing, capacity and drops are the global ones. The replicated input and
+routing weights enter the shards' computation through `ctx.tp_enter`.
 """
 from __future__ import annotations
 
@@ -45,7 +46,13 @@ def mlp_shapes(cfg: ModelConfig, d_ff: Optional[int] = None, lead: Tuple[int, ..
     return shapes
 
 
-def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, width: Optional[int] = None
+        ) -> torch.Tensor:
+    """The MLP of ``x`` (``width`` columns, ``d_ff`` by default): this
+    rank's partial output where ``p`` holds its shard of the columns (the
+    replicated ``x`` then enters it, `ctx.tp_enter`)."""
+    if p["w_up"].shape[-1] < (width or cfg.d_ff):
+        x = ctx.tp_enter(x)
     act = act_fn(cfg.mlp_act)
     if cfg.mlp_act == "silu":
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
@@ -143,9 +150,10 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
 
     Where the experts are this rank's shard of the tensor axis (fewer than
     ``E_pad`` in ``p["w_up"]``, `lm.tp_groups`), the dispatch keeps only
-    theirs, and the output is this rank's partial sum; the shared expert's
-    part is then its partial sum too, or, where it runs whole, rank 0's
-    alone, so the sum over the axis counts it once."""
+    theirs, and the output is this rank's partial sum, as is the shared
+    expert's part where it is its shard. Where only one of the two parts is
+    a shard, that part is summed over the axis here and the output is
+    whole (`lm._note_layer`)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -190,11 +198,17 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     disp = torch.einsum(
         "gske,gskc->gsec", e_one.to(dt),
         one_hot(torch.where(keep, pos, cap), cap + 1).to(dt)[..., :-1])
+    wsum = (e_one.to(weights.dtype) * weights[..., None]).sum(dim=2)
     n_local = p["w_up"].shape[0]
     experts_local = n_local < E_pad
     if experts_local:               # this rank's experts [e0, e0 + n_local)
         e0 = ctx.tp()[1] * n_local
         disp = disp[:, :, e0:e0 + n_local]
+        # the replicated tokens and routing weights enter the experts'
+        # shard (`ctx.tp_enter`: the router takes every rank's part of its
+        # gradient), before the rank's slice of the experts
+        xg = ctx.tp_enter(xg)
+        wsum = ctx.tp_enter(wsum)[:, :, e0:e0 + n_local]
     x_e = torch.einsum("gsec,gsd->gecd", disp, xg)            # (G, E_pad, cap, d)
     x_e = constrain(x_e, "batch", "ep", None, None)            # expert parallel
 
@@ -207,20 +221,19 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"])      # (G, E_pad, cap, d)
     y_e = constrain(y_e, "batch", "ep", None, None)
 
-    wsum = (e_one.to(weights.dtype) * weights[..., None]).sum(dim=2)
-    if experts_local:
-        wsum = wsum[:, :, e0:e0 + n_local]
     combine = disp * wsum[..., None]
     out = torch.einsum("gsec,gecd->gsd", combine.to(y_e.dtype), y_e)
 
     out = out.reshape(T_pad, d)[:T]
     if m.num_shared_experts:
+        shared = mlp(cfg, p["shared"], xt[:T], width=m.d_shared)
         shared_local = p["shared"]["w_up"].shape[-1] < m.d_shared
-        if experts_local and not shared_local and ctx.tp()[1] != 0:
-            pass                    # counted once, on rank 0 of the axis
+        # TRAP, replicated leaves: where one part runs on its shard and the
+        # other whole, the shard's part is summed here, and the layer adds
+        # a whole output (every rank's leaves then take the whole gradient)
+        if experts_local and not shared_local:
+            out = ctx.tp_reduce(out)
         elif shared_local and not experts_local:
-            out = (out if ctx.tp()[1] == 0 else torch.zeros_like(out)) + mlp(
-                cfg, p["shared"], xt[:T])
-        else:
-            out = out + mlp(cfg, p["shared"], xt[:T])
+            shared = ctx.tp_reduce(shared)
+        out = out + shared
     return out.reshape(B, S, d), aux

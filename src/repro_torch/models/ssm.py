@@ -11,7 +11,7 @@ State per layer:
   {"conv_x": (B, K-1, d_in), "conv_B": (B, K-1, G*N), "conv_C": (B, K-1, G*N),
    "ssm": (B, H, P, N) fp32}
 
-In a tensor-parallel serving step (`sharding.ctx.tp`), a block whose
+In a tensor-parallel step (`sharding.ctx.tp`), a block whose
 ``w_z``/``w_x``/``w_dt`` columns, per-head vectors and ``out_proj`` rows
 are this rank's head shard (`lm.tp_groups`; read off ``w_dt``'s width)
 runs the scan (or the recurrent step) on those heads alone, over its own
@@ -158,12 +158,15 @@ def ssm_block(
     G, K = s.n_groups, s.d_conv
     H = p["w_dt"].shape[-1]         # this rank's heads: all, or its shard
     d_in = H * P
+    # the replicated input enters the heads' shard (`ctx.tp_enter`); B and C
+    # are computed whole, on every rank alike
+    xs = ctx.tp_enter(xin) if H < H_full else xin
 
-    z = xin @ p["w_z"]
-    x_raw = xin @ p["w_x"]
+    z = xs @ p["w_z"]
+    x_raw = xs @ p["w_x"]
     B_raw = xin @ p["w_B"]
     C_raw = xin @ p["w_C"]
-    dt_raw = xin @ p["w_dt"]                                  # (B, S, H)
+    dt_raw = xs @ p["w_dt"]                                   # (B, S, H)
 
     raws = {"conv_x": x_raw, "conv_B": B_raw, "conv_C": C_raw}
     if mode == "decode":
@@ -183,6 +186,8 @@ def ssm_block(
     x = acts["conv_x"].reshape(Bb, S, H, P)
     B_mat = acts["conv_B"].reshape(Bb, S, G, N)
     C_mat = acts["conv_C"].reshape(Bb, S, G, N)
+    if H < H_full:                  # the whole B and C enter the heads' shard
+        B_mat, C_mat = ctx.tp_enter(B_mat), ctx.tp_enter(C_mat)
 
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])                                # (H,) negative
@@ -214,10 +219,12 @@ def gated_rmsnorm_shard(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, e
                         width: int) -> torch.Tensor:
     """`gated_rmsnorm` of a row whose ``width`` channels are split over the
     tensor axis, on this rank's channels: the mean of squares is the sum
-    over every rank's channels (`ctx.tp_sum`) over ``width``, as one device
-    takes it over the whole row."""
+    over every rank's channels over ``width``, as one device takes it over
+    the whole row. TRAP, two backwards for one all-reduce: each rank divides
+    its own channels by that sum, so its gradient is summed over the axis
+    too (`ctx.tp_sum_shard`)."""
     xf = x.float() * F.silu(z.float())
-    var = ctx.tp_sum(xf.square().sum(dim=-1, keepdim=True)) / width
+    var = ctx.tp_sum_shard(xf.square().sum(dim=-1, keepdim=True)) / width
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 

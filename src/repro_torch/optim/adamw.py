@@ -21,6 +21,7 @@ import torch
 from repro_torch import tree as tree_util
 from repro_torch.models.common import torch_dtype
 from repro_torch.sharding.ctx import is_dtensor
+from repro_torch.sharding.ctx import local_shard as _local  # a DTensor's own shard
 
 Tree = Dict[str, Any]
 
@@ -111,12 +112,6 @@ class AdamW:
             if p32 is not p:
                 p.copy_(p32)
         return params, state
-
-
-def _local(x: torch.Tensor) -> torch.Tensor:
-    """A DTensor's own shard (its storage: written in place); a plain
-    tensor as it is."""
-    return x.to_local() if is_dtensor(x) else x
 
 
 def _squares(flat_g: list) -> list:

@@ -14,15 +14,30 @@ The context also records the mesh axes the batch rows are split over, so
 the few reductions that must be global (the train loss's mask count, the
 MoE aux loss's statistics) sum over them (`batch_sum`).
 
-A serving step enters the context with ``tensor_parallel=True``. Then the
-plan's tensor axis (`tp`: its extent and this rank's coordinate) splits the
-work as the reference's compiler splits it: each rank computes on its own
-shard of that axis (`layer_local`, `local_of`), the partial results are
-summed over the axis where the math needs a sum (`tp_sum`), the new K/V
-heads are gathered for the replicated cache (`tp_gather`), and the greedy
-pick reads the vocab shards (`tp_argmax`). Each sub-layer notes whether it
-ran on its shard or gathered whole (`note_tp`, read by `tp_counts`). A
-train step gathers every leaf whole (no ``tensor_parallel``).
+A serving or train step enters the context with ``tensor_parallel=True``.
+Then the plan's tensor axis (`tp`: its extent and this rank's coordinate)
+splits the work as the reference's compiler splits it: each rank computes
+on its own shard of that axis (`layer_local`, `local_of`), the partial
+results are summed over the axis where the math needs a sum (`tp_sum`), the
+new K/V heads are gathered for the replicated cache (`tp_gather`), and the
+greedy pick reads the vocab shards (`tp_argmax`). Each sub-layer notes
+whether it ran on its shard or gathered whole (`note_tp`, read by
+`tp_counts`).
+
+A train step differentiates through the same sums, so each has an
+autograd rule written out (`torch.autograd.Function`s; the functional
+collectives' own rules are not relied on). A tensor every rank of the
+axis holds alike ("replicated") crosses into a shard's computation through
+`tp_enter` (identity forward, all-reduce backward); a shard's partial
+output leaves through `tp_reduce` (all-reduce forward, identity backward);
+a sum that each rank's own shard reads back (the SSM gated norm's
+variance) is `tp_sum_shard` (all-reduce both ways). Under sequence
+parallelism the residual stream holds this rank's piece of the sequence:
+`sp_gather` makes it whole for a sub-layer, `sp_scatter` sums a partial
+output into the piece, `sp_cut` cuts a replicated tensor to it. The FSDP
+axes are gathered a layer at a time by `gather_shard` (all-gather forward;
+backward a reduce-scatter over the axes that split the rows, or an
+all-reduce then a cut without ``shard_grads``, a cut over the others).
 """
 from __future__ import annotations
 
@@ -30,11 +45,24 @@ import contextlib
 import math
 import sys
 import threading
-from typing import Any, Optional, Sequence, Tuple
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 _STATE = threading.local()
+
+
+class _Frame(NamedTuple):
+    """One entered `activation_sharding`."""
+
+    mesh: Any
+    plan: Any
+    row_axes: Tuple[str, ...]
+    rows: Optional[int]
+    tensor_parallel: bool
+    device_mesh: Any
+    shard_grads: bool
+    grad_dtype: Optional[torch.dtype]
 
 
 def _stack() -> list:
@@ -54,17 +82,21 @@ def is_dtensor(x: Any) -> bool:
 @contextlib.contextmanager
 def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None,
                         rows: Optional[int] = None, tensor_parallel: bool = False,
-                        device_mesh: Any = None):
+                        device_mesh: Any = None, shard_grads: bool = True,
+                        grad_dtype: Optional[torch.dtype] = None):
     """Enter ``(mesh, plan)`` for the model's `constrain` calls.
     ``row_axes``: the mesh axes this step splits the batch rows over (none
     by default: every rank holds every row). ``rows``: the global row count
     of each (micro)batch the step runs, which DTensor's chunk rule cuts over
     those axes (trailing ranks may hold fewer rows, or none); None when the
     rows split evenly. ``tensor_parallel``: the step computes on the
-    tensor axis's shards (`tp`), a serving step. ``device_mesh``: the
-    ``DeviceMesh`` whose groups the step's own collectives use (the
-    mesh's untagged one by default; PREPARE passes its own)."""
-    _stack().append((mesh, plan, tuple(row_axes or ()), rows, tensor_parallel, device_mesh))
+    tensor axis's shards (`tp`), a serving or a train step. ``device_mesh``:
+    the ``DeviceMesh`` whose groups the step's own collectives use (the
+    mesh's untagged one by default; PREPARE passes its own).
+    ``shard_grads`` and ``grad_dtype``: how a train step's layer gathers
+    return their gradients (`gather_shard`)."""
+    _stack().append(_Frame(mesh, plan, tuple(row_axes or ()), rows, tensor_parallel,
+                           device_mesh, shard_grads, grad_dtype))
     try:
         yield
     finally:
@@ -74,7 +106,7 @@ def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None,
 def current() -> Optional[Tuple[Any, Any]]:
     """The innermost ``(mesh, plan)``, or None outside any context."""
     s = _stack()
-    return s[-1][:2] if s else None
+    return (s[-1].mesh, s[-1].plan) if s else None
 
 
 def _resolve(plan: Any, logical: Optional[str]):
@@ -130,7 +162,7 @@ def constrain(x: torch.Tensor, *logical_dims: Optional[str]) -> torch.Tensor:
 
 def _row_context():
     s = _stack()
-    return (s[-1][0], s[-1][2]) if s else (None, ())
+    return (s[-1].mesh, s[-1].row_axes) if s else (None, ())
 
 
 def row_shards() -> int:
@@ -144,7 +176,7 @@ def global_rows() -> Optional[int]:
     """The global row count of the current step's (micro)batches, where it
     was given (`activation_sharding`); None otherwise."""
     s = _stack()
-    return s[-1][3] if s else None
+    return s[-1].rows if s else None
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -163,12 +195,7 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# DTensor helpers
-# ---------------------------------------------------------------------------
-
-
-# ---------------------------------------------------------------------------
-# the tensor axis of a serving step
+# the tensor axis of a serving or train step
 # ---------------------------------------------------------------------------
 
 
@@ -179,13 +206,13 @@ def _tp_context():
     axis, a mesh of devices rather than ranks, an axis of one rank, or a
     rank outside the mesh."""
     s = _stack()
-    if not s or not s[-1][4]:
+    if not s or not s[-1].tensor_parallel:
         return None
-    mesh, plan = s[-1][:2]
+    mesh, plan = s[-1].mesh, s[-1].plan
     ax = getattr(plan, "tp_axis", None)
     if ax is None or mesh.ranks is None or mesh.shape.get(ax, 1) == 1:
         return None
-    dm = s[-1][5] if s[-1][5] is not None else mesh.device_mesh()
+    dm = s[-1].device_mesh if s[-1].device_mesh is not None else mesh.device_mesh()
     if dm.get_coordinate() is None:
         return None
     return dm, mesh.axis_names.index(ax), mesh.shape[ax]
@@ -193,7 +220,7 @@ def _tp_context():
 
 def tp() -> Tuple[int, int]:
     """``(extent, this rank's coordinate)`` of the tensor axis the current
-    serving step splits its work over; ``(1, 0)`` where none does."""
+    step splits its work over; ``(1, 0)`` where none does."""
     c = _tp_context()
     if c is None:
         return 1, 0
@@ -253,6 +280,297 @@ def tp_argmax(x: torch.Tensor, offset: int) -> torch.Tensor:
     best = vals.max(dim=0).values
     cand = torch.where(vals == best[None], idx, torch.full_like(idx, float("inf")))
     return cand.min(dim=0).values.long()
+
+
+def tp_reduce_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` summed over the tensor axis, this rank's chunk of dim ``dim``
+    (a reduce-scatter); ``x`` itself where no tensor axis splits the
+    step."""
+    n, _ = tp()
+    if n == 1:
+        return x
+    ops = torch.ops._c10d_functional
+    y = x.movedim(dim, 0).contiguous()
+    out = ops.wait_tensor(ops.reduce_scatter_tensor(y, "sum", n, _tp_group_name()))
+    return out.movedim(0, dim)
+
+
+def tp_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the tensor axis (an all-reduce
+    with MAX, outside autograd: callers take no gradient through it)."""
+    n, _ = tp()
+    if n == 1:
+        return x
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(x.detach().contiguous(), "max", _tp_group_name()))
+
+
+def _piece(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk of dim ``dim`` of ``x`` over the tensor axis."""
+    n, r = tp()
+    w = x.shape[dim] // n
+    return x.narrow(dim, r * w, w)
+
+
+# The autograd rules of a tensor-parallel step. Each Function's forward and
+# backward call the primitives above (`tp_sum`, `tp_gather`,
+# `tp_reduce_scatter`, `tp`), which read the step's context, so a backward
+# runs on the thread of its forward, inside the context (`launch.steps`
+# turns autograd's device threads off for a sharded step).
+#
+# TRAP, two backwards for one all-reduce: a sum whose result feeds
+# replicated computation (a residual add, the vocab-parallel log-sum-exp,
+# the gold logit) has an identity backward, since every rank then holds the
+# whole gradient of the sum; a sum whose result each rank's own shard reads
+# back (the SSM gated norm's variance) has an all-reduce backward, since
+# each rank holds only its shard's part of that gradient. Swapping them
+# multiplies a gradient by the axis extent, or drops the other ranks' part.
+
+
+class _Enter(torch.autograd.Function):
+    """A replicated tensor entering a shard's computation: identity forward;
+    backward, the shards' partial gradients summed (all-reduce)."""
+
+    @staticmethod
+    def forward(fctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return tp_sum(g)
+
+
+class _Reduce(torch.autograd.Function):
+    """A shard's partial result summed for replicated computation:
+    all-reduce forward; identity backward (every rank holds the whole
+    gradient of the sum, which is each partial's)."""
+
+    @staticmethod
+    def forward(fctx, x):
+        return tp_sum(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g
+
+
+class _ShardSum(torch.autograd.Function):
+    """A sum each rank's own shard reads back: all-reduce both ways (each
+    rank's gradient of the sum is its shard's part alone)."""
+
+    @staticmethod
+    def forward(fctx, x):
+        return tp_sum(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return tp_sum(g)
+
+
+class _SPGather(torch.autograd.Function):
+    """The residual stream's sequence made whole for a sub-layer: all-gather
+    forward. The whole sequence feeds replicated computation (the
+    sub-layer's norm), so every rank holds its whole gradient alike, and the
+    backward keeps this rank's piece (a reduce-scatter would multiply it by
+    the axis extent)."""
+
+    @staticmethod
+    def forward(fctx, x, dim):
+        fctx.dim = dim
+        return tp_gather(x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _piece(g, fctx.dim), None
+
+
+class _SPScatter(torch.autograd.Function):
+    """A shard's partial output summed into this rank's piece of the
+    sequence: reduce-scatter forward, all-gather backward."""
+
+    @staticmethod
+    def forward(fctx, x, dim):
+        fctx.dim = dim
+        return tp_reduce_scatter(x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return tp_gather(g, fctx.dim), None
+
+
+class _SPCut(torch.autograd.Function):
+    """A replicated tensor cut to this rank's piece of the sequence: cut
+    forward, all-gather backward (the replicated producer takes the whole
+    gradient)."""
+
+    @staticmethod
+    def forward(fctx, x, dim):
+        fctx.dim = dim
+        return _piece(x, dim).clone()
+
+    @staticmethod
+    def backward(fctx, g):
+        return tp_gather(g, fctx.dim), None
+
+
+def tp_enter(x: torch.Tensor) -> torch.Tensor:
+    """``x``, replicated over the tensor axis, as the input of a shard's
+    computation (identity; its gradient summed over the axis); ``x`` itself
+    where no tensor axis splits the step."""
+    return x if tp()[0] == 1 else _Enter.apply(x)
+
+
+def tp_reduce(x: torch.Tensor) -> torch.Tensor:
+    """A shard's partial ``x`` summed over the tensor axis for replicated
+    computation: `tp_sum` with an identity backward."""
+    return x if tp()[0] == 1 else _Reduce.apply(x)
+
+
+def tp_sum_shard(x: torch.Tensor) -> torch.Tensor:
+    """A shard's partial ``x`` summed over the tensor axis where each rank's
+    own shard reads the sum: `tp_sum` with an all-reduce backward."""
+    return x if tp()[0] == 1 else _ShardSum.apply(x)
+
+
+def sp_on(seq_len: int) -> bool:
+    """Whether the current step runs its residual stream sequence-parallel:
+    a train step whose plan says so, over a tensor axis of more than one
+    rank that divides ``seq_len`` (otherwise it runs whole, as `constrain`
+    skips a constraint that does not divide)."""
+    n, _ = tp()
+    c = current()
+    return (n > 1 and c is not None and getattr(c[1], "sequence_parallel", False)
+            and seq_len % n == 0)
+
+
+def sp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's piece of the sequence (dim ``dim``) put together for a
+    sub-layer (`_SPGather`)."""
+    return _SPGather.apply(x, dim)
+
+
+def sp_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A partial output over the whole sequence summed over the tensor
+    axis into this rank's piece of dim ``dim`` (`_SPScatter`)."""
+    return _SPScatter.apply(x, dim)
+
+
+def sp_cut(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A replicated ``x`` cut to this rank's piece of dim ``dim``
+    (`_SPCut`)."""
+    return _SPCut.apply(x, dim)
+
+
+# ---------------------------------------------------------------------------
+# the FSDP axes of a train step, a layer at a time
+# ---------------------------------------------------------------------------
+
+
+class GatherPlan(NamedTuple):
+    """How `gather_shard` makes one leaf's shard what the model computes on.
+    ``steps``: ``(group name, extent, coordinate, tensor dim, backward)``
+    for each mesh dim whose shards it gathers, in mesh order (the first
+    axis major); backward "rs" (reduce-scatter: the ranks' gradients are
+    partial sums, their rows differ), "ar" (all-reduce, then this rank's
+    chunk: the same sum, without ``shard_grads``) or "cut" (this rank's
+    chunk: every rank of that axis holds the same gradient). ``sums``: the
+    groups of the mesh dims that replicate the leaf but split the rows,
+    whose gradients are summed over them (all-reduce). ``cast``: the dtype
+    the gradient is reduced in."""
+
+    steps: Tuple[Tuple[str, int, int, int, str], ...]
+    sums: Tuple[str, ...]
+    cast: Optional[torch.dtype]
+
+
+def gather_plan(v: Any, keep: Optional[str], *, stacked: bool) -> Optional[GatherPlan]:
+    """The `GatherPlan` of DTensor leaf ``v`` in the current train step:
+    gather every mesh dim that shards it but ``keep`` (the tensor axis,
+    where the leaf's group runs on its shard), its layer dim dropped when
+    ``stacked``; None for a plain tensor, or where nothing moves."""
+    if not is_dtensor(v):
+        return None
+    from torch.distributed.tensor import Shard
+    s = _stack()
+    rows = set(s[-1].row_axes) if s else set()
+    shard_grads = s[-1].shard_grads if s else True
+    cast = s[-1].grad_dtype if s else None
+    dm = v.device_mesh
+    coord = dm.get_coordinate()
+    steps, sums = [], []
+    shift = 1 if stacked else 0
+    for k, (name, p) in enumerate(zip(dm.mesh_dim_names, v.placements)):
+        n = dm.size(k)
+        if n == 1 or name == keep:
+            continue
+        group = dm.get_group(k).group_name
+        if isinstance(p, Shard):
+            back = ("rs" if shard_grads else "ar") if name in rows else "cut"
+            steps.append((group, n, coord[k], p.dim - shift, back))
+        elif name in rows:
+            sums.append(group)
+    if not steps and not sums and cast is None:
+        return None
+    return GatherPlan(tuple(steps), tuple(sums), cast)
+
+
+def _all_gather(x: torch.Tensor, dim: int, n: int, group: str) -> torch.Tensor:
+    ops = torch.ops._c10d_functional
+    y = x.movedim(dim, 0).contiguous()
+    return ops.wait_tensor(ops.all_gather_into_tensor(y, n, group)).movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, n: int, group: str) -> torch.Tensor:
+    ops = torch.ops._c10d_functional
+    y = x.movedim(dim, 0).contiguous()
+    return ops.wait_tensor(ops.reduce_scatter_tensor(y, "sum", n, group)).movedim(0, dim)
+
+
+def _all_reduce(x: torch.Tensor, group: str) -> torch.Tensor:
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(x.contiguous(), "sum", group))
+
+
+class _GatherShard(torch.autograd.Function):
+    """`gather_shard`'s rule. The gradient of the gathered tensor is cast,
+    then each gathered mesh dim returns it to this rank's shard in mesh
+    order (the first axis major, as DTensor's chunk rule nests shards), then
+    the row-splitting mesh dims that replicate the leaf sum it."""
+
+    @staticmethod
+    def forward(fctx, x, plan):
+        fctx.plan = plan
+        out = x
+        for group, n, _, dim, _ in reversed(plan.steps):
+            out = _all_gather(out, dim, n, group)
+        return out if plan.steps else x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        plan = fctx.plan
+        if plan.cast is not None:
+            g = g.to(plan.cast)
+        for group, n, coord, dim, back in plan.steps:
+            if back == "rs":
+                g = _reduce_scatter(g, dim, n, group)
+                continue
+            if back == "ar":
+                g = _all_reduce(g, group)
+            w = g.shape[dim] // n
+            g = g.narrow(dim, coord * w, w)
+        for group in plan.sums:
+            g = _all_reduce(g, group)
+        return g, None
+
+
+def gather_shard(x: torch.Tensor, plan: Optional[GatherPlan]) -> torch.Tensor:
+    """``x``, this rank's shard of a parameter (of one layer of a stacked
+    leaf), as the train step computes on it (`gather_plan`): whole along
+    every mesh dim but the kept one, its gradient returned to the shard
+    summed over the ranks whose rows differ. ``x`` itself where ``plan`` is
+    None. Every rank of the leaf's mesh calls this in the same order, and
+    its backward issues the same collectives in the same order."""
+    return x if plan is None else _GatherShard.apply(x, plan)
 
 
 def _keep_local(local: torch.Tensor, v: Any, axis: str, *, drop_dim0: bool) -> torch.Tensor:
@@ -340,6 +658,11 @@ def tp_counts() -> dict:
 
 def reset_tp_counts() -> None:
     _live_counts().clear()
+
+
+def local_shard(x: Any) -> torch.Tensor:
+    """A DTensor's own shard (its storage); a plain tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
 
 
 def full(x: Any) -> Any:

@@ -113,7 +113,59 @@ def mesh2x2(_cells):
     return {"collectives": cost.collectives, "summary": cost.summary(), "tp": ctx.tp_counts()}
 
 
+def train2x2(_cells):
+    """The train step of reduced Minitron-4B and Qwen1.5-MoE (B=2, S=16, the
+    plan `plan_for_cell` gives a train cell: sequence-parallel) over a 2 x 2
+    ``("data", "model")`` fake mesh: rank 0's argument and peak bytes, every
+    all-gather's result bytes, its tensor-parallel counts, and the bytes of
+    the whole parameter tree, of one layer, of the largest leaf of one
+    layer and of the largest leaf outside the layers."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import ShapeCell, get_reduced_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.cost import StepCost
+    from repro_torch.models import Model, lm
+    from repro_torch.sharding import ctx
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    out = {}
+    for arch in ("minitron_4b", "qwen2_moe_a2_7b"):
+        cfg = get_reduced_config(arch)
+        cell = ShapeCell("train_16", "train", 16, 2)
+        mesh = mesh_lib.fake_mesh((2, 2), ("data", "model"), device="cpu")
+        plan = dryrun.plan_for_cell(cfg, cell, False)
+        model = Model(cfg, device="meta")
+        inputs = dryrun.build_step(model, cell, mesh, plan)
+        nbytes = {name: p.numel() * p.element_size() for name, p in tree_util.items(model.params)}
+        with FakeTensorMode():
+            args = tuple(dryrun.place_fake(s, sh, torch.device("cpu"))
+                         for s, sh in zip(inputs.structs, inputs.shardings))
+            cost = StepCost(mesh)
+            cost.add_arguments(args)
+            ctx.reset_tp_counts()
+            with cost:
+                inputs.step(*args)
+        summary = cost.summary()
+        out[arch] = {
+            "sequence_parallel": plan.sequence_parallel,
+            "whole_tree": sum(nbytes.values()),
+            "one_layer": sum(b for k, b in nbytes.items() if k.startswith("layers/"))
+            // lm.n_scan_steps(cfg),
+            "largest_other": max(b for k, b in nbytes.items() if not k.startswith("layers/")),
+            "largest_layer_leaf": max(b for k, b in nbytes.items() if k.startswith("layers/"))
+            // lm.n_scan_steps(cfg),
+            "argument_bytes": summary["argument_bytes"],
+            "peak_bytes": summary["argument_bytes"] + summary["peak_transient"],
+            "all_gathers": [c["result_bytes"] for c in cost.collectives
+                            if c["kind"] == "all-gather"],
+            "by_kind": summary["collectives"]["by_kind"], "tp": ctx.tp_counts()}
+    return out
+
+
 if __name__ == "__main__":
     side, cells = sys.argv[1], sys.argv[2].split(",")
-    out = {"reference": reference, "port": port, "mesh2x2": mesh2x2}[side](cells)
+    out = {"reference": reference, "port": port, "mesh2x2": mesh2x2,
+           "train2x2": train2x2}[side](cells)
     print(json.dumps(out), flush=True)

@@ -16,7 +16,9 @@
     sides, as its 8 SSM heads do not split over the model axis of 16;
   * on a 2 x 2 fake mesh, the collectives of one tensor-parallel layer
     against a reckoning by hand from the spec trees; reduced Minitron's
-    ``decode_32k`` on the fake world with its tensor-parallel counts.
+    ``decode_32k`` on the fake world with its tensor-parallel counts;
+    reduced Minitron's and Qwen1.5-MoE's train step, which never holds the
+    whole parameter tree.
 
 The processes run at once, from one module fixture (~25 s).
 """
@@ -63,7 +65,7 @@ def _spawn(side):
 
 @pytest.fixture(scope="module")
 def jobs():
-    procs = {side: _spawn(side) for side in ("reference", "port", "mesh2x2")}
+    procs = {side: _spawn(side) for side in ("reference", "port", "mesh2x2", "train2x2")}
     out = {}
     for side, p in procs.items():
         try:
@@ -228,3 +230,20 @@ def test_reduced_decode_tensor_parallel_on_the_fake_world(jobs):
                          "mlp:local": L, "tp_local": 1 + L, "tp_gathered": 2 * L}
     assert rec["flops"] < 173.4e6
     assert rec["peak_bytes"] < 138.5e6
+
+
+@pytest.mark.parametrize("arch", ["minitron_4b", "qwen2_moe_a2_7b"])
+def test_train_step_never_gathers_the_whole_tree(jobs, arch):
+    """Reduced Minitron-4B's and Qwen1.5-MoE's train step (B = 2, S = 16,
+    sequence-parallel as `plan_for_cell` sets it) on a 2 x 2 fake mesh: the
+    live bytes rank 0's step adds to its arguments peak below one whole copy
+    of the parameter tree (a step that gathered the tree would hold that
+    copy, and its gradients, at once), every all-gather's result is at most
+    one layer and at most the largest leaf of one layer (or outside the
+    layers), and the layers ran on their model-axis shards."""
+    r = jobs["train2x2"][arch]
+    assert r["sequence_parallel"]
+    assert r["peak_bytes"] - r["argument_bytes"] < r["whole_tree"]
+    assert r["all_gathers"] and max(r["all_gathers"]) <= r["one_layer"]
+    assert max(r["all_gathers"]) <= max(r["largest_layer_leaf"], r["largest_other"])
+    assert r["tp"]["tp_local"] > 0 and "tp_gathered" not in r["tp"]

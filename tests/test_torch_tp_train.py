@@ -1,0 +1,283 @@
+"""The train step on its shards: `jit_train_step` a layer at a time over the
+FSDP axes, tensor-parallel on the model axis (the groups of `lm.tp_groups`
+on their shards, a vocab-parallel loss), the residual stream
+sequence-parallel where the plan says so, on a 4-rank gloo mesh on the CPU,
+against the one-device port and the reference's `jit_train_step` on four
+placeholder JAX devices.
+
+The module fixture starts at once (~60 s of wall time alone, several times
+that beside the rest of the suite on a loaded machine; the rank job ~45 s,
+the reference's children ~50 s each):
+
+  * ONE job of 4 gloo ranks (`_torch_tp_train_jobs.tp_train_job`, one thread
+    each, killed when no part finishes for `STALL_S` or after `LIMIT_S` in
+    all): reduced fp32 Minitron-4B, Qwen1.5-MoE, Mamba2-370m, Jamba, MiniCPM3
+    (MLA), Qwen2-VL (M-RoPE) and Whisper on ``(1, 2, 2)`` under
+    `default_plan()` (a model axis of 2; ``sequence_parallel`` as the dry
+    run's `plan_for_cell` sets it for a train cell: on for the dense, MoE,
+    VLM and enc-dec configs), Minitron with it forced off, and three
+    configs on ``(2, 2, 1)`` under `default_plan(multi_pod=True)`; one and
+    two accumulation steps; one step whose gradients are reduced in bf16;
+    beside each, the one-device port's step on the same weights and batch;
+    and the autograd collectives of `sharding.ctx` one by one;
+  * the reference's `jit_train_step` on the same cases, in four child
+    processes of their own (`_torch_tp_train_ref.py`, ``XLA_FLAGS`` for 4
+    host devices and one intra-op thread).
+
+The loss and the metrics are held within `REL` of the other sides', the
+AdamW moments within `_torch_dist_jobs._train_check`'s tolerance (atol 1e-7,
+rtol 1e-4), the params within its sign-flip rule. A step whose gradients
+are reduced in bf16 rounds each rank's partial sum to bf16 before the sum
+(the wire carries bf16), where one device rounds the whole gradient once:
+its moments are held within a share of each leaf's largest value instead
+(`_torch_tp_train_jobs.BF16_SHARE`: 2^-6 for ``m``, 2^-4 for ``v``, a
+square; the largest seen on the CPU: 0.6 % and 2.0 %).
+"""
+import json
+import os
+import pickle
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+import pytest
+from _torch_dist_jobs import LR, WD, _fp32, run_job
+from _torch_tp_train_jobs import BF16_SHARE, CASES, TRAIN_ARCHS, bf16_excess, case_name
+
+from repro_torch import tree as tree_util
+from repro_torch.models import Model
+
+ROOT = Path(__file__).resolve().parents[1]
+REL = 1e-5
+#: the rank job is killed when no part finishes for STALL_S seconds, every
+#: process after LIMIT_S in all (as `tests/test_torch_tp_serving.py`)
+STALL_S = 300
+LIMIT_S = 1200
+NAMES = [case_name(c) for c in CASES]
+#: the reference's cases split over this many child processes, balanced by
+#: the seconds a case took alone (XLA compiles Jamba's hybrid step longest)
+N_REF = 4
+REF_COST = {"jamba_v0_1_52b": 30, "qwen2_moe_a2_7b": 10, "mamba2_370m": 10}
+
+
+def _ref_split(names, n):
+    """``names`` over ``n`` children, each case to the least loaded."""
+    load, out = [0] * n, [[] for _ in range(n)]
+    for name in sorted(names, key=lambda c: -REF_COST.get(c.split(":")[0], 5)):
+        i = load.index(min(load))
+        out[i].append(name)
+        load[i] += REF_COST.get(name.split(":")[0], 5)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jobs():
+    tmp = tempfile.mkdtemp()
+    for arch in TRAIN_ARCHS:
+        tree = tree_util.map_tree(lambda _, x: x.numpy(), Model(_fp32(arch), device="cpu").params)
+        with open(os.path.join(tmp, f"{arch}.pkl"), "wb") as f:
+            pickle.dump(tree, f)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    refs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "_torch_tp_train_ref.py"), tmp,
+         os.path.join(tmp, f"ref_{i}.npz"), ",".join(part)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+        for i, part in enumerate(_ref_split(NAMES, N_REF))]
+    deadline = time.monotonic() + LIMIT_S
+    old = os.environ.get("TP_TRAIN_WEIGHTS")
+    os.environ["TP_TRAIN_WEIGHTS"] = tmp
+    try:
+        ranks = run_job("tp_train_job", world=4, timeout=LIMIT_S, stall=STALL_S,
+                        module="_torch_tp_train_jobs")
+    finally:
+        if old is None:
+            os.environ.pop("TP_TRAIN_WEIGHTS", None)
+        else:
+            os.environ["TP_TRAIN_WEIGHTS"] = old
+    ref, status = {}, {}
+    for i, p in enumerate(refs):
+        try:
+            stdout, stderr = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            p.kill()
+        assert p.returncode == 0, f"reference failed:\n{stderr[-3000:]}"
+        status.update(json.loads(stdout.strip().splitlines()[-1]))
+        with np.load(os.path.join(tmp, f"ref_{i}.npz")) as z:
+            ref.update({k: z[k] for k in z.files})
+    return {"ranks": ranks, "ref": ref, "status": status}
+
+
+def _ok(result):
+    assert not (isinstance(result, dict) and "error" in result), result.get("error")
+    return result
+
+
+def _rel(got, want, floor=0.0):
+    return abs(got - want) <= REL * max(abs(want), floor)
+
+
+@pytest.mark.parametrize("case", NAMES)
+def test_tp_train_step_matches_one_device_port(jobs, case):
+    """Every rank's loss and metrics within REL of the one-device step's,
+    its params and moments (put together) within the train tolerance."""
+    bf16 = case.endswith("bfloat16")
+    for out in jobs["ranks"]:
+        r = _ok(out[case])
+        assert _rel(r["loss"], r["one_loss"])
+        for k, v in r["one_metrics"].items():
+            assert _rel(r["metrics"][k], v, 1e-6), k
+        p = r["params_check"]
+        assert p["bad"] == 0 and p["flips"] <= 1e-3 * p["total"], p
+        if bf16:
+            assert r["m_bf16_excess"] <= 0.0
+        else:
+            assert r["m_check"]["bad"] == 0 and r["v_check"]["bad"] == 0, (r["m_check"],
+                                                                            r["v_check"])
+
+
+@pytest.mark.parametrize("case", NAMES)
+def test_tp_train_step_matches_reference(jobs, case):
+    """Rank 0's step against the reference's `jit_train_step` on four
+    devices of that mesh under the same plan: loss and metrics within REL,
+    moments within the train tolerance (the bf16 case's within its bf16
+    one), params within the sign-flip rule."""
+    st = jobs["status"][case]
+    assert st["status"] == "ok", st.get("trace")
+    ref = {k.split("|", 1)[1]: v for k, v in jobs["ref"].items() if k.startswith(case + "|")}
+    r = _ok(jobs["ranks"][0][case])
+    assert _rel(r["loss"], float(ref["loss"]))
+    for k, v in r["metrics"].items():
+        assert _rel(v, float(ref[f"metric/{k}"]), 1e-6), k
+    bf16 = case.endswith("bfloat16")
+    flips = total = 0
+    for name, got in r["trees"]["params"].items():
+        want = ref[f"params/{name}"].astype(np.float64)
+        got = got.astype(np.float64)
+        flips += int((~np.isclose(got, want, atol=1e-6, rtol=1e-5)).sum())
+        total += got.size
+        assert (np.abs(got - want) <= 2 * LR * (1 + WD) + 1e-6).all(), name
+    assert flips <= 1e-3 * total, (flips, total)
+    for key in ("m", "v"):
+        for name, got in r["trees"][key].items():
+            want = ref[f"{key}/{name}"]
+            if bf16:
+                assert bf16_excess(got, want, BF16_SHARE[key]) <= 0.0, f"{key}/{name}"
+            else:
+                assert np.allclose(got, want, atol=1e-7, rtol=1e-4), f"{key}/{name}"
+
+
+@pytest.mark.parametrize("case", [c for c in NAMES if ":1x2x2:" in c])
+def test_replicated_leaves_equal_on_the_model_axis(jobs, case):
+    """The leaves the model axis replicates (norms, the router, MLA's
+    down-projections, the SSM's B and C) hold the same first moment, bit
+    for bit, on both ranks of each model-axis group: each took the whole
+    gradient, neither a partial sum nor twice it."""
+    ranks = [_ok(out[case])["replicated_m"] for out in jobs["ranks"]]
+    assert ranks[0]
+    for a, b in ((0, 1), (2, 3)):
+        assert ranks[a].keys() == ranks[b].keys()
+        for name in ranks[a]:
+            assert np.array_equal(ranks[a][name], ranks[b][name]), (a, b, name)
+
+
+#: the tensor-parallel groups of each reduced config, all dividing 2
+GROUPS = {
+    "minitron_4b": ("attn", "attn_kv", "mlp"),
+    "qwen2_moe_a2_7b": ("attn", "attn_kv", "experts", "shared"),
+    "mamba2_370m": ("ssm",),
+    "jamba_v0_1_52b": ("attn", "attn_kv", "ssm", "mlp", "experts"),
+    "minicpm3_4b": ("mla", "mlp"),
+    "qwen2_vl_2b": ("attn", "attn_kv", "mlp"),
+}
+
+
+def _want_counts(arch, forwards):
+    cfg = _fp32(arch)
+    if cfg.encdec is not None:
+        n = forwards * cfg.num_layers
+        return {"encdec:gathered": n, "tp_gathered": n}
+    from repro_torch.models.lm import layer_kinds, n_scan_steps
+    per_layer = {"ssm": 0, "attn": 0, "mla": 0, "mlp": 0, "moe": 0}
+    for mixer, f in layer_kinds(cfg):
+        per_layer[mixer] += n_scan_steps(cfg)
+        if f != "none":
+            per_layer[f] += n_scan_steps(cfg)
+    want = {"vocab:local": forwards}
+    for g in GROUPS[arch]:
+        n = {"attn_kv": per_layer["attn"], "experts": per_layer["moe"],
+             "shared": per_layer["moe"]}.get(g, per_layer.get(g))
+        want[f"{g}:local"] = forwards * n
+    want["tp_local"] = sum(want.values())
+    return want
+
+
+@pytest.mark.parametrize("case", [c for c in NAMES if ":1x2x2:" in c])
+def test_every_dividing_dim_ran_local(jobs, case):
+    """On ``(1, 2, 2)`` every group of the config and the vocab ran on its
+    model-axis shard, once per forward (a recomputed layer is not counted
+    again), none gathered; Whisper's layers ran gathered whole (its tensor
+    parallelism is not ported yet). On ``(2, 2, 1)``, a model axis of one
+    rank, no tensor-parallel code runs and nothing is counted."""
+    arch, _, _, accum, _ = case.split(":")
+    for out in jobs["ranks"]:
+        assert _ok(out[case])["counts"] == _want_counts(arch, int(accum))
+    for other in NAMES:
+        if ":2x2x1:" in other:
+            assert _ok(jobs["ranks"][0][other])["counts"] == {}
+
+
+def test_sequence_parallel_where_the_plan_sets_it(jobs):
+    """`plan_for_cell` turns sequence parallelism on for the dense, MoE, VLM
+    and enc-dec train cells and off for the SSM and hybrid ones; the forced
+    case runs without it."""
+    want = {"minitron_4b": True, "qwen2_moe_a2_7b": True, "mamba2_370m": False,
+            "jamba_v0_1_52b": False, "minicpm3_4b": True, "qwen2_vl_2b": True,
+            "whisper_large_v3": True}
+    r = jobs["ranks"][0]
+    for arch, on in want.items():
+        assert _ok(r[f"{arch}:1x2x2:sp:1:fp32"])["sequence_parallel"] is on, arch
+    assert _ok(r["minitron_4b:1x2x2:nosp:1:fp32"])["sequence_parallel"] is False
+
+
+TOL = 1e-12
+
+
+@pytest.mark.parametrize("op", ["enter_reduce", "sum_shard", "sp", "max"])
+def test_autograd_collective_matches_one_device(jobs, op):
+    """Each autograd collective in float64 on the model axis of 2 against
+    the same function on one device: the forward and every input's gradient
+    (put together over the axis where a rank holds a shard).
+    ``enter_reduce``: `ctx.tp_enter` into a column-split product, a
+    row-split product out through `ctx.tp_reduce`; ``sum_shard``: a gated
+    norm's variance over split channels through `ctx.tp_sum_shard`; ``sp``:
+    a residual stream on sequence pieces (`ctx.sp_cut`, `ctx.sp_gather`,
+    `ctx.sp_scatter`); ``max``: `ctx.tp_max`."""
+    for out in jobs["ranks"]:
+        got = _ok(out["ops"])[op]
+        assert max(got if isinstance(got, list) else [got]) <= TOL, got
+
+
+def test_each_all_reduce_needs_its_own_backward(jobs):
+    """The trap of two backwards for one all-reduce: the residual sum with
+    an all-reduce backward doubles the input's gradient, and the variance
+    with an identity backward drops the other rank's part; both are far
+    off where the right rules agree to rounding."""
+    for out in jobs["ranks"]:
+        r = _ok(out["ops"])
+        assert r["reduce_wrong"] > 1.0 and r["sum_shard_wrong"] > 0.1
+
+
+def test_layer_gather_returns_the_summed_shard(jobs):
+    """`ctx.gather_shard` of a leaf sharded over data and model, rows split
+    over data: the forward is the leaf whole over data and this rank's
+    model shard; the backward is the gradient over every rank's rows, cut
+    to the rank's shard, by a reduce-scatter (``shard_grads``) or an
+    all-reduce then a cut."""
+    for out in jobs["ranks"]:
+        for shard_grads, (shape, fwd, bwd) in _ok(out["ops"])["gather_shard"].items():
+            assert shape == [6, 5] and fwd == 0.0 and bwd <= TOL, shard_grads

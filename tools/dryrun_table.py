@@ -8,10 +8,10 @@ Reads the JSON records `python -m repro_torch.launch.dryrun` writes (one a
 cell and mesh). Each mesh's cell shows the argument and peak GB a rank
 (peak marked ``*`` where it exceeds the card's memory), the FLOPs a rank,
 the wire GB a rank moves over each mesh axis, and the roofline term that
-bounds the step, and the tensor-parallel groups a serving step ran
-gathered whole where their dim does not divide the model axis (``tp``
-counts of the record); a cell that raised shows its error's type and its
-first words.
+bounds the step, how many sub-layers ran on their model-axis shard and
+gathered whole, and the tensor-parallel groups a step ran gathered where
+their dim does not divide the model axis (``tp`` counts of the record); a
+cell that raised shows its error's type and its first words.
 """
 from __future__ import annotations
 
@@ -33,10 +33,13 @@ def cell_text(rec: dict) -> str:
     m, rf, col = rec["memory"], rec["roofline"], rec["collectives"]
     peak = m["peak_bytes"] / 1e9
     wire = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in sorted(col["wire_bytes_by_axis"].items()))
-    gathered = sorted({k.split(":")[0] for k in rec.get("tp", {}) if k.endswith(":gathered")})
+    tp = rec.get("tp", {})
+    gathered = sorted({k.split(":")[0] for k in tp if k.endswith(":gathered")})
+    counts = (f", tp {tp.get('tp_local', 0)} local / {tp.get('tp_gathered', 0)} gathered"
+              if tp else "")
     return (f"{m['argument_bytes'] / 1e9:.2f} / {peak:.2f}{'' if m['fits'] else '*'} GB, "
             f"{rec['cost']['hlo_flops_per_device'] / 1e12:.1f} TF, wire GB {wire or 'none'}, "
-            f"{TERMS[rf['bottleneck']]}"
+            f"{TERMS[rf['bottleneck']]}{counts}"
             + (f", gathered: {' '.join(gathered)}" if gathered else ""))
 
 

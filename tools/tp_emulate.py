@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
-"""Tensor-parallel serving emulated on ONE card: two threads, each one rank
-of a model axis of 2, against the same config served whole.
+"""Tensor parallelism emulated on ONE card: two threads, each one rank of a
+model axis of 2, against the same config run whole.
 
-    python3 tools/tp_emulate.py [--device cpu]
+    python3 tools/tp_emulate.py [--device cpu] [--train]
 
 Each thread holds its rank's cut of the seeded weights as plain tensors
 (the model-axis dim of every group `lm.tp_groups` runs local, and the
-vocab), and runs the model's own prefill and three greedy decode steps
-with the card's kernels; the collectives of a tensor-parallel step
-(`sharding.ctx.tp`, `tp_sum`, `tp_gather`) are exchanged between the two
-threads at a barrier, in rank order, as an all-reduce and an all-gather
-over two ranks compute them. What runs on the card is every line of the
-tensor-parallel model code; what does not is NCCL and the FSDP gathers
-(`tools/engine_ranks.py` runs those on four cards).
+vocab), and runs the model's own code; the collectives of a
+tensor-parallel step (`sharding.ctx.tp`, `tp_sum`, `tp_gather`,
+`tp_reduce_scatter`, `tp_max`, which the autograd rules of a train step
+call too) are exchanged between the two threads at a barrier, in rank
+order, as an all-reduce, an all-gather and a reduce-scatter over two ranks
+compute them. What runs on the card is every line of the tensor-parallel
+model code; what does not is NCCL and the FSDP gathers
+(`tools/engine_ranks.py` and `tools/train_ranks.py` run those on four
+cards).
 
-It prints, per case, each step's logits against the whole model's
-(max |diff| and the step's largest logit), whether the greedy picks are
-equal, and the first MoE call (prefill through the MoE top-k kernel, then
-decode) where a token's expert picks differ, with the one-card router
-logits' gap between the k-th and the next expert there and the router
+Serving (the default) runs the prefill and three greedy decode steps with
+the card's kernels, and prints, per case, each step's logits against the
+whole model's (max |diff| and the step's largest logit), whether the greedy
+picks are equal, and the first MoE call (prefill through the MoE top-k
+kernel, then decode) where a token's expert picks differ, with the one-card
+router logits' gap between the k-th and the next expert there and the router
 logits' max |diff| up to it: in bf16 a tensor-parallel layer's partial
 sums round otherwise, and a near-tie then picks another expert. The cases:
 Qwen1.5-MoE whole in bf16 and at 12 layers in fp32, Jamba-v0.1 at 8
 layers in bf16 (full width; the reduced configs with ``--device cpu``).
+
+``--train`` runs one train step's loss and gradients instead (`train_case`,
+sequence-parallel as the dry run's plan sets it for a train cell), fp32
+Minitron-4B and Qwen1.5-MoE at full width and 2 layers, against the whole
+model's `make_train_step`: the loss, each first AdamW moment (the clipped
+gradient times 1 - beta1, the clip scale from the global norm over both
+threads' shards), and the replicated leaves' gradients equal on both
+threads. ``chip_smoke.py`` runs the same check.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import operator
@@ -41,6 +53,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 CASES = (("qwen2_moe_a2_7b", None, "bfloat16"), ("qwen2_moe_a2_7b", 12, "float32"),
          ("jamba_v0_1_52b", 8, "bfloat16"))
+#: the train cases: fp32 at full width, 2 layers, B x S tokens (a whole MoE
+#: dispatch group of 1024 a row), the loss in chunks of 256, the card's LR
+TRAIN_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b")
+TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_LOSS_CHUNK, TRAIN_LR = 2, 2, 1024, 256, 1e-4
 N = 2                   # ranks of the emulated model axis
 B, S, NEW = 4, 64, 3
 
@@ -62,12 +78,182 @@ def _on() -> bool:
     return getattr(_TL, "on", False)
 
 
+#: the primitives of `sharding.ctx` that `_install` replaces
+PRIMITIVES = ("tp", "tp_axis", "tp_sum", "tp_gather", "tp_reduce_scatter", "tp_max")
+
+
 def _install(ctx) -> None:
-    """The model axis's collectives over the two threads."""
+    """The model axis's collectives over the two threads (outside an
+    emulated rank's thread, a step of one rank)."""
+    import torch
     ctx.tp = lambda: (N, _TL.r) if _on() else (1, 0)
     ctx.tp_axis = lambda: "model" if _on() else None
     ctx.tp_sum = lambda x: functools.reduce(operator.add, _exchange(x)) if _on() else x
-    ctx.tp_gather = lambda x, dim: __import__("torch").cat(_exchange(x), dim) if _on() else x
+    ctx.tp_gather = lambda x, dim: torch.cat(_exchange(x), dim) if _on() else x
+    ctx.tp_reduce_scatter = lambda x, dim: (
+        functools.reduce(operator.add, _exchange(x)).chunk(N, dim)[_TL.r] if _on() else x)
+    ctx.tp_max = lambda x: (functools.reduce(torch.maximum, _exchange(x.detach()))
+                            if _on() else x)
+
+
+@contextlib.contextmanager
+def installed(ctx):
+    """`_install` for the duration of the block, the originals restored
+    after."""
+    saved = {name: getattr(ctx, name) for name in PRIMITIVES}
+    _install(ctx)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ctx, name, fn)
+
+
+def _run_ranks(fn) -> list:
+    """``fn(r)`` on one thread per emulated rank; their results in rank
+    order. A rank that raises aborts the barrier, so the other cannot wait
+    on it.
+
+    Raises:
+        SystemExit: a rank raised (its traceback in the message).
+    """
+    res: list = [None] * N
+
+    def one(r):
+        _TL.r, _TL.on = r, True
+        try:
+            res[r] = fn(r)
+        except Exception:
+            import traceback
+            res[r] = traceback.format_exc()
+            _BAR.abort()
+        finally:
+            _TL.on = False
+
+    threads = [threading.Thread(target=one, args=(r,)) for r in range(N)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for r in range(N):
+        if isinstance(res[r], str):
+            raise SystemExit(f"tp_emulate: rank {r} failed:\n{res[r]}")
+    return res
+
+
+def cut_params(cfg, params, plan, r):
+    """Emulated rank ``r``'s tree: the leaves of the groups that run local
+    (and the vocab) cut to its shard of their model-axis dim, as plain
+    tensors; every other leaf as it is. Inside the step's context."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import lm
+    from repro_torch.sharding.plan import param_specs
+    groups = lm.tp_groups(cfg)
+    local = lm._local_paths(cfg, groups)
+    specs = dict(tree_util.items(param_specs(cfg, plan)))
+    leaves, cut = [], set()
+    for name, x in tree_util.items(params):
+        sub = name[len("layers/"):] if name.startswith("layers/") else None
+        if sub in local or (name in ("embed", "lm_head") and groups["vocab"]):
+            spec = specs[name]
+            d = next(i for i in range(len(spec)) if "model" in spec.axes(i))
+            w = x.shape[d] // N
+            x = x.narrow(d, r * w, w).contiguous()
+            cut.add((name, d))
+        leaves.append(x)
+    return tree_util.like(params, leaves), cut
+
+
+def train_config(arch, dev, reduced: bool):
+    """``arch`` in fp32 at `TRAIN_LAYERS` (the reduced config on the CPU)
+    and a seeded batch of `TRAIN_B` rows of `TRAIN_S` + 1 tokens (16 on
+    the CPU) made on ``dev``."""
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced_config
+    cfg = get_reduced_config(arch) if reduced else get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS, param_dtype="float32",
+                              activ_dtype="float32")
+    S = 16 if reduced else TRAIN_S
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(2, cfg.vocab_size, size=(TRAIN_B, S + 1)).astype(np.int32)
+    return cfg, {"tokens": torch.as_tensor(tokens, device=dev)}
+
+
+def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
+    """One train step of ``cfg`` on two emulated ranks against the whole
+    model's `make_train_step` (module notes). Returns the loss on both
+    sides, the first moments' coordinates outside atol 1e-7 + rtol 1e-4 of
+    the whole step's (and their count), the largest |diff| over a leaf's
+    largest |m|, whether the replicated leaves' gradients are equal on both
+    threads, and the threads' tensor-parallel counts."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import plan_for_cell
+    from repro_torch.models import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.plan import Mesh
+    B, S = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+    plan = plan_for_cell(cfg, ShapeCell("t", "train", S, B), False)
+    devs = np.empty((1, 1, N), dtype=object)
+    devs[...] = dev
+    mesh = Mesh(devs)
+    model = Model(cfg, device=dev, seed=0, loss_chunk=loss_chunk)
+    opt = AdamW(lr=lr)
+    t0 = time.perf_counter()
+
+    def rank(r):
+        with ctx.activation_sharding(mesh, plan, tensor_parallel=True):
+            params, cut = cut_params(cfg, model.params, plan, r)
+            ctx.reset_tp_counts()
+            loss, _, grads = steps._loss_and_grads(model, params, batch)
+            return float(loss), grads, cut, ctx.tp_counts()
+
+    with installed(ctx):
+        res = _run_ranks(rank)
+    tp_s = time.perf_counter() - t0
+    names = [name for name, _ in tree_util.items(model.params)]
+    cut = dict(res[0][2])
+    # the global norm: a cut leaf's squares on both ranks, a replicated one's once
+    sq = sum(float(sum(res[r][1][i].double().square().sum() for r in range(N))
+                   if name in cut else res[0][1][i].double().square().sum())
+             for i, name in enumerate(names))
+    scale = min(1.0, opt.clip_norm / (sq ** 0.5 + 1e-9))
+    same = all(torch.equal(res[0][1][i], res[1][1][i])
+               for i, name in enumerate(names) if name not in cut)
+    state = opt.init(model.params)
+    t0 = time.perf_counter()
+    _, state, whole_loss, _ = steps.make_train_step(model, opt)(model.params, state, batch)
+    whole_s = time.perf_counter() - t0
+    bad = total = 0
+    worst = 0.0
+    for i, (name, m) in enumerate(tree_util.items(state["m"])):
+        if name in cut:
+            got = torch.cat([res[r][1][i] for r in range(N)], cut[name])
+        else:
+            got = res[0][1][i]
+        got = got.double() * scale * (1 - opt.b1)
+        want = m.double()
+        bad += int((~torch.isclose(got, want, atol=1e-7, rtol=1e-4)).sum())
+        total += want.numel()
+        worst = max(worst, float((got - want).abs().max() / want.abs().max().clamp(min=1e-30)))
+    out = {"loss": res[0][0], "loss_rank1": res[1][0], "whole_loss": float(whole_loss),
+           "m_outside": bad, "m_total": total, "m_worst_share": worst,
+           "replicated_grads_equal": same, "counts": res[0][3], "tp_s": tp_s,
+           "whole_s": whole_s}
+    print(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.param_dtype} B={B} x S={S} "
+          f"{'sequence-parallel' if plan.sequence_parallel else 'whole sequence'}: loss "
+          f"{out['loss']:.6f} (rank 1 {out['loss_rank1']:.6f}), whole {out['whole_loss']:.6f}; "
+          f"m outside atol 1e-7 + rtol 1e-4 at {bad} of {total}, largest |diff| "
+          f"{worst:.3e} of a leaf's largest |m|; replicated leaves' gradients equal on both "
+          f"ranks {same}; {out['counts']}; {tp_s:.2f} s two ranks, {whole_s:.2f} s whole  "
+          f"[{card}]", flush=True)
+    del model, state, res
+    return out
 
 
 class _Routing:
@@ -127,7 +313,7 @@ def run_case(dev, reduced, routing, arch, layers, dtype, card):
     from repro_torch.models import Model, lm
     from repro_torch.models.lm import is_positional
     from repro_torch.sharding import ctx
-    from repro_torch.sharding.plan import Mesh, default_plan, param_specs
+    from repro_torch.sharding.plan import Mesh, default_plan
     cfg = get_reduced_config(arch) if reduced else get_config(arch)
     cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers, param_dtype=dtype,
                               activ_dtype=dtype)
@@ -166,43 +352,18 @@ def run_case(dev, reduced, routing, arch, layers, dtype, card):
     with torch.no_grad():
         one = serve(model.params)
     one_calls = routing.take()
-    specs = dict(tree_util.items(param_specs(cfg, plan)))
-    res = {}
 
     def rank(r):
-        _TL.r, _TL.on = r, True
         routing.start()
-        try:
-            with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True):
-                groups = lm.tp_groups(cfg)
-                local = lm._local_paths(cfg, groups)
-                leaves = []
-                for name, x in tree_util.items(model.params):
-                    sub = name[len("layers/"):] if name.startswith("layers/") else None
-                    if sub in local or (name in ("embed", "lm_head") and groups["vocab"]):
-                        spec = specs[name]
-                        d = next(i for i in range(len(spec)) if "model" in spec.axes(i))
-                        w = x.shape[d] // N
-                        x = x.narrow(d, r * w, w).contiguous()
-                    leaves.append(x)
-                ctx.reset_tp_counts()
-                steps = serve(tree_util.like(model.params, leaves),
-                              lm.tp_cache_local(cfg, groups), r)
-                res[r] = (steps, ctx.tp_counts(), routing.take())
-        except Exception:
-            import traceback
-            res[r] = traceback.format_exc()
-            _BAR.abort()
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True):
+            params, _ = cut_params(cfg, model.params, plan, r)
+            groups = lm.tp_groups(cfg)
+            ctx.reset_tp_counts()
+            steps = serve(params, lm.tp_cache_local(cfg, groups), r)
+            return steps, ctx.tp_counts(), routing.take()
 
-    threads = [threading.Thread(target=rank, args=(r,)) for r in range(N)]
     t0 = time.perf_counter()
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    for r in range(N):
-        if isinstance(res.get(r), str):
-            raise SystemExit(f"tp_emulate: rank {r} failed:\n{res[r]}")
+    res = _run_ranks(rank)
     got, counts, calls = res[0]
     tag = f"[tp emulate] {cfg.name} {cfg.num_layers} layers {dtype}"
     for i, (a, b) in enumerate(zip(got, one)):
@@ -220,6 +381,7 @@ def run_case(dev, reduced, routing, arch, layers, dtype, card):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--train", action="store_true", help="a train step instead of serving")
     args = ap.parse_args(argv)
     import torch
 
@@ -234,10 +396,19 @@ def main(argv=None) -> None:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader", "-i", "0"], capture_output=True,
                               text=True, check=True).stdout.strip()
+    dev = torch.device(args.device)
+    if args.train:
+        for arch in TRAIN_ARCHS:
+            cfg, batch = train_config(arch, dev, reduced)
+            train_case(dev, cfg, batch, TRAIN_LR, card, "[tp emulate train]",
+                       loss_chunk=None if reduced else TRAIN_LOSS_CHUNK)
+            if not reduced:
+                torch.cuda.empty_cache()
+        return
     _install(ctx)
     routing = _Routing()
     for arch, layers, dtype in CASES:
-        run_case(torch.device(args.device), reduced, routing, arch, layers, dtype, card)
+        run_case(dev, reduced, routing, arch, layers, dtype, card)
         if not reduced:
             torch.cuda.empty_cache()
 
