@@ -164,7 +164,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              Qwen1.5-MoE at full width and 2 layers (B=2 x S=1024,
              sequence-parallel), the loss and the first moments against the
              whole step's, the replicated leaves' gradients equal on both
-             threads, every group on its shard.
+             threads, every group on its shard; then decode over a
+             sequence-sharded cache on the same two threads, the model axis
+             cutting the heads and the cache's sequence (`tp_emulate.py`'s
+             `decode_case`): fp32 Qwen1.5-MoE (4 layers, heads local) and
+             Minitron-4B (2 layers, attention gathered) at full width, 8
+             greedy steps across the halves against the whole model's
+             decode (logits within 1e-5 of the step's largest, picks
+             equal), then the cache in fp8 against the whole model's fp8
+             decode on the CPU (within `PATH_LOGITS_TOL`).
 15. dryrun — in a child process (the fake world and the sharded phase's NCCL
              group must not meet in one process): the dry run
              (`launch.dryrun`) of four steps on a fake world of one rank,
@@ -3329,6 +3337,45 @@ def _tp_train_emulated(card):
     return out
 
 
+def _seq_decode_emulated(card):
+    """Decode over a sequence-sharded cache on the card, a model axis of 2
+    that cuts both the heads and the cache's sequence, emulated by two
+    threads (`tools/tp_emulate.py`'s `decode_case`): fp32 Qwen1.5-MoE (heads
+    local) and Minitron-4B (attention gathered) at full width, a few layers,
+    8 greedy steps across the two halves of the cache against the whole
+    model's decode from the same cache, each step's logits within
+    `tp_emulate.DEC_REL` of its largest, picks equal; then the cache in
+    fp8, against the whole model's fp8 decode on the CPU within
+    `PATH_LOGITS_TOL`."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    import tp_emulate
+    dev = torch.device("cuda")
+    out = {}
+    for cache_dtype in (torch.float32, torch.float8_e4m3fn):
+        for arch, layers, heads_local in tp_emulate.DEC_CASES:
+            r = tp_emulate.decode_case(dev, arch, layers, heads_local, False, card,
+                                       cache_dtype=cache_dtype,
+                                       tag="[sharded seq decode emulated]")
+            name = f"{arch} {str(cache_dtype)[6:]}"
+            check(r["counts"].get("attn:seq_local") == layers * tp_emulate.DEC_NEW
+                  and r["ranks_agree"],
+                  f"[sharded seq decode] {name}: counts {r['counts']}, ranks agree "
+                  f"{r['ranks_agree']}")
+            for i, row in enumerate(r["steps"]):
+                if cache_dtype == torch.float32:
+                    check(row["max_diff"] <= tp_emulate.DEC_REL * row["largest"]
+                          and row["picks_equal"], f"[sharded seq decode] {name} step {i}: {row}")
+                else:
+                    check(row["cpu_max_diff"] <= PATH_LOGITS_TOL["float32"]
+                          and row["cpu_picks_equal"]
+                          and row["max_diff"] <= PATH_LOGITS_TOL["float32"],
+                          f"[sharded seq decode] {name} step {i}: {row}")
+            out[name] = r
+            free_device()
+    return out
+
+
 def phase_sharded(card):
     """The sharded builders on a one-rank NCCL mesh of the card, and the
     tensor-parallel train step on two emulated ranks (see the module
@@ -3344,6 +3391,7 @@ def phase_sharded(card):
         out["train"] = _sharded_train(card, mesh, get_config(SSM_ARCH), TRAIN_LR[SSM_ARCH])
         free_device()
     out["tp_train"] = _tp_train_emulated(card)
+    out["seq_decode"] = _seq_decode_emulated(card)
     out["seconds"] = time.perf_counter() - t0
     say(f"[sharded] phase {out['seconds']:.1f} s  [{card}]")
     return out

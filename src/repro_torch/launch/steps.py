@@ -425,23 +425,36 @@ def _logits_out(logits: torch.Tensor, lsh: LeafSharding, B: int, v_pad: int,
     return ctx.from_rows(logits, lsh, (B, v_pad), dim=0, keep=keep)
 
 
-def _cache_out(local: Tree, csh: Tree, batch: int, axis: Optional[str] = None,
-               kept: frozenset = frozenset()) -> Tree:
+def _cache_out(local: Tree, csh: Tree, batch: int, keeps: Dict[str, Tuple[str, ...]]) -> Tree:
     """Each rank's cache rows (batch on axis 1) as DTensors under ``csh``;
-    the leaves in ``kept`` hold this rank's shard of mesh axis ``axis``."""
+    leaf ``k`` holds this rank's shard of the mesh axes ``keeps[k]`` (the
+    tensor axis, or the sequence axes)."""
     out = {}
     for k, v in local.items():
-        keep = (axis,) if k in kept else ()
+        keep = keeps[k]
         shape = list(ctx.full_shape(v.shape, csh[k], keep))
         shape[1] = batch
         out[k] = ctx.from_rows(v, csh[k], tuple(shape), dim=1, keep=keep)
     return out
 
 
+def _cache_keeps(cache: Tree, axis: Optional[str], kept: frozenset,
+                 seq: Tuple[str, ...] = ()) -> Dict[str, Tuple[str, ...]]:
+    """The mesh axes whose shard each cache leaf keeps in a step: the
+    tensor axis ``axis`` for the leaves in ``kept`` (`_tp_keys`), the
+    sequence axes ``seq`` for those with a sequence (K/V, the MLA latent),
+    none for the rest."""
+    return {k: (axis,) if k in kept else seq if lm.is_positional(k) else ()
+            for k in cache}
+
+
 def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
     """``(params, batch) -> (logits (B, V_pad), cache)`` under ``plan``
     on ``mesh``: params, batch, logits and cache as DTensors under their
-    specs (``cell.global_batch`` sizes the batch specs and the cache's)."""
+    specs (``cell.global_batch`` sizes the batch specs and the cache's).
+    Each rank computes its rows over the whole sequence; a cache whose
+    sequence the plan shards (``seq_axis``) is cut to each rank's piece on
+    the way out, with no data moved."""
     psh = named(mesh, param_specs(model.cfg, plan))
     bsh = named(mesh, batch_specs(model.cfg, plan, cell))
     csh = named(mesh, cache_specs(model.cfg, plan, batch=cell.global_batch))
@@ -463,7 +476,7 @@ def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
             axis, kept = _tp_keys(model.cfg)
             logits, cache = model.prefill(local, params=_serving_params(model.cfg, params))
         return (_logits_out(logits, lsh, B, v_pad, axis),
-                _cache_out(cache, csh, B, axis, kept))
+                _cache_out(cache, csh, B, _cache_keeps(cache, axis, kept)))
 
     return prefill
 
@@ -471,11 +484,18 @@ def jit_prefill(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
 def jit_decode_step(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
     """``(params, tokens (B, 1), cache, pos) -> (logits, cache)`` under
     ``plan`` on ``mesh``, all as DTensors under their specs (``pos``
-    replicated). A cache placed by its rows alone, or by its rows and the
-    tensor axis where the step keeps that shard (an SSM state whose heads
-    run local), is written in place; one whose other dims shard too (K/V
-    over a sequence axis, an SSM state whose heads run gathered) is
-    gathered to the rank's rows for the step and cut back after."""
+    replicated). Each rank runs its rows. A cache leaf stays on its shard,
+    written in place, where the step computes on that shard: a K/V or MLA
+    latent leaf whose sequence the plan shards (``seq_axis``) keeps each
+    rank's positions (attention runs over them and combines the softmax
+    over the sequence axes: `ctx.seq_axes`, `models.attention`); an SSM
+    state whose heads run local keeps the rank's heads. Any other shard (an
+    SSM state whose heads run gathered) is gathered to the rank's rows for
+    the step and cut back after.
+
+    Raises:
+        ValueError: a sequence axis also splits the batch rows.
+    """
     psh = named(mesh, param_specs(model.cfg, plan))
     csh = named(mesh, cache_specs(model.cfg, plan, batch=cell.global_batch))
     b_ax = plan.batch_axes if cell.global_batch > 1 else None
@@ -494,14 +514,18 @@ def jit_decode_step(model: Model, mesh: Mesh, plan: ShardingPlan, cell):
         row_axes = _row_axes(mesh, tokens, 0)
         _check_rows(mesh, row_axes, B, "a decode batch")
         with torch.no_grad(), ctx.activation_sharding(mesh, plan, row_axes=row_axes,
-                                                      tensor_parallel=True):
+                                                      tensor_parallel=True, seq_local=True):
             axis, kept = _tp_keys(model.cfg)
-            local = {k: ctx.local_rows(v, 1, keep=(axis,) if k in kept else ())
-                     for k, v in cache.items()}
+            seq = ctx.seq_axes()
+            if set(seq) & set(row_axes):
+                raise ValueError(f"the sequence axes {seq} also split the batch rows "
+                                 f"{row_axes}")
+            keeps = _cache_keeps(cache, axis, kept, seq)
+            local = {k: ctx.local_rows(v, 1, keep=keeps[k]) for k, v in cache.items()}
             logits, local = model.decode_step(ctx.local_rows(tokens, 0), local,
                                               ctx.full(pos),
                                               params=_serving_params(model.cfg, params))
         return (_logits_out(logits, lsh, B, v_pad, axis),
-                _cache_out(local, csh, B, axis, kept))
+                _cache_out(local, csh, B, keeps))
 
     return decode

@@ -29,6 +29,16 @@ heads computed on their shards are gathered before they are written. In
 train, every replicated tensor that enters a shard's computation (the
 normed input; K/V computed whole; MLA's latent and its query's) crosses
 `ctx.tp_enter`, whose backward sums the shards' parts of its gradient.
+
+In a decode step that keeps the cache on its sequence shards
+(`ctx.seq_axes`: the plan's ``seq_axis``), each rank holds the K/V (or the
+latent) of its own positions: the new entry is written on the rank that
+holds ``pos`` alone, the query attends over the local positions, and the
+softmax is combined over the sequence axes flash-decoding style (a MAX
+all-reduce of the row maximum, then one SUM all-reduce of the rescaled
+sums and weighted values, in fp32). Where the tensor axis that holds the
+rank's q heads also cuts the sequence, the query is gathered over the
+heads first and the rank keeps its own heads after the combine.
 """
 from __future__ import annotations
 
@@ -120,6 +130,104 @@ def sdpa(
 
 
 # ---------------------------------------------------------------------------
+# decode over this rank's piece of a sequence-sharded cache
+# ---------------------------------------------------------------------------
+
+
+def _write_local(leaf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor, offset: int) -> None:
+    """Write ``new`` (``(B, 1, ...)``) at position ``pos`` (scalar or
+    ``(B,)``) into ``leaf``, this rank's piece ``[offset, offset + S_local)``
+    of a cache leaf's sequence, IN PLACE, on the rank that holds ``pos``
+    alone: a masked write from tensor ops (no host read of ``pos``). A rank
+    that does not hold it writes back the value already there. The select
+    runs in ``new``'s dtype (an fp8 value upcast and cast back is itself);
+    the cast to the cache's dtype is the write's, as in the one-device
+    step."""
+    at = pos.long() - offset
+    own = (at >= 0) & (at < leaf.shape[1])
+    at = at.clamp(0, leaf.shape[1] - 1)
+    if pos.dim() == 0:
+        at = at.reshape(1)
+        old = leaf[:, at].to(new.dtype)
+        leaf[:, at] = torch.where(own, new, old).to(leaf.dtype)
+    else:
+        bidx = torch.arange(leaf.shape[0], device=leaf.device)
+        old = leaf[bidx, at].to(new.dtype)
+        mask = own.reshape((-1,) + (1,) * (old.dim() - 1))
+        leaf[bidx, at] = torch.where(mask, new[:, 0], old).to(leaf.dtype)
+
+
+def _local_valid(S: int, offset: int, pos: torch.Tensor) -> torch.Tensor:
+    """Which of this rank's positions ``offset + [0, S)`` a query at ``pos``
+    reads (``<= pos``): ``(1, S)`` for a scalar ``pos``, ``(B, S)`` for
+    per-row positions."""
+    steps = offset + torch.arange(S, device=pos.device)
+    return steps[None, :] <= (pos if pos.dim() == 0 else pos[:, None])
+
+
+def _combine(logits: torch.Tensor, values) -> torch.Tensor:
+    """Softmax-weighted values over a sequence split across the sequence
+    axes, flash-decoding style: ``logits (..., S_local)`` fp32, masked with
+    -1e30 (as `sdpa`); ``values(p)``: the weighted sum of this rank's values
+    by ``p`` (fp32), ``(..., Dv)``. The row maximum is taken over every
+    rank's positions (`ctx.seq_max`); then ``Σ exp(s − m)`` and
+    ``Σ exp(s − m)·v`` are summed over the axes in one all-reduce
+    (`ctx.seq_sum`), in fp32. A rank whose positions are all masked adds
+    exactly 0: position 0 lies on the first rank, so the maximum is finite
+    and ``exp(-1e30 − m)`` is 0."""
+    m = ctx.seq_max(logits.amax(dim=-1, keepdim=True))
+    p = torch.exp(logits - m)
+    acc = ctx.seq_sum(torch.cat([values(p).float(), p.sum(dim=-1, keepdim=True)], dim=-1))
+    return acc[..., :-1] / acc[..., -1:]
+
+
+def _heads_for_seq(hq: int, total: int) -> bool:
+    """Whether a decode over the sequence shard gathers the query over its
+    heads: the rank holds ``hq`` of ``total`` heads on the tensor axis, and
+    that axis also cuts the sequence (TRAP: combining over it would add
+    different heads together). The query is gathered (it is tiny), every
+    head attends over the local positions, and the rank keeps its own heads
+    for the out-projection, as the reference's partitioner does."""
+    return hq < total and ctx.tp_axis() in ctx.seq_axes()
+
+
+def _gqa_decode_seq(q, k_cache, v_cache, k, v, pos, *, scale, kv_heads, gather):
+    """GQA decode over this rank's piece of the cache's sequence: the new
+    K/V written where ``pos`` falls, ``q (B, 1, hq, D)`` attending over the
+    local positions below ``pos + 1``, combined over the sequence axes
+    (`_combine`). ``kv_heads``: the ``[k0, k1)`` of the cache's K/V heads
+    this rank's q heads read; ``gather``: `_heads_for_seq`. Returns
+    ``(B, 1, hq, Dv)``."""
+    _, index = ctx.seq_piece()
+    S = k_cache.shape[1]
+    offset = index * S
+    _write_local(k_cache, k, pos, offset)
+    _write_local(v_cache, v, pos, offset)
+    B, Q, hq, D = q.shape
+    if gather:
+        q = ctx.tp_gather(q, 2)
+    else:
+        k0, k1 = kv_heads
+        k_cache, v_cache = k_cache[:, :, k0:k1], v_cache[:, :, k0:k1]
+    if k_cache.dtype != q.dtype:    # low-precision cache: upcast for the math
+        k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
+    Hq, Hkv = q.shape[2], k_cache.shape[2]
+    qg = q.reshape(B, Q, Hkv, Hq // Hkv, D)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qg, k_cache).float() * scale
+    valid = _local_valid(S, offset, pos)
+    logits = torch.where(valid[:, None, None, None, :], logits, -1e30)
+    # the weights meet the values in the values' dtype, as in `sdpa`
+    out = _combine(logits, lambda p: torch.einsum("bhgqs,bshd->bhgqd", p.to(v_cache.dtype),
+                                                  v_cache))
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Q, Hq, v_cache.shape[-1]).to(q.dtype)
+    if gather:
+        r = ctx.tp()[1]
+        out = out[:, :, r * hq:(r + 1) * hq]
+    ctx.note_seq("attn")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # GQA layer
 # ---------------------------------------------------------------------------
 
@@ -200,18 +308,22 @@ def gqa_attention(
             raise ValueError("decode needs a cache, a position and one token per row")
         pos = torch.as_tensor(pos, device=x.device)
         k_cache, v_cache = cache["k"], cache["v"]
-        if pos.dim() == 0:      # one position for the whole batch (indexed by a
-            at = pos.reshape(1).long()   # tensor: no read of pos on the host)
-            k_cache[:, at] = k.to(k_cache.dtype)
-            v_cache[:, at] = v.to(v_cache.dtype)
-        else:                   # per-slot positions (serving engine)
-            bidx = torch.arange(B, device=x.device)
-            k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
-            v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
         new_cache = cache
-        if (k0, k1) != (0, k_cache.shape[2]):
-            k_cache, v_cache = k_cache[:, :, k0:k1], v_cache[:, :, k0:k1]
-        out = sdpa(q, k_cache, v_cache, scale=scale, causal=False, kv_len=pos + 1)
+        if ctx.seq_axes():      # this rank's piece of the cache's sequence
+            out = _gqa_decode_seq(q, k_cache, v_cache, k, v, pos, scale=scale,
+                                  kv_heads=(k0, k1), gather=_heads_for_seq(hq, cfg.num_heads))
+        else:
+            if pos.dim() == 0:  # one position for the whole batch (indexed by a
+                at = pos.reshape(1).long()   # tensor: no read of pos on the host)
+                k_cache[:, at] = k.to(k_cache.dtype)
+                v_cache[:, at] = v.to(v_cache.dtype)
+            else:               # per-slot positions (serving engine)
+                bidx = torch.arange(B, device=x.device)
+                k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
+                v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+            if (k0, k1) != (0, k_cache.shape[2]):
+                k_cache, v_cache = k_cache[:, :, k0:k1], v_cache[:, :, k0:k1]
+            out = sdpa(q, k_cache, v_cache, scale=scale, causal=False, kv_len=pos + 1)
     else:
         raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
 
@@ -337,6 +449,77 @@ def _mla_expand(cfg: ModelConfig, p: dict, q_nope, q_pe, ckv, kpe):
     return torch.cat([q_nope, q_pe], dim=-1), k, v
 
 
+def _mla_decode(cfg: ModelConfig, p: dict, q_nope, q_pe, cache: Cache, ckv_new, kpe_new,
+                pos: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """MLA's absorbed decode over the whole cache: the new latent entry
+    written at ``pos`` IN PLACE, the query projected into the latent space
+    attending over the ``R + Dr``-wide cache. Returns ``(B, 1, hq, Dv)``."""
+    m = cfg.mla or MLAConfig()
+    B, hq = q_nope.shape[0], q_nope.shape[2]
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    S_max = ckv.shape[1]
+    steps = torch.arange(S_max, device=pos.device)
+    if pos.dim() == 0:      # one position for the whole batch
+        at = pos.reshape(1).long()
+        ckv[:, at] = ckv_new.to(ckv.dtype)
+        kpe[:, at] = kpe_new.to(kpe.dtype)
+        valid = (steps <= pos)[None, None, None, :]
+    else:                   # per-slot positions (serving engine)
+        bidx = torch.arange(B, device=pos.device)
+        ckv[bidx, pos] = ckv_new[:, 0].to(ckv.dtype)
+        kpe[bidx, pos] = kpe_new[:, 0].to(kpe.dtype)
+        valid = (steps[None, :] <= pos[:, None])[:, None, None, :]    # (B,1,1,S)
+    if ckv.dtype != q_nope.dtype:   # low-precision cache: upcast for the math
+        ckv, kpe = ckv.to(q_nope.dtype), kpe.to(q_nope.dtype)
+    # q_nope (B,1,H,Dn) through w_uk per head -> latent query (B,1,H,R)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, hq, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+              + torch.einsum("bqhd,bsd->bhqs", q_pe, kpe)).float() * scale
+    logits = torch.where(valid, logits, -1e30)
+    w = torch.softmax(logits, dim=-1).to(ckv.dtype)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)                # (B,1,H,R)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, hq, m.v_head_dim)
+    return torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)
+
+
+def _mla_decode_seq(cfg: ModelConfig, p: dict, q_nope, q_pe, cache: Cache, ckv_new, kpe_new,
+                    pos: torch.Tensor, *, scale: float, gather: bool) -> torch.Tensor:
+    """`_mla_decode` over this rank's piece of the latent cache's sequence:
+    the new entry written where ``pos`` falls, the latent query and its
+    rotary part against the local positions, ``o_lat`` combined over the
+    sequence axes (`_combine`) before ``w_uv``. ``gather``: the query's
+    ``(B, 1, H, R + Dr)`` gathered over the heads and the rank's own heads
+    kept after the combine (`_heads_for_seq`). Returns ``(B, 1, hq, Dv)``."""
+    m = cfg.mla or MLAConfig()
+    R = m.kv_lora_rank
+    B, Q, hq = q_nope.shape[:3]
+    ckv, kpe = cache["ckv"], cache["kpe"]
+    _, index = ctx.seq_piece()
+    S = ckv.shape[1]
+    offset = index * S
+    _write_local(ckv, ckv_new, pos, offset)
+    _write_local(kpe, kpe_new, pos, offset)
+    if ckv.dtype != q_nope.dtype:   # low-precision cache: upcast for the math
+        ckv, kpe = ckv.to(q_nope.dtype), kpe.to(q_nope.dtype)
+    w_uk = p["w_uk"].reshape(R, hq, m.qk_nope_head_dim)
+    q_all = torch.cat([torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk), q_pe], dim=-1)
+    if gather:
+        q_all = ctx.tp_gather(q_all, 2)
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_all[..., :R], ckv)
+              + torch.einsum("bqhd,bsd->bhqs", q_all[..., R:], kpe)).float() * scale
+    valid = _local_valid(S, offset, pos)
+    logits = torch.where(valid[:, None, None, :], logits, -1e30)
+    o_lat = _combine(logits, lambda w: torch.einsum("bhqs,bsr->bhqr", w.to(ckv.dtype), ckv))
+    o_lat = o_lat.transpose(1, 2).to(q_nope.dtype)                # (B,1,H,R)
+    if gather:
+        r = ctx.tp()[1]
+        o_lat = o_lat[:, :, r * hq:(r + 1) * hq]
+    ctx.note_seq("mla")
+    w_uv = p["w_uv"].reshape(R, hq, m.v_head_dim)
+    return torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)
+
+
 def mla_attention(
     cfg: ModelConfig,
     p: dict,
@@ -384,32 +567,12 @@ def mla_attention(
             raise ValueError("decode needs a cache, a position and one token per row")
         ckv_new, kpe_new = _mla_latent_kv(cfg, p, x, cos, sin)
         pos = torch.as_tensor(pos, device=x.device)
-        ckv, kpe = cache["ckv"], cache["kpe"]
-        S_max = ckv.shape[1]
-        steps = torch.arange(S_max, device=x.device)
-        if pos.dim() == 0:      # one position for the whole batch
-            at = pos.reshape(1).long()
-            ckv[:, at] = ckv_new.to(ckv.dtype)
-            kpe[:, at] = kpe_new.to(kpe.dtype)
-            valid = (steps <= pos)[None, None, None, :]
-        else:                   # per-slot positions (serving engine)
-            bidx = torch.arange(B, device=x.device)
-            ckv[bidx, pos] = ckv_new[:, 0].to(ckv.dtype)
-            kpe[bidx, pos] = kpe_new[:, 0].to(kpe.dtype)
-            valid = (steps[None, :] <= pos[:, None])[:, None, None, :]    # (B,1,1,S)
         new_cache = cache
-        if ckv.dtype != x.dtype:    # low-precision cache: upcast for the math
-            ckv, kpe = ckv.to(x.dtype), kpe.to(x.dtype)
-        # q_nope (B,1,H,Dn) through w_uk per head -> latent query (B,1,H,R)
-        w_uk = p["w_uk"].reshape(m.kv_lora_rank, hq, m.qk_nope_head_dim)
-        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
-        logits = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
-                  + torch.einsum("bqhd,bsd->bhqs", q_pe, kpe)).float() * scale
-        logits = torch.where(valid, logits, -1e30)
-        w = torch.softmax(logits, dim=-1).to(ckv.dtype)
-        o_lat = torch.einsum("bhqs,bsr->bqhr", w, ckv)                # (B,1,H,R)
-        w_uv = p["w_uv"].reshape(m.kv_lora_rank, hq, m.v_head_dim)
-        out = torch.einsum("bqhr,rhd->bqhd", o_lat, w_uv)
+        if ctx.seq_axes():      # this rank's piece of the cache's sequence
+            out = _mla_decode_seq(cfg, p, q_nope, q_pe, cache, ckv_new, kpe_new, pos,
+                                  scale=scale, gather=_heads_for_seq(hq, cfg.num_heads))
+        else:
+            out = _mla_decode(cfg, p, q_nope, q_pe, cache, ckv_new, kpe_new, pos, scale=scale)
     else:
         raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
 

@@ -30,7 +30,8 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
     return dev
 
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -1350,10 +1350,12 @@ NON_COMMUNICATING = ("wait_tensor", "_wrap_tensor_autograd")
 class Collective:
     """One collective a traced step issued: its op (``namespace.name``) and
     the global ranks of its process group, ``None`` where they could not
-    be read (a check then assumes it crosses every axis)."""
+    be read (a check then assumes it crosses every axis); ``shape``, the
+    shape of the tensor it sends (its first tensor operand; not compared)."""
 
     op: str
     ranks: Optional[Tuple[int, ...]] = None
+    shape: Optional[Tuple[int, ...]] = dataclasses.field(default=None, compare=False)
 
 
 def _has_process_group() -> bool:
@@ -1403,8 +1405,10 @@ def trace_collectives(step, device: torch.device) -> List[Collective]:
             ns = getattr(func, "namespace", "")
             if ns in COLLECTIVE_NAMESPACES \
                     and func.overloadpacket.__name__ not in NON_COMMUNICATING:
+                sent = next((a for a in args if isinstance(a, torch.Tensor)), None)
                 found.append(Collective(f"{ns}.{func.overloadpacket.__name__}",
-                                        _group_ranks(args, kwargs or {})))
+                                        _group_ranks(args, kwargs or {}),
+                                        None if sent is None else tuple(sent.shape)))
             return func(*args, **(kwargs or {}))
 
     try:

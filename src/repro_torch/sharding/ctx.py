@@ -38,6 +38,11 @@ output into the piece, `sp_cut` cuts a replicated tensor to it. The FSDP
 axes are gathered a layer at a time by `gather_shard` (all-gather forward;
 backward a reduce-scatter over the axes that split the rows, or an
 all-reduce then a cut without ``shard_grads``, a cut over the others).
+
+A decode step enters the context with ``seq_local=True``: where the plan
+names a ``seq_axis``, each rank then holds its own piece of the K/V
+cache's sequence (`seq_axes`, `seq_piece`), and attention combines its
+softmax over those axes (`seq_max`, `seq_sum`).
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ class _Frame(NamedTuple):
     device_mesh: Any
     shard_grads: bool
     grad_dtype: Optional[torch.dtype]
+    seq_local: bool
 
 
 def _stack() -> list:
@@ -83,7 +89,7 @@ def is_dtensor(x: Any) -> bool:
 def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None,
                         rows: Optional[int] = None, tensor_parallel: bool = False,
                         device_mesh: Any = None, shard_grads: bool = True,
-                        grad_dtype: Optional[torch.dtype] = None):
+                        grad_dtype: Optional[torch.dtype] = None, seq_local: bool = False):
     """Enter ``(mesh, plan)`` for the model's `constrain` calls.
     ``row_axes``: the mesh axes this step splits the batch rows over (none
     by default: every rank holds every row). ``rows``: the global row count
@@ -94,9 +100,11 @@ def activation_sharding(mesh, plan, *, row_axes: Optional[Sequence[str]] = None,
     the ``DeviceMesh`` whose groups the step's own collectives use (the
     mesh's untagged one by default; PREPARE passes its own).
     ``shard_grads`` and ``grad_dtype``: how a train step's layer gathers
-    return their gradients (`gather_shard`)."""
+    return their gradients (`gather_shard`). ``seq_local``: the step keeps
+    the K/V cache on the sequence shards of the plan's ``seq_axis``
+    (`seq_axes`; a decode step)."""
     _stack().append(_Frame(mesh, plan, tuple(row_axes or ()), rows, tensor_parallel,
-                           device_mesh, shard_grads, grad_dtype))
+                           device_mesh, shard_grads, grad_dtype, seq_local))
     try:
         yield
     finally:
@@ -303,6 +311,89 @@ def tp_max(x: torch.Tensor) -> torch.Tensor:
         return x
     ops = torch.ops._c10d_functional
     return ops.wait_tensor(ops.all_reduce(x.detach().contiguous(), "max", _tp_group_name()))
+
+
+# ---------------------------------------------------------------------------
+# the sequence axes of a decode step
+# ---------------------------------------------------------------------------
+
+
+def _seq_context():
+    """``(DeviceMesh, the mesh dims of the sequence axes)`` of the current
+    step where it keeps the K/V cache's sequence local, or None: outside a
+    context, without ``seq_local``, a plan without ``seq_axis``, a mesh of
+    devices rather than ranks, axes of one rank, or a rank outside the
+    mesh."""
+    s = _stack()
+    if not s or not s[-1].seq_local:
+        return None
+    mesh, plan = s[-1].mesh, s[-1].plan
+    axes = getattr(plan, "seq_axis", None)
+    if axes is None or mesh.ranks is None:
+        return None
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    dims = tuple(k for k, a in enumerate(mesh.axis_names) if a in axes and mesh.shape[a] > 1)
+    if not dims:
+        return None
+    dm = s[-1].device_mesh if s[-1].device_mesh is not None else mesh.device_mesh()
+    if dm.get_coordinate() is None:
+        return None
+    return dm, dims
+
+
+def seq_axes() -> Tuple[str, ...]:
+    """The mesh axes whose ranks each hold a piece of the K/V cache's
+    sequence in the current step (the plan's ``seq_axis``, in mesh order,
+    those of more than one rank), where the step keeps that piece local
+    (``seq_local``: `launch.steps.jit_decode_step`); ``()`` otherwise, and
+    attention then reads the whole sequence."""
+    c = _seq_context()
+    return () if c is None else tuple(c[0].mesh_dim_names[k] for k in c[1])
+
+
+def seq_piece() -> Tuple[int, int]:
+    """``(pieces, index)``: how many pieces the sequence axes cut the
+    sequence into, and which one this rank holds, by DTensor's chunk rule
+    over several axes (the first axis major; `local_shape_and_offset`). A
+    rank whose piece is ``n`` positions (the split is even: the builders
+    refuse another) holds ``[index * n, (index + 1) * n)``. ``(1, 0)`` where
+    no axis splits the sequence."""
+    c = _seq_context()
+    if c is None:
+        return 1, 0
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.plan import LeafSharding, P
+    dm, dims = c
+    n = math.prod(dm.size(k) for k in dims)
+    placements = tuple(Shard(0) if k in dims else Replicate() for k in range(dm.ndim))
+    _, offset = local_shape_and_offset((n,), LeafSharding(dm, placements, P()))
+    return n, offset[0]
+
+
+# A decode step has no backward (it runs under ``torch.no_grad()``), so the
+# two reductions of the softmax over the sequence need no autograd rule.
+
+
+def _seq_all_reduce(x: torch.Tensor, op: str) -> torch.Tensor:
+    dm, dims = _seq_context()
+    ops = torch.ops._c10d_functional
+    out = x.contiguous()
+    for k in dims:          # one all-reduce over each axis: its own wire bytes
+        out = ops.wait_tensor(ops.all_reduce(out, op, dm.get_group(k).group_name))
+    return out
+
+
+def seq_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the sequence axes (a MAX
+    all-reduce over each in turn); ``x`` itself where none splits the
+    sequence."""
+    return x if _seq_context() is None else _seq_all_reduce(x, "max")
+
+
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the sequence axes (a SUM all-reduce over each in
+    turn); ``x`` itself where none splits the sequence."""
+    return x if _seq_context() is None else _seq_all_reduce(x, "sum")
 
 
 def _piece(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -640,6 +731,16 @@ def note_tp(name: str, local: bool) -> None:
     c[key] = c.get(key, 0) + 1
     c["tp_local" if local else "tp_gathered"] = c.get("tp_local" if local else "tp_gathered",
                                                        0) + 1
+
+
+def note_seq(name: str) -> None:
+    """Count one attention sub-layer ``name`` of a decode step as run over
+    this rank's piece of the cache's sequence (``"<name>:seq_local"`` in
+    `tp_counts`; the totals ``tp_local`` / ``tp_gathered`` do not take
+    it)."""
+    c = _live_counts()
+    key = f"{name}:seq_local"
+    c[key] = c.get(key, 0) + 1
 
 
 def _live_counts() -> dict:

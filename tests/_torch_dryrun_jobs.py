@@ -9,9 +9,9 @@ reference|port CELLS``), printing one JSON line:
   * ``port``: `repro_torch.launch.dryrun.dry_run_cell` on a fake world of
     256 ranks (``device="cpu"``) with the reduced configs.
 
-A cell is ``arch:shape``; each record keeps the status (and the error's
-type and text), the argument bytes, the model FLOPs, the parameter counts
-and the accumulation.
+A cell is ``arch:shape`` (the baseline profile) or ``arch:shape:profile``;
+each record keeps the status (and the error's type and text), the argument
+bytes, the model FLOPs, the parameter counts and the accumulation.
 """
 import json
 import os
@@ -51,12 +51,13 @@ def reference(cells):
     dryrun.get_config = configs.get_reduced_config
     records = {}
     for cell in cells:
-        arch, shape = cell.split(":")
+        arch, shape, profile = (cell.split(":") + ["baseline"])[:3]
         try:
-            rec, _ = dryrun.lower_cell(arch, shape)
+            rec, _ = dryrun.lower_cell(arch, shape, **dryrun.PROFILES[profile])
             records[cell] = {"status": "ok", "argument_bytes": rec["memory"]["argument_bytes"],
                              "model_flops": rec["roofline"]["model_flops"],
-                             "params": rec["params"], "accum_steps": rec["accum_steps"]}
+                             "params": rec["params"], "accum_steps": rec["accum_steps"],
+                             "flops": rec["cost"]["hlo_flops_per_device"]}
         except Exception as e:  # noqa: BLE001 — the status is what is compared
             records[cell] = {"status": "error", "error": f"{type(e).__name__}: {e}"}
     plans, cells_of = _ref_plans()
@@ -69,15 +70,20 @@ def port(cells):
     from repro_torch.launch import dryrun
     records = {}
     for cell in cells:
-        arch, shape = cell.split(":")
+        arch, shape, profile = (cell.split(":") + ["baseline"])[:3]
         try:
-            rec = dryrun.dry_run_cell(arch, shape, device="cpu", config_fn=get_reduced_config)
+            rec = dryrun.dry_run_cell(arch, shape, device="cpu", config_fn=get_reduced_config,
+                                      **dryrun.PROFILES[profile])
             records[cell] = {"status": "ok", "argument_bytes": rec["memory"]["argument_bytes"],
                              "model_flops": rec["roofline"]["model_flops"],
                              "params": rec["params"], "accum_steps": rec["accum_steps"],
                              "kernel_calls": rec["kernel_calls"], "tp": rec["tp"],
                              "flops": rec["cost"]["hlo_flops_per_device"],
-                             "peak_bytes": rec["memory"]["peak_bytes"]}
+                             "peak_bytes": rec["memory"]["peak_bytes"],
+                             "wire_bytes_by_axis":
+                                 rec["collectives"]["wire_bytes_by_axis"],
+                             "by_kind": rec["collectives"]["by_kind"],
+                             "peak_tensors": rec["memory"]["peak_tensors"]}
         except Exception as e:  # noqa: BLE001 — the status is what is compared
             records[cell] = {"status": "error", "error": f"{type(e).__name__}: {e}"}
     return {"records": records}

@@ -14,7 +14,20 @@ spawned process per rank. Nothing here imports JAX.
   * ``norm``: the SSM block's gated norm on each rank's half of a row whose
     halves differ a hundredfold, against the whole row's;
   * ``tie``: `ctx.tp_argmax` on vocab shards with ties within and across
-    them, against ``torch.argmax`` of the whole rows.
+    them, against ``torch.argmax`` of the whole rows;
+  * ``seq``: the decode step over a sequence-sharded cache (`ctx.seq_axes`)
+    on ``(1, 2, 2)``, for `SEQ_ARCHS`: layout ``seq2`` under
+    `default_plan().with_(seq_axis="model")` with `SEQ_ROWS` rows (the
+    model axis cuts both the heads and the sequence), layout ``seq1`` under
+    ``seq_axis=("data", "model")`` with one row at per-row positions (each
+    rank a quarter of the sequence); Minitron with ``shard_attn_heads``
+    off, so that its attention runs gathered. `SEQ_PROMPT` and `SEQ_S_MAX`
+    put the decode steps across a boundary between two ranks' positions.
+    Besides the logits, picks and counts, the collectives of the first
+    decode step (`serving.engine.trace_collectives`);
+  * ``seqfp8``: ``seq2`` for Qwen1.5-MoE with the cache in
+    ``float8_e4m3fn`` on both sides (gloo carries no fp8 tensor: the step
+    moves no cache leaf).
 
 To debug a part alone: ``DIST_JOB_TRACE=1`` prints each part as a rank
 enters it, and ``TP_PARTS=serve:jamba_v0_1_52b:1x2x2,tie`` picks the parts.
@@ -31,17 +44,37 @@ from _torch_dist_jobs import _fp32, _full, _meshes, _part
 TP_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "mamba2_370m", "jamba_v0_1_52b", "minicpm3_4b",
             "qwen2_vl_2b")
 B, S_PROMPT, N_NEW = 4, 8, 4
+SEQ_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "minicpm3_4b", "jamba_v0_1_52b",
+             "whisper_large_v3")
+#: the sequence-sharded decode: a prompt of 4 in a cache of 12 positions,
+#: whose 4 decode steps write positions 4-7: across the boundary at 6 of
+#: the two pieces of ``seq2``, and of 3 to 6 of the four of ``seq1``, whose
+#: last piece no step reaches (all masked). The prompt divides the pieces,
+#: as the reference's prefill shards the cache it returns.
+SEQ_ROWS, SEQ_PROMPT, SEQ_S_MAX = 2, 4, 12
 
 
-def prompt_batch(cfg) -> dict:
-    """The prompts both packages serve: ``B`` rows of ``S_PROMPT`` tokens
-    (seeded), and an M-RoPE model's text positions on its three streams."""
+def prompt_batch(cfg, rows: int = B, s_prompt: int = S_PROMPT) -> dict:
+    """The prompts both packages serve: ``rows`` rows of ``s_prompt``
+    tokens (seeded), an M-RoPE model's text positions on its three streams,
+    an enc-dec model's frames (seeded)."""
     rng = np.random.default_rng(7)
-    batch = {"tokens": rng.integers(2, cfg.vocab_size, size=(B, S_PROMPT)).astype(np.int32)}
+    batch = {"tokens": rng.integers(2, cfg.vocab_size, size=(rows, s_prompt)).astype(np.int32)}
     if cfg.pos_type == "mrope":
-        batch["positions"] = np.broadcast_to(np.arange(S_PROMPT, dtype=np.int32),
-                                             (3, B, S_PROMPT)).copy()
+        batch["positions"] = np.broadcast_to(np.arange(s_prompt, dtype=np.int32),
+                                             (3, rows, s_prompt)).copy()
+    if cfg.encdec is not None:
+        batch["frames"] = rng.standard_normal(
+            (rows, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32)
     return batch
+
+
+def seq_plan(arch: str, layout: str, default_plan):
+    """The plan of a ``seq`` part from ``default_plan`` (either package's):
+    ``seq2`` shards the cache's sequence over the model axis, ``seq1`` over
+    the data and model axes; Minitron's attention heads unsharded."""
+    plan = default_plan().with_(seq_axis="model" if layout == "seq2" else ("data", "model"))
+    return plan.with_(shard_attn_heads=False) if arch == "minitron_4b" else plan
 
 
 def _parts():
@@ -49,7 +82,9 @@ def _parts():
     if spec:
         return [tuple(p.split(":")) for p in spec.split(",")]
     return ([("serve", a, m) for a in TP_ARCHS for m in ("1x2x2", "2x2x1")]
-            + [("odd",), ("norm",), ("tie",)])
+            + [("odd",), ("norm",), ("tie",)]
+            + [("seq", a, lay) for a in SEQ_ARCHS for lay in ("seq2", "seq1")]
+            + [("seqfp8", "qwen2_moe_a2_7b", "seq2")])
 
 
 def tp_job(rank: int, world: int) -> dict:
@@ -58,6 +93,14 @@ def tp_job(rank: int, world: int) -> dict:
     for part in _parts():
         if part[0] == "serve":
             _part(out, ":".join(part), _serve_part, part[1], *meshes[part[2]])
+        elif part[0] in ("seq", "seqfp8"):
+            mesh = meshes["1x2x2"][0]
+            rows = SEQ_ROWS if part[2] == "seq2" else 1
+            from repro_torch.sharding import default_plan
+            _part(out, ":".join(part), _serve_part, part[1], mesh,
+                  seq_plan(part[1], part[2], default_plan), rows, SEQ_PROMPT, SEQ_S_MAX,
+                  part[2] == "seq1", True,
+                  torch.float8_e4m3fn if part[0] == "seqfp8" else torch.float32)
         elif part[0] == "odd":
             cfg = dataclasses.replace(_fp32("minitron_4b"), num_heads=3, num_kv_heads=1)
             _part(out, "odd", _serve_part, cfg, *meshes["1x2x2"])
@@ -82,22 +125,29 @@ def _model(cfg, arch):
                      device="cpu")
 
 
-def _serve_part(arch, mesh, plan):
+def _serve_part(arch, mesh, plan, rows=B, s_prompt=S_PROMPT, s_max=S_PROMPT + N_NEW + 1,
+                per_row=False, trace=False, cache_dtype=torch.float32):
     """Prefill and ``N_NEW`` greedy decode steps, sharded and on one
-    device, from the same prompts. Returns every step's logits (rank 0's
-    view of the whole), the picks, and the counts of the sharded steps."""
+    device, from the same prompts (``rows`` of ``s_prompt`` tokens, a cache
+    of ``s_max`` positions; ``per_row``: each step's position as a ``(B,)``
+    tensor). Returns every step's logits (rank 0's view of the whole), the
+    picks, and the counts of the sharded steps; ``trace``: also the
+    collectives of the first sharded decode step (op and shape sent) and
+    the shapes of the cache leaves with a sequence. ``cache_dtype``: the
+    decode cache's dtype on both sides."""
     from repro_torch.configs import ShapeCell
     from repro_torch.launch.steps import jit_decode_step, jit_prefill, named
     from repro_torch.models.lm import is_positional
+    from repro_torch.serving.engine import trace_collectives
     from repro_torch.sharding import ctx, param_specs
     cfg = _fp32(arch) if isinstance(arch, str) else arch
     model = _model(cfg, arch if isinstance(arch, str) else None)
-    batch = {k: torch.from_numpy(v) for k, v in prompt_batch(cfg).items()}
-    s_max = S_PROMPT + N_NEW + 1
+    batch = {k: torch.from_numpy(v) for k, v in prompt_batch(cfg, rows, s_prompt).items()}
+    B = rows
     V = cfg.vocab_size
 
     def into(cache):
-        out = model.init_cache(B, s_max, dtype=torch.float32)
+        out = model.init_cache(B, s_max, dtype=cache_dtype)
         for k, v in cache.items():
             if is_positional(k):
                 out[k][:, :, :v.shape[2]] = v
@@ -111,7 +161,8 @@ def _serve_part(arch, mesh, plan):
         for i in range(N_NEW):
             tok = steps[-1][:, :V].argmax(-1).to(torch.int32)
             picks.append(tok)
-            logits, cache = decode(tok[:, None], cache, torch.tensor(S_PROMPT + i))
+            pos = torch.tensor(s_prompt + i)
+            logits, cache = decode(tok[:, None], cache, pos.expand(B).clone() if per_row else pos)
             steps.append(_full(logits))
         picks.append(steps[-1][:, :V].argmax(-1).to(torch.int32))
         return [s.float().numpy() for s in steps], torch.stack(picks, 1).numpy()
@@ -120,7 +171,7 @@ def _serve_part(arch, mesh, plan):
         one_logits, one_picks = greedy(
             lambda: (lambda lc: (lc[0], into(lc[1])))(model.prefill(batch)),
             model.decode_step)
-    prefill = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", S_PROMPT, B))
+    prefill = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", s_prompt, B))
     decode = jit_decode_step(model, mesh, plan, ShapeCell("d", "decode", s_max, B))
     params = ctx.place_tree(model.params, named(mesh, param_specs(cfg, plan)))
     ctx.reset_tp_counts()
@@ -132,16 +183,28 @@ def _serve_part(arch, mesh, plan):
         ctx.reset_tp_counts()
         return out[0], into({k: _full(v) for k, v in out[1].items()})
 
+    traced = {}
+
     def sharded_decode(tok, cache, pos):
+        if trace and "colls" not in traced:
+            snap = {k: v.clone() for k, v in cache.items()}
+            traced["colls"] = [(c.op, c.shape) for c in trace_collectives(
+                lambda: decode(params, tok, snap, pos), torch.device("cpu"))]
+            ctx.reset_tp_counts()
         logits, cache = decode(params, tok, cache, pos)
         counts.setdefault("decode", []).append(ctx.tp_counts())
         ctx.reset_tp_counts()
         return logits, cache
 
     tp_logits, tp_picks = greedy(sharded_prefill, sharded_decode)
-    return {"logits": tp_logits, "picks": tp_picks, "one_logits": one_logits,
-            "one_picks": one_picks, "counts": counts,
-            "logits_placements": str(prefill(params, batch)[0].placements)}
+    out = {"logits": tp_logits, "picks": tp_picks, "one_logits": one_logits,
+           "one_picks": one_picks, "counts": counts,
+           "logits_placements": str(prefill(params, batch)[0].placements)}
+    if trace:
+        out["collectives"] = traced["colls"]
+        out["seq_leaves"] = {k: tuple(v) for k, v in model.cache_shapes(B, s_max).items()
+                             if is_positional(k) and not k.startswith("cross/")}
+    return out
 
 
 def _norm_part(mesh, plan):

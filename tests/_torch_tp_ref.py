@@ -8,8 +8,11 @@ For each case ``arch:mesh`` it runs the reference's `jit_prefill` and four
 plan, with the port's seeded weights (the pickles the test module wrote)
 and the prompts of `_torch_tp_jobs.prompt_batch`: the prefill cache written
 into a zeroed fp32 cache of ``S_PROMPT + N_NEW + 1`` positions, each step
-fed its own greedy pick. Every step's logits go to ``OUT.npz`` as
-``{arch}:{mesh}:{step}``.
+fed its own greedy pick. A case ``arch:seq2`` or ``arch:seq1`` runs on
+``(1, 2, 2)`` under `_torch_tp_jobs.seq_plan` (the cache's sequence over
+the model axis with `SEQ_ROWS` rows, or over the data and model axes with
+one), from `SEQ_PROMPT` tokens in a cache of `SEQ_S_MAX` positions. Every
+step's logits go to ``OUT.npz`` as ``{arch}:{mesh}:{step}``.
 """
 import json
 import os
@@ -29,7 +32,8 @@ def case(weights_dir, arch, mname):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from _torch_tp_jobs import N_NEW, S_PROMPT, prompt_batch
+    from _torch_tp_jobs import (N_NEW, S_PROMPT, SEQ_PROMPT, SEQ_ROWS, SEQ_S_MAX, prompt_batch,
+                                seq_plan)
 
     from repro.configs import get_reduced_config
     from repro.configs.base import ShapeCell
@@ -41,14 +45,20 @@ def case(weights_dir, arch, mname):
     model = build_model(cfg)
     with open(os.path.join(weights_dir, f"{arch}.pkl"), "rb") as f:
         params = jax.tree.map(jnp.asarray, pickle.load(f))
-    shape = {"1x2x2": (1, 2, 2), "2x2x1": (2, 2, 1)}[mname]
-    plan = default_plan() if mname == "1x2x2" else default_plan(multi_pod=True)
+    shape = {"2x2x1": (2, 2, 1)}.get(mname, (1, 2, 2))
+    s_prompt, s_max, rows = S_PROMPT, S_PROMPT + N_NEW + 1, None
+    if mname in ("seq2", "seq1"):
+        plan = seq_plan(arch, mname, default_plan)
+        s_prompt, s_max = SEQ_PROMPT, SEQ_S_MAX
+        rows = SEQ_ROWS if mname == "seq2" else 1
+    else:
+        plan = default_plan() if mname == "1x2x2" else default_plan(multi_pod=True)
     mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:4]).reshape(shape),
                              ("pod", "data", "model"))
-    batch = {k: np.asarray(v) for k, v in prompt_batch(cfg).items()}
+    batch = {k: np.asarray(v) for k, v in
+             (prompt_batch(cfg, rows, s_prompt) if rows else prompt_batch(cfg)).items()}
     B = batch["tokens"].shape[0]
-    s_max = S_PROMPT + N_NEW + 1
-    prefill = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", S_PROMPT, B))
+    prefill = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", s_prompt, B))
     decode = jit_decode_step(model, mesh, plan, ShapeCell("d", "decode", s_max, B))
     logits, cache = prefill(params, batch)
     zero = model.init_cache(B, s_max, dtype=jnp.float32)
@@ -67,7 +77,7 @@ def case(weights_dir, arch, mname):
         tok = np.argmax(out[-1][:, :cfg.vocab_size], axis=-1).astype(np.int32)[:, None]
         if i == N_NEW:
             break
-        logits, cache = decode(params, tok, cache, np.int32(S_PROMPT + i))
+        logits, cache = decode(params, tok, cache, np.int32(s_prompt + i))
         cache = jax.tree.map(np.asarray, cache)
         out.append(np.asarray(logits))
     return out

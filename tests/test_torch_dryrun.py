@@ -12,11 +12,13 @@
     `lower_cell` over 512 placeholder devices, ``XLA_FLAGS`` set before JAX
     starts; the port's fake world of 256 ranks on ``device="cpu"``): the
     status, the argument bytes, the model FLOPs and the parameter counts of
-    four cells (`CELLS`). Reduced Mamba2-370m's ``train_4k`` fails on both
-    sides, as its 8 SSM heads do not split over the model axis of 16;
+    five cells (`CELLS`; the last under the ``optimized`` profile, its KV
+    cache in fp8). Reduced Mamba2-370m's ``train_4k`` fails on both sides,
+    as its 8 SSM heads do not split over the model axis of 16;
   * on a 2 x 2 fake mesh, the collectives of one tensor-parallel layer
     against a reckoning by hand from the spec trees; reduced Minitron's
-    ``decode_32k`` on the fake world with its tensor-parallel counts;
+    ``decode_32k`` on the fake world with its tensor-parallel counts, its
+    attention over each rank's piece of the cache's sequence;
     reduced Minitron's and Qwen1.5-MoE's train step, which never holds the
     whole parameter tree.
 
@@ -50,7 +52,7 @@ from repro_torch.sharding.plan import default_plan, param_specs
 
 ROOT = Path(__file__).resolve().parents[1]
 CELLS = ("minitron_4b:decode_32k", "qwen2_moe_a2_7b:prefill_32k", "minitron_4b:train_4k",
-         "mamba2_370m:train_4k")
+         "mamba2_370m:train_4k", "minitron_4b:decode_32k:optimized")
 JOB_TIMEOUT_S = 240
 
 
@@ -221,15 +223,29 @@ def test_reduced_decode_tensor_parallel_on_the_fake_world(jobs):
     """Reduced Minitron-4B's ``decode_32k`` on the fake 16 x 16 world: its
     4 q heads (and 2 K/V heads) do not divide the model axis of 16, so its
     attention runs gathered, counted so; the MLP's 192 columns and the
-    vocab's 256 run on their shards. It counts fewer FLOPs a rank than the
-    gathered layout's 173.4 M, and peaks below its 138.5 MB."""
-    rec = jobs["port"]["records"]["minitron_4b:decode_32k"]
+    vocab's 256 run on their shards. The plan shards the cache's sequence
+    over the model axis, and each rank attends over its own 2,048 of the
+    32,768 positions (``attn:seq_local``): FLOPs a rank within 2x of the
+    reference's partitioned step's (the gathered sequence counted 18.8x),
+    and a peak below the arguments plus one more rank's piece of the cache
+    (the gathered sequence peaked at 138.4 MB). The fp8 cache of the
+    ``optimized`` profile takes the same step."""
     cfg = get_reduced_config("minitron_4b")
     L = cfg.num_layers
-    assert rec["tp"] == {"vocab:local": 1, "attn:gathered": L, "attn_kv:gathered": L,
-                         "mlp:local": L, "tp_local": 1 + L, "tp_gathered": 2 * L}
-    assert rec["flops"] < 173.4e6
-    assert rec["peak_bytes"] < 138.5e6
+    ref = jobs["reference"]["records"]["minitron_4b:decode_32k"]
+    for cell in ("minitron_4b:decode_32k", "minitron_4b:decode_32k:optimized"):
+        rec = jobs["port"]["records"][cell]
+        assert rec["tp"] == {"vocab:local": 1, "attn:gathered": L, "attn_kv:gathered": L,
+                             "mlp:local": L, "tp_local": 1 + L, "tp_gathered": 2 * L,
+                             "attn:seq_local": L}
+        assert rec["flops"] <= 2 * ref["flops"]
+    rec = jobs["port"]["records"]["minitron_4b:decode_32k"]
+    rows = 128 // 16                                        # over the data axis
+    piece = 2 * L * rows * (32_768 // 16) * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+    assert rec["peak_bytes"] < rec["argument_bytes"] + piece
+    # the all-reduces of the softmax cross the model axis, which cuts the sequence
+    assert rec["by_kind"]["all-reduce"] >= 2 * L
+    assert rec["wire_bytes_by_axis"]["model"] > 0
 
 
 @pytest.mark.parametrize("arch", ["minitron_4b", "qwen2_moe_a2_7b"])

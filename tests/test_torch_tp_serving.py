@@ -16,7 +16,15 @@ that beside the rest of the suite on a loaded machine):
     argmax on shards;
   * the reference's `jit_prefill` / `jit_decode_step` on the same weights
     and prompts, in one child process per mesh (`_torch_tp_ref.py`,
-    ``XLA_FLAGS`` for 4 host devices and one intra-op thread).
+    ``XLA_FLAGS`` for 4 host devices and one intra-op thread);
+  * in the same job and children, the decode step over a sequence-sharded
+    cache (`ctx.seq_axes`) on ``(1, 2, 2)`` for reduced fp32 Minitron
+    (attention gathered), Qwen1.5-MoE (heads local), MiniCPM3 (MLA), Jamba
+    (hybrid) and Whisper (the self-cache sharded, the cross-cache whole):
+    ``seq2`` shards the sequence over the model axis, which also holds the
+    heads, with 2 rows; ``seq1`` over the data and model axes with 1 row
+    at per-row positions. The decode steps cross from one rank's positions
+    into the next.
 
 Every step's logits are held to the other sides' within ``REL`` of the
 largest logit of the step (fp32 sums over the shards reassociate), and the
@@ -34,13 +42,14 @@ from pathlib import Path
 import numpy as np
 import pytest
 from _torch_dist_jobs import _fp32, run_job
-from _torch_tp_jobs import N_NEW, TP_ARCHS
+from _torch_tp_jobs import N_NEW, SEQ_ARCHS, TP_ARCHS
 
 from repro_torch import tree as tree_util
 from repro_torch.models import Model
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = ("1x2x2", "2x2x1")
+SEQ_LAYOUTS = ("seq2", "seq1")
 REL = 1e-5
 #: the rank job is killed when no part finishes for STALL_S seconds, every
 #: process after LIMIT_S in all: the fixture takes ~45 s alone and took
@@ -52,7 +61,7 @@ LIMIT_S = 1200
 @pytest.fixture(scope="module")
 def jobs():
     tmp = tempfile.mkdtemp()
-    for arch in TP_ARCHS:
+    for arch in dict.fromkeys(TP_ARCHS + SEQ_ARCHS):
         tree = tree_util.map_tree(lambda _, x: x.numpy(), Model(_fp32(arch), device="cpu").params)
         with open(os.path.join(tmp, f"{arch}.pkl"), "wb") as f:
             pickle.dump(tree, f)
@@ -61,9 +70,10 @@ def jobs():
     env.pop("XLA_FLAGS", None)
     refs = {m: subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "_torch_tp_ref.py"), tmp,
-         os.path.join(tmp, f"ref_{m}.npz"), ",".join(f"{a}:{m}" for a in TP_ARCHS)],
+         os.path.join(tmp, f"ref_{m}.npz"),
+         ",".join(f"{a}:{m}" for a in (SEQ_ARCHS if m in SEQ_LAYOUTS else TP_ARCHS))],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
-        for m in MESHES}
+        for m in MESHES + SEQ_LAYOUTS}
     deadline = time.monotonic() + LIMIT_S
     old = os.environ.get("TP_WEIGHTS")
     os.environ["TP_WEIGHTS"] = tmp
@@ -206,3 +216,87 @@ def test_vocab_argmax_takes_the_lowest_index(jobs):
         r = _ok(out["tie"])
         assert r["tp"] == 2
         assert r["got"] == r["want"] == [3, 9, 13, 0, 7]
+
+
+# ---------------------------------------------------------------------------
+# decode over a sequence-sharded cache
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout", SEQ_LAYOUTS)
+@pytest.mark.parametrize("arch", SEQ_ARCHS)
+def test_seq_decode_matches_one_device_port(jobs, arch, layout):
+    """Prefill, then four greedy decode steps that each rank attends over
+    its own positions of the cache (``seq2``: the model axis's two pieces;
+    ``seq1``: the data and model axes' four, at per-row positions): every
+    step's logits on every rank within REL of the one-device port's, the
+    picks equal."""
+    for out in jobs["ranks"]:
+        r = _ok(out[f"seq:{arch}:{layout}"])
+        assert len(r["logits"]) == N_NEW + 1
+        _close(r["logits"], r["one_logits"])
+        assert np.array_equal(r["picks"], r["one_picks"])
+
+
+@pytest.mark.parametrize("layout", SEQ_LAYOUTS)
+@pytest.mark.parametrize("arch", SEQ_ARCHS)
+def test_seq_decode_matches_reference_builders(jobs, arch, layout):
+    """The same steps against the reference's `jit_prefill` and
+    `jit_decode_step` under the same plan on four devices (its partitioner
+    inserts the softmax's reductions over the sequence axes), fed their own
+    greedy picks: logits within REL, picks equal. Whisper's self/cross
+    cache tree goes through the reference's builders too."""
+    st = jobs["status"][f"{arch}:{layout}"]
+    assert st["status"] == "ok", st.get("trace")
+    want = [jobs["ref"][f"{arch}:{layout}:{i}"] for i in range(N_NEW + 1)]
+    r = _ok(jobs["ranks"][0][f"seq:{arch}:{layout}"])
+    _close(r["logits"], want)
+    V = _fp32(arch).vocab_size
+    assert np.array_equal(r["picks"], np.stack([w[:, :V].argmax(-1) for w in want], 1))
+
+
+def _gathers_sequence(shape, leaf) -> bool:
+    """Whether a collective that sends ``shape`` moves a piece of cache
+    leaf ``leaf``'s sequence: a tensor of the leaf's rank with its layers
+    and trailing dims, and a part of its sequence (what DTensor sends to
+    gather a sequence shard)."""
+    return (shape is not None and len(shape) == len(leaf) and shape[0] == leaf[0]
+            and tuple(shape[3:]) == tuple(leaf[3:]) and shape[2] < leaf[2])
+
+
+@pytest.mark.parametrize("layout", SEQ_LAYOUTS)
+@pytest.mark.parametrize("arch", SEQ_ARCHS)
+def test_seq_decode_keeps_the_sequence_local(jobs, arch, layout):
+    """Each decode step counts every attention sub-layer as run over the
+    rank's own positions (``attn:seq_local``, MLA's ``mla:seq_local``), the
+    prefill none; the traced first decode step issues no all-gather of a
+    K/V or latent leaf's sequence (its all-reduces combine the softmax)."""
+    from repro_torch.models.lm import layer_kinds, n_scan_steps
+    cfg = _fp32(arch)
+    if cfg.encdec is not None:
+        want = {"attn:seq_local": cfg.num_layers}
+    else:
+        mixers = [m for m, _ in layer_kinds(cfg)]
+        want = {f"{m}:seq_local": mixers.count(m) * n_scan_steps(cfg)
+                for m in ("attn", "mla") if m in mixers}
+    for out in jobs["ranks"]:
+        r = _ok(out[f"seq:{arch}:{layout}"])
+        assert not any(k.endswith(":seq_local") for k in r["counts"]["prefill"])
+        for step in r["counts"]["decode"]:
+            assert {k: v for k, v in step.items() if k.endswith(":seq_local")} == want
+        gathers = [shape for op, shape in r["collectives"] if "gather" in op]
+        assert any("all_reduce" in op for op, _ in r["collectives"])
+        for leaf in r["seq_leaves"].values():
+            assert not [g for g in gathers if _gathers_sequence(g, leaf)], (leaf, gathers)
+
+
+def test_seq_decode_over_an_fp8_cache(jobs):
+    """``seq2`` for Qwen1.5-MoE with the cache in ``float8_e4m3fn`` on both
+    sides: each rank casts its new entries on write and upcasts its piece
+    for the math, and no cache leaf crosses the mesh (gloo carries no fp8
+    tensor): logits within REL of the one-device fp8 decode's, picks
+    equal."""
+    for out in jobs["ranks"]:
+        r = _ok(out["seqfp8:qwen2_moe_a2_7b:seq2"])
+        _close(r["logits"], r["one_logits"])
+        assert np.array_equal(r["picks"], r["one_picks"])

@@ -2,11 +2,11 @@
 """The serving engine laid out across four H100s: params and pool span the
 ranks a plan resolves to.
 
-    torchrun --nproc-per-node 4 tools/engine_ranks.py [--parts builders,qwen,pod,jamba]
+    torchrun --nproc-per-node 4 tools/engine_ranks.py [--parts builders,seq,qwen,pod,jamba]
     torchrun --nproc-per-node 4 tools/engine_ranks.py --device cpu --reduced
 
 One process per card (``torchrun`` gives each its rank; the group is made
-over ``env://``, a localhost rendezvous). Four parts, each freeing its
+over ``env://``, a localhost rendezvous). Five parts, each freeing its
 models before the next:
 
   builders  the tensor-parallel `jit_prefill` and three greedy
@@ -15,6 +15,25 @@ models before the next:
          MiniCPM3-4B 2; seeded weights made sharded), each held to the same
          config on rank 0's card: every step's logits within `BUILDER_REL`
          of the step's largest logit, picks equal, every group local.
+
+  seq    decode over a sequence-sharded cache, under the plan
+         `launch.dryrun.plan_for_cell` gives a decode cell (the cache's
+         sequence over the model axis, which also holds the heads): first
+         the builders' cases that hold K/V or a latent (`SEQ_CASES`, fp32,
+         a few layers) on the (1, 2, 2) mesh, a prefill of `SEQ_S` tokens
+         into `SEQ_S_MAX` positions and `SEQ_NEW` greedy steps across the
+         two halves, held to rank 0's card as the builders are, each step
+         counted ``seq_local``; then Qwen1.5-MoE-A2.7B whole (bf16),
+         `QWEN_SEQ_B` rows in `QWEN_SEQ_S_MAX` positions, its K/V drawn from
+         a seeded normal up to `QWEN_SEQ_FILL` (past the halves' boundary),
+         `QWEN_SEQ_NEW` decode steps at once under the decode plan and
+         under `default_plan()` (the sequence whole on each rank), fed the
+         same tokens: first in fp32 over `QWEN_SEQ_B_FP32` rows, every
+         step's logits within `BUILDER_REL` of the whole sequence's, picks
+         equal; then in bf16, recorded: the router logits beside the whole
+         sequence's up to each row's first routing split (`_held_rows`),
+         each rank's peak against the dry run's prediction for the same
+         step and layout (a child process), and the TPOT of each.
 
   qwen   Qwen1.5-MoE-A2.7B at full width (bf16, random weights from seed 0)
          on the (1, 2, 2) mesh under `default_plan()`: the serve cell of
@@ -95,6 +114,15 @@ CARD_BYTES = 80e9
 BUILDER_CASES = (("qwen2_moe_a2_7b", 4), ("minitron_4b", 2), ("mamba2_370m", 4),
                  ("minicpm3_4b", 2))
 BUILDER_REL = 1e-4
+#: the seq part's builders cases (Mamba2's cache has no sequence), and the
+#: prompt, cache and steps: positions 62-65, across the halves at 64
+SEQ_CASES = (("qwen2_moe_a2_7b", 4), ("minitron_4b", 2), ("minicpm3_4b", 2))
+SEQ_B, SEQ_S, SEQ_S_MAX, SEQ_NEW = 4, 62, 128, 4
+#: Qwen1.5-MoE-A2.7B whole over a drawn cache: rows, positions, the drawn
+#: prefix (past the halves' boundary at 8,192) and the decode steps
+QWEN_SEQ_B, QWEN_SEQ_S_MAX, QWEN_SEQ_FILL, QWEN_SEQ_NEW = 8, 16384, 8200, 8
+#: the same in fp32 first, over fewer rows (its cache drawn whole on a card)
+QWEN_SEQ_B_FP32 = 4
 
 
 def rank() -> int:
@@ -545,78 +573,311 @@ def part_pod(env, mesh_shape, oracle):
     return out
 
 
-def part_builders(env, mesh_shape):
-    """The tensor-parallel builders against rank 0's card (module doc)."""
+def _held_to_one_card(env, mesh, cfg, plan, B, S, new, s_max, tag, seq_local=False):
+    """``cfg``'s sharded `jit_prefill` of ``B`` seeded prompts of ``S``
+    tokens and ``new`` greedy `jit_decode_step`s under ``plan`` into a cache
+    of ``s_max`` positions, against the same steps of the whole model on
+    rank 0's card: every step's logits within `BUILDER_REL` of the step's
+    largest, picks equal, every group local (``seq_local``: and each decode
+    step's attention over the rank's piece of the sequence). Ends the run
+    on a failure; returns rank 0's row."""
     import torch
 
     from repro_torch.configs import ShapeCell
     from repro_torch.launch.steps import jit_decode_step, jit_prefill
     from repro_torch.models import Model
     from repro_torch.models.lm import is_positional
-    from repro_torch.sharding import ctx, default_plan, rank_mesh
-    tag = "[engine ranks builders]"
+    from repro_torch.sharding import ctx
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(B, S)).astype(np.int32),
+                             device=env.device)
+    V = cfg.vocab_size
+    counts = []
+
+    def run(model, prefill, decode):
+        logits, cache = prefill({"tokens": tokens})
+        full = model.init_cache(B, s_max, dtype=torch.float32)
+        for k, v in cache.items():
+            v = ctx.full(v)
+            if is_positional(k):
+                full[k][:, :, :v.shape[2]] = v
+            else:
+                full[k].copy_(v)
+        steps = [ctx.full(logits).float().cpu()]
+        for i in range(new):
+            t = steps[-1][:, :V].argmax(-1).to(torch.int32).to(env.device)
+            ctx.reset_tp_counts()
+            logits, full = decode(t[:, None], full, torch.tensor(S + i, device=env.device))
+            counts.append(ctx.tp_counts())
+            steps.append(ctx.full(logits).float().cpu())
+        return steps
+
+    one = None
+    if rank() == 0:
+        model = Model(cfg, device=env.device, seed=0)
+        with torch.no_grad():
+            one = run(model, model.prefill, model.decode_step)
+        del model
+        env.free()
+    counts.clear()
+    model = sharded_model(env, cfg, mesh, plan)
+    pre = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", S, B))
+    dec = jit_decode_step(model, mesh, plan, ShapeCell("d", "decode", s_max, B))
+    env.sync()
+    t0 = time.perf_counter()
+    got = run(model, lambda b: pre(model.params, b),
+              lambda t, c, p: dec(model.params, t, c, p))
+    env.sync()
+    secs = time.perf_counter() - t0
+    row, ok = None, True
+    if rank() == 0:
+        rel = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, one))
+        picks = all(torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
+                    for a, b in zip(got, one))
+        last = counts[-1]
+        seq = sum(n for k, n in last.items() if k.endswith(":seq_local"))
+        ok = rel <= BUILDER_REL and picks and not last.get("tp_gathered") and (
+            mesh.shape["model"] == 1 or last.get("tp_local", 0) > 0) and (
+            not seq_local or mesh.shape["model"] == 1 or seq > 0)
+        row = {"layers": cfg.num_layers, "rel": rel, "picks_equal": picks,
+               "counts": last, "seconds": secs}
+        say(f"{tag} {cfg.name} {cfg.num_layers} layers fp32 {tuple(mesh.shape.values())}: "
+            f"prefill of {S} and {new} decode steps (cache of {s_max}), logits within "
+            f"{rel:.3e} of one card's (limit {BUILDER_REL}), picks equal {picks}; a decode "
+            f"step's counts {last}; {secs:.2f} s  {'ok' if ok else 'FAIL'}  [{env.card}]")
+    fail(bcast(ok), f"{tag} {cfg.name}: the sharded steps leave one card's")
+    del model, pre, dec
+    env.free()
+    return row
+
+
+def part_builders(env, mesh_shape):
+    """The tensor-parallel builders against rank 0's card (module doc)."""
+    from repro_torch.sharding import default_plan, rank_mesh
     B, S, new = 4, 64, 3
     out = {}
     mesh = rank_mesh(mesh_shape, device=env.device.type)
     for arch, layers in BUILDER_CASES:
         cfg = dataclasses.replace(env.cfg(arch, layers), param_dtype="float32",
                                   activ_dtype="float32")
-        rng = np.random.default_rng(3)
-        tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(B, S)).astype(np.int32),
-                                 device=env.device)
-        V, s_max = cfg.vocab_size, S + new + 1
+        row = _held_to_one_card(env, mesh, cfg, default_plan(), B, S, new, S + new + 1,
+                                "[engine ranks builders]")
+        if row is not None:
+            out[arch] = row
+    return out
 
-        def run(model, prefill, decode):
-            logits, cache = prefill({"tokens": tokens})
-            full = model.init_cache(B, s_max, dtype=torch.float32)
-            for k, v in cache.items():
-                v = ctx.full(v)
-                if is_positional(k):
-                    full[k][:, :, :v.shape[2]] = v
-                else:
-                    full[k].copy_(v)
-            steps = [ctx.full(logits).float().cpu()]
-            for i in range(new):
-                t = steps[-1][:, :V].argmax(-1).to(torch.int32).to(env.device)
-                logits, full = decode(t[:, None], full, torch.tensor(S + i, device=env.device))
-                steps.append(ctx.full(logits).float().cpu())
-            return steps
 
-        one = None
-        if rank() == 0:
-            model = Model(cfg, device=env.device, seed=0)
-            with torch.no_grad():
-                one = run(model, model.prefill, model.decode_step)
-            del model
-            env.free()
-        model = sharded_model(env, cfg, mesh, default_plan())
-        plan = default_plan()
-        pre = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", S, B))
-        dec = jit_decode_step(model, mesh, plan, ShapeCell("d", "decode", s_max, B))
-        ctx.reset_tp_counts()
-        env.sync()
-        t0 = time.perf_counter()
-        got = run(model, lambda b: pre(model.params, b),
-                  lambda t, c, p: dec(model.params, t, c, p))
-        env.sync()
-        secs = time.perf_counter() - t0
-        counts = ctx.tp_counts()
-        ok = True
-        if rank() == 0:
-            rel = max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, one))
-            picks = all(torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1))
-                        for a, b in zip(got, one))
-            ok = rel <= BUILDER_REL and picks and not counts.get("tp_gathered") and (
-                mesh.shape["model"] == 1 or counts.get("tp_local", 0) > 0)
-            out[arch] = {"layers": cfg.num_layers, "rel": rel, "picks_equal": picks,
-                         "counts": counts, "seconds": secs}
-            say(f"{tag} {cfg.name} {cfg.num_layers} layers fp32 {mesh_shape}: prefill and "
-                f"{new} decode steps, logits within {rel:.3e} of one card's (limit "
-                f"{BUILDER_REL}), picks equal {picks}; {counts}; {secs:.2f} s  "
-                f"{'ok' if ok else 'FAIL'}  [{env.card}]")
-        fail(bcast(ok), f"{tag} {arch}: the tensor-parallel steps leave one card's")
-        del model, pre, dec
+def predict_decode(spec: str) -> dict:
+    """``--predict arch:B:s_max:plan:device``: the dry run of that bf16
+    decode step on a fake (1, 2, 2) world under the decode plan
+    (``plan`` "seq") or `default_plan()` ("whole"): argument and peak GB a
+    rank, wire GB per axis, the tensor-parallel counts."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import Model
+    from repro_torch.sharding import default_plan
+    arch, B, s_max, which, device = spec.split(":")
+    cfg = get_config(arch)
+    cell = ShapeCell("d", "decode", int(s_max), int(B))
+    mesh = mesh_lib.fake_mesh((1, 2, 2), ("pod", "data", "model"), device=device)
+    plan = dryrun.plan_for_cell(cfg, cell, False) if which == "seq" else default_plan()
+    inputs = dryrun.build_step(Model(cfg, device="meta"), cell, mesh, plan)
+    rec = dryrun.record_of(dryrun.dry_run_step(inputs, mesh, torch.device(device)), cfg, cell,
+                           mesh)
+    return {"argument_gb": rec["memory"]["argument_bytes"] / 1e9,
+            "peak_gb": rec["memory"]["peak_bytes"] / 1e9,
+            "wire_gb": {k: v / 1e9 for k, v in rec["collectives"]["wire_bytes_by_axis"].items()},
+            "tp": rec["tp"]}
+
+
+def _predicted(arch, B, s_max, which) -> dict:
+    import subprocess
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--predict",
+                           f"{arch}:{B}:{s_max}:{which}:cpu"], capture_output=True, text=True,
+                          timeout=900)
+    fail(proc.returncode == 0, f"the dry run's prediction failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _drawn_cache(env, cfg, B, s_max, fill, shardings):
+    """A cache of ``B`` rows and ``s_max`` positions whose K/V hold a seeded
+    normal draw below position ``fill`` (zero after), placed under
+    ``shardings`` one leaf at a time (each leaf drawn whole on every rank,
+    the same on each, then cut to the rank's shard)."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.common import dtype_of
+    from repro_torch.sharding import ctx
+    out = {}
+    for i, (k, shape) in enumerate(sorted(lm.cache_shape(cfg, B, s_max).items())):
+        g = torch.Generator(device=env.device).manual_seed(100 + i)
+        x = torch.randn(shape, generator=g, device=env.device, dtype=dtype_of(cfg))
+        x[:, :, fill:] = 0
+        mine = ctx.place(x, shardings[k]).to_local().clone()   # not a view of x
+        del x
+        out[k] = ctx.to_dtensor(mine, shardings[k], shape)
         env.free()
+    return out
+
+
+def _held_rows(seq, whole, V):
+    """The decode plan's steps beside the whole sequence's, row by row, as
+    `Forced` holds an engine: each MoE layer's router logits up to the
+    first layer where a row's expert picks differ (from there the row's
+    cache, and so its state, is another's, and it is no longer compared),
+    and the logits of a step whose routing did not split. Returns the worst
+    router |diff| at each MoE layer over the rows held there, the worst
+    logits |diff| held, the (step, row, layer, gap) of each split, and how
+    many row-steps were held."""
+    per_layer = [0.0] * len(whole[0]["routing"])
+    worst_logits = 0.0
+    splits, held, gone = [], 0, set()
+    for i, (a, b) in enumerate(zip(seq, whole)):
+        for row in range(b["logits"].shape[0]):
+            if row in gone:
+                continue
+            for layer, ((ga, ia), (gb, ib)) in enumerate(zip(a["routing"], b["routing"])):
+                per_layer[layer] = max(per_layer[layer],
+                                       float((ga[row] - gb[row]).abs().max()))
+                if not torch_equal_sets(ia[row:row + 1], ib[row:row + 1]):
+                    top = gb[row].sort(descending=True).values
+                    k = ib.shape[1]
+                    splits.append((i, row, layer, float(top[k - 1] - top[k])))
+                    gone.add(row)
+                    break
+            if row in gone:
+                continue
+            held += 1
+            worst_logits = max(worst_logits, float((a["logits"][row, :V]
+                                                    - b["logits"][row, :V]).abs().max()))
+    return per_layer, worst_logits, splits, held
+
+
+def _qwen_seq(env, mesh, dtype, B):
+    """Qwen1.5-MoE-A2.7B whole in ``dtype`` over ``B`` rows of a drawn cache,
+    under the decode plan and `default_plan()`, fed the same tokens (module
+    doc). fp32 is held: every step's logits within `BUILDER_REL` of the
+    whole sequence's largest, picks equal. bf16 is recorded, not held: its
+    router logits and logits beside the whole sequence's up to each row's
+    first routing split (`_held_rows`), each rank's peak beside the dry
+    run's prediction, and the TPOT of each plan."""
+    import torch
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.steps import jit_decode_step, named
+    from repro_torch.sharding import cache_specs, ctx, default_plan
+    tag = f"[engine ranks seq qwen {dtype}]"
+    cfg = env.cfg("qwen2_moe_a2_7b")
+    cfg = dataclasses.replace(cfg, param_dtype=dtype, activ_dtype=dtype)
+    s_max, fill, new = ((QWEN_SEQ_S_MAX, QWEN_SEQ_FILL, QWEN_SEQ_NEW)
+                        if not env.reduced else (16, 9, 4))
+    cell = ShapeCell("d", "decode", s_max, B)
+    plans = {"whole": default_plan(), "seq": dryrun.plan_for_cell(cfg, cell, False)}
+    model = sharded_model(env, cfg, mesh, plans["whole"])
+    V = cfg.vocab_size
+    rng = np.random.default_rng(4)
+    first = rng.integers(2, V, size=(B,)).astype(np.int32)
+    lo = ctx.my_rows(mesh.device_mesh(), plans["whole"].batch_axes, B)[0]
+    router = Routing()
+    out, feed = {}, None
+    for which in ("whole", "seq"):
+        plan = plans[which]
+        cache = _drawn_cache(env, cfg, B, s_max, fill,
+                             named(mesh, cache_specs(cfg, plan, batch=B)))
+        decode = jit_decode_step(model, mesh, plan, cell)
+        tok = torch.as_tensor(first, device=env.device)
+        steps, secs, counts = [], [], None
+        env.sync()
+        env.reset_peak()
+        for i in range(new):
+            ctx.reset_tp_counts()
+            router.take()
+            env.sync()
+            t0 = time.perf_counter()
+            logits, cache = decode(model.params, tok[:, None], cache,
+                                   torch.tensor(fill + i, device=env.device))
+            env.sync()
+            secs.append(time.perf_counter() - t0)
+            counts = ctx.tp_counts()
+            lg = ctx.full(logits).float().cpu()
+            steps.append({"logits": lg, "routing": _whole_rows(gather((lo, router.take()[1])))})
+            # the whole sequence's greedy picks feed both plans
+            pick = feed[i] if feed is not None else lg[:, :V].argmax(-1)
+            tok = pick.to(torch.int32).to(env.device)
+        peaks = gather(env.peak())
+        if feed is None:
+            feed = [s["logits"][:, :V].argmax(-1) for s in steps]
+        local = sum(v.to_local().numel() * v.to_local().element_size() for v in cache.values())
+        out[which] = {"steps": steps, "tpot_ms": sorted(secs)[len(secs) // 2] * 1e3,
+                      "step_ms": [t * 1e3 for t in secs], "peak_gb_by_rank": peaks,
+                      "cache_gb_a_rank": local / 1e9, "counts": counts}
+        say(f"{tag} {cfg.name} {cfg.num_layers} layers, B={B}, cache of {s_max} drawn to "
+            f"{fill}, {new} steps under the {which} plan (seq_axis {plan.seq_axis}): TPOT "
+            f"{out[which]['tpot_ms']:.2f} ms (steps "
+            f"{', '.join(f'{t:.2f}' for t in out[which]['step_ms'])} ms), cache "
+            f"{out[which]['cache_gb_a_rank']:.2f} GB a rank, peak by rank "
+            f"{', '.join(f'{p:.2f}' for p in peaks)} GB; counts {counts}  [{env.card}]")
+        del cache, decode
+        env.free()
+    router.close()
+    ok = True
+    if rank() == 0:
+        seq, whole = out["seq"]["steps"], out["whole"]["steps"]
+        rel = max(float((a["logits"][:, :V] - b["logits"][:, :V]).abs().max())
+                  / float(b["logits"][:, :V].abs().max()) for a, b in zip(seq, whole))
+        picks = all(torch.equal(a["logits"][:, :V].argmax(-1), b["logits"][:, :V].argmax(-1))
+                    for a, b in zip(seq, whole))
+        per_layer, wl, splits, held = _held_rows(seq, whole, V)
+        n_seq = sum(n for k, n in out["seq"]["counts"].items() if k.endswith(":seq_local"))
+        ok = mesh.shape["model"] == 1 or n_seq > 0
+        if dtype == "float32":
+            ok = ok and rel <= BUILDER_REL and picks
+        out.update(rel=rel, picks_equal=picks, router_max_diff_by_layer=per_layer,
+                   logits_max_diff_held=wl, splits=splits, held_row_steps=held)
+        say(f"{tag} the decode plan against the whole sequence, fed the same tokens: logits "
+            f"within {rel:.3e} of the step's largest, picks equal {picks}"
+            + (f" (limit {BUILDER_REL})" if dtype == "float32" else " (recorded, not held)")
+            + f"; {held} of {B * new} row-steps before a routing split, their logits max|diff| "
+            f"{wl:.4g}; router logits max|diff| by MoE layer up to each row's split "
+            f"{[round(x, 4) for x in per_layer]}; splits (step, row, layer, gap) {splits}  "
+            f"{'ok' if ok else 'FAIL'}  [{env.card}]")
+    fail(bcast(ok), f"{tag}: the sequence-sharded decode leaves the whole sequence's")
+    if env.cuda and rank() == 0 and dtype == "bfloat16":
+        for which in ("seq", "whole"):
+            pred = _predicted("qwen2_moe_a2_7b", B, s_max, which)
+            out[which]["predicted"] = pred
+            say(f"{tag} the dry run's prediction for the {which} plan: {pred}; measured peak "
+                f"{max(out[which]['peak_gb_by_rank']):.2f} GB  [{env.card}]")
+    for which in ("seq", "whole"):
+        out[which]["steps"] = None
+    del model
+    env.free()
+    return out
+
+
+def part_seq(env, mesh_shape):
+    """Decode over a sequence-sharded cache (module doc)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding import rank_mesh
+    out = {}
+    mesh = rank_mesh(mesh_shape, device=env.device.type)
+    for arch, layers in SEQ_CASES:
+        cfg = dataclasses.replace(env.cfg(arch, layers), param_dtype="float32",
+                                  activ_dtype="float32")
+        S, s_max = (SEQ_S, SEQ_S_MAX) if not env.reduced else (6, 16)
+        plan = dryrun.plan_for_cell(cfg, ShapeCell("d", "decode", s_max, SEQ_B), False)
+        row = _held_to_one_card(env, mesh, cfg, plan, SEQ_B, S, SEQ_NEW, s_max,
+                                "[engine ranks seq builders]", seq_local=True)
+        if row is not None:
+            out[arch] = row
+    for dtype, B in (("float32", QWEN_SEQ_B_FP32), ("bfloat16", QWEN_SEQ_B)):
+        out[f"qwen {dtype}"] = _qwen_seq(env, mesh, dtype, B if not env.reduced else 4)
     return out
 
 
@@ -656,8 +917,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reduced", action="store_true", help="the reduced fp32 configs")
-    ap.add_argument("--parts", default="builders,qwen,pod,jamba")
+    ap.add_argument("--parts", default="builders,seq,qwen,pod,jamba")
+    ap.add_argument("--predict", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.predict:
+        print(json.dumps(predict_decode(args.predict)), flush=True)
+        return 0
     import torch
     import torch.distributed as dist
     if args.device == "cuda":
@@ -691,6 +956,8 @@ def main(argv=None) -> int:
     out, oracle = {"world": world, "card": args.card}, None
     if "builders" in parts:
         out["builders"] = part_builders(env, qwen_mesh)
+    if "seq" in parts:
+        out["seq"] = part_seq(env, qwen_mesh)
     if "qwen" in parts or "pod" in parts:
         out["qwen"], oracle = part_qwen(env, qwen_mesh)
     if "pod" in parts:

@@ -2,7 +2,7 @@
 """Tensor parallelism emulated on ONE card: two threads, each one rank of a
 model axis of 2, against the same config run whole.
 
-    python3 tools/tp_emulate.py [--device cpu] [--train]
+    python3 tools/tp_emulate.py [--device cpu] [--train | --decode]
 
 Each thread holds its rank's cut of the seeded weights as plain tensors
 (the model-axis dim of every group `lm.tp_groups` runs local, and the
@@ -34,6 +34,22 @@ model's `make_train_step`: the loss, each first AdamW moment (the clipped
 gradient times 1 - beta1, the clip scale from the global norm over both
 threads' shards), and the replicated leaves' gradients equal on both
 threads. ``chip_smoke.py`` runs the same check.
+
+``--decode`` runs the decode step over a sequence-sharded cache instead
+(`decode_case`): the model axis of 2 cuts both the heads (q heads and the
+groups `lm.tp_groups` runs local) and the cache's sequence, as the dry
+run's serving plans set it (``seq_axis="model"``); each thread holds its
+half of the positions and the step combines the softmax over the two
+(`sharding.ctx.seq_axes`, `seq_piece`, `seq_max`, `seq_sum`, exchanged at
+the barrier). Full-width Qwen1.5-MoE-A2.7B (4 layers, heads local) and
+Minitron-4B (2 layers, ``shard_attn_heads`` off: attention gathered) in
+fp32: one whole prefill of `DEC_B` prompts of `DEC_S` tokens fills a cache
+of `DEC_S_MAX` positions, then `DEC_NEW` greedy decode steps cross from the
+first thread's positions into the second's, against the whole model's
+decode from the same cache: each step's logits within `DEC_REL` of its
+largest, picks equal. Then again with the cache in ``float8_e4m3fn``
+(both sides start from the same fp8 bytes), against the whole model's fp8
+decode on the CPU. ``chip_smoke.py`` runs the same check.
 """
 from __future__ import annotations
 
@@ -59,6 +75,13 @@ TRAIN_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b")
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_LOSS_CHUNK, TRAIN_LR = 2, 2, 1024, 256, 1e-4
 N = 2                   # ranks of the emulated model axis
 B, S, NEW = 4, 64, 3
+#: the sequence-sharded decode: (arch, layers, heads on their shards), fp32
+#: at full width; a prompt of DEC_S in a cache of DEC_S_MAX positions, so
+#: that the DEC_NEW steps write positions 60-67, across the two threads'
+#: halves at 64 (the reduced configs on the CPU: 6 in 16, positions 6-13)
+DEC_CASES = (("qwen2_moe_a2_7b", 4, True), ("minitron_4b", 2, False))
+DEC_B, DEC_S, DEC_S_MAX, DEC_NEW = 4, 60, 128, 8
+DEC_REL = 1e-5
 
 _TL = threading.local()
 _BAR = threading.Barrier(N)
@@ -79,12 +102,20 @@ def _on() -> bool:
 
 
 #: the primitives of `sharding.ctx` that `_install` replaces
-PRIMITIVES = ("tp", "tp_axis", "tp_sum", "tp_gather", "tp_reduce_scatter", "tp_max")
+PRIMITIVES = ("tp", "tp_axis", "tp_sum", "tp_gather", "tp_reduce_scatter", "tp_max",
+              "seq_axes", "seq_piece", "seq_max", "seq_sum")
+
+
+def _seq_on() -> bool:
+    """Whether this thread's step holds its piece of the cache's sequence
+    (`decode_case` sets it)."""
+    return _on() and getattr(_TL, "seq", False)
 
 
 def _install(ctx) -> None:
     """The model axis's collectives over the two threads (outside an
-    emulated rank's thread, a step of one rank)."""
+    emulated rank's thread, a step of one rank); in a thread of
+    `decode_case`, the model axis cuts the cache's sequence too."""
     import torch
     ctx.tp = lambda: (N, _TL.r) if _on() else (1, 0)
     ctx.tp_axis = lambda: "model" if _on() else None
@@ -94,6 +125,10 @@ def _install(ctx) -> None:
         functools.reduce(operator.add, _exchange(x)).chunk(N, dim)[_TL.r] if _on() else x)
     ctx.tp_max = lambda x: (functools.reduce(torch.maximum, _exchange(x.detach()))
                             if _on() else x)
+    ctx.seq_axes = lambda: ("model",) if _seq_on() else ()
+    ctx.seq_piece = lambda: (N, _TL.r) if _seq_on() else (1, 0)
+    ctx.seq_max = lambda x: functools.reduce(torch.maximum, _exchange(x)) if _seq_on() else x
+    ctx.seq_sum = lambda x: functools.reduce(operator.add, _exchange(x)) if _seq_on() else x
 
 
 @contextlib.contextmanager
@@ -128,7 +163,7 @@ def _run_ranks(fn) -> list:
             res[r] = traceback.format_exc()
             _BAR.abort()
         finally:
-            _TL.on = False
+            _TL.on = _TL.seq = False
 
     threads = [threading.Thread(target=one, args=(r,)) for r in range(N)]
     for t in threads:
@@ -378,10 +413,114 @@ def run_case(dev, reduced, routing, arch, layers, dtype, card):
     del model
 
 
+def decode_case(dev, arch, layers, heads_local, reduced, card, *,
+                cache_dtype=None, tag="[tp emulate decode]") -> dict:
+    """The decode step over a sequence-sharded cache on two emulated ranks
+    (module notes) against the whole model's decode from the same cache.
+    ``cache_dtype``: the cache's dtype (fp32 by default); with fp8 the whole
+    model's decode also runs on the CPU from the same bytes, and the
+    two-thread logits are held to those. Returns per step the max |diff|
+    against the whole model's logits (and the CPU's), the step's largest
+    logit, whether the picks are equal, and the threads' counts."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.models import Model
+    from repro_torch.models.lm import is_positional
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.plan import Mesh, default_plan
+    cache_dtype = cache_dtype or torch.float32
+    cfg = get_reduced_config(arch) if reduced else get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers, param_dtype="float32",
+                              activ_dtype="float32")
+    Bq, Sq, s_max = (2, 6, 16) if reduced else (DEC_B, DEC_S, DEC_S_MAX)
+    model = Model(cfg, device=dev, seed=0)
+    plan = default_plan().with_(seq_axis="model")
+    if not heads_local:
+        plan = plan.with_(shard_attn_heads=False)
+    devs = np.empty((1, 1, N), dtype=object)
+    devs[...] = dev
+    mesh = Mesh(devs)
+    rng = np.random.default_rng(11)
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(Bq, Sq)), device=dev)
+    V, piece = cfg.vocab_size, s_max // N
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, pre = model.prefill({"tokens": tokens})
+        full = model.init_cache(Bq, s_max, dtype=cache_dtype)
+        for k, v in pre.items():
+            if is_positional(k):
+                full[k][:, :, :v.shape[2]] = v
+            else:
+                full[k].copy_(v)
+        del pre
+    first = logits[:, :V].argmax(-1)
+
+    def greedy(m, cache, params=None, gather=lambda x: x):
+        steps, tok = [], first.to(cache[next(iter(cache))].device)
+        for i in range(DEC_NEW):
+            pos = torch.tensor(Sq + i, device=tok.device)
+            lg, cache = m.decode_step(tok[:, None].to(torch.int32), cache, pos, params=params)
+            lg = gather(lg).float().cpu()
+            steps.append(lg)
+            tok = lg[:, :V].argmax(-1).to(pos.device)
+        return steps
+
+    def rank(r):
+        _TL.seq = True
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True,
+                                                      seq_local=True):
+            params, _ = cut_params(cfg, model.params, plan, r)
+            cache = {k: v.narrow(2, r * piece, piece).clone() if is_positional(k) else v.clone()
+                     for k, v in full.items()}
+            ctx.reset_tp_counts()
+            steps = greedy(model, cache, params, lambda x: ctx.tp_gather(x, 1))
+            return steps, ctx.tp_counts()
+
+    with installed(ctx):
+        res = _run_ranks(rank)
+    two_s = time.perf_counter() - t0
+    with torch.no_grad():
+        whole = greedy(model, {k: v.clone() for k, v in full.items()})
+    got, counts = res[0]
+    out = {"steps": [], "counts": counts, "two_ranks_s": two_s,
+           "ranks_agree": all(torch.equal(a, b) for a, b in zip(got, res[1][0]))}
+    cpu = None
+    if cache_dtype != torch.float32:
+        cpu_model = Model(cfg, tree_util.map_tree(lambda _, x: x.cpu(), model.params),
+                          device="cpu")
+        with torch.no_grad():
+            cpu = greedy(cpu_model, {k: v.cpu() for k, v in full.items()})
+        del cpu_model
+    name = f"{tag} {cfg.name} {cfg.num_layers} layers fp32, cache {str(cache_dtype)[6:]}"
+    for i, (a, b) in enumerate(zip(got, whole)):
+        row = {"max_diff": float((a - b).abs().max()), "largest": float(b.abs().max()),
+               "picks_equal": bool(torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1)))}
+        text = ""
+        if cpu is not None:
+            row["cpu_max_diff"] = float((a - cpu[i]).abs().max())
+            row["cpu_picks_equal"] = bool(torch.equal(a[:, :V].argmax(-1),
+                                                      cpu[i][:, :V].argmax(-1)))
+            text = (f"; against the CPU's fp8 decode max|diff| {row['cpu_max_diff']:.4g}, picks "
+                    f"equal {row['cpu_picks_equal']}")
+        out["steps"].append(row)
+        print(f"{name} step {i} (position {Sq + i}, thread {(Sq + i) // piece}'s half): "
+              f"max|diff| {row['max_diff']:.4g} of {row['largest']:.4g} against the whole "
+              f"decode, picks equal {row['picks_equal']}{text}  [{card}]", flush=True)
+    print(f"{name}: B={Bq}, prompt {Sq}, cache {s_max} (halves of {piece}); threads agree "
+          f"{out['ranks_agree']}; {counts}; {two_s:.2f} s prefill and two threads  [{card}]",
+          flush=True)
+    del model, full
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--train", action="store_true", help="a train step instead of serving")
+    ap.add_argument("--decode", action="store_true",
+                    help="decode over a sequence-sharded cache instead of serving")
     args = ap.parse_args(argv)
     import torch
 
@@ -397,6 +536,14 @@ def main(argv=None) -> None:
                                "--format=csv,noheader", "-i", "0"], capture_output=True,
                               text=True, check=True).stdout.strip()
     dev = torch.device(args.device)
+    if args.decode:
+        for cache_dtype in (torch.float32, torch.float8_e4m3fn):
+            for arch, layers, heads_local in DEC_CASES:
+                decode_case(dev, arch, layers, heads_local, reduced, card,
+                            cache_dtype=cache_dtype)
+                if not reduced:
+                    torch.cuda.empty_cache()
+        return
     if args.train:
         for arch in TRAIN_ARCHS:
             cfg, batch = train_config(arch, dev, reduced)
