@@ -160,11 +160,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              save and a restore under the mesh's shardings equal to the state
              bit for bit; then the tensor-parallel train step on a model axis
              of 2 emulated by two threads (`tools/tp_emulate.py`, the axis's
-             collectives exchanged between them): fp32 Minitron-4B and
-             Qwen1.5-MoE at full width and 2 layers (B=2 x S=1024,
-             sequence-parallel), the loss and the first moments against the
-             whole step's, the replicated leaves' gradients equal on both
-             threads, every group on its shard; then decode over a
+             collectives exchanged between them): fp32 Minitron-4B,
+             Qwen1.5-MoE and Whisper-large-v3 at full width and 2 layers
+             (Whisper 2 + 2; B=2 x S=1024, sequence-parallel), the loss and
+             the first moments against the whole step's, the replicated
+             leaves' gradients equal on both threads, every group on its
+             shard; then Whisper served on the same two threads
+             (`tp_emulate.py`'s `whisper_case`: fp32, 2 + 2 layers, a prefill
+             of 128 tokens over 1500 frames, flash on each thread's 10 heads
+             once per decoder layer, and 8 greedy decode steps against the
+             whole model, logits within 1e-5 of the step's largest, picks
+             equal, every group on its shard); then decode over a
              sequence-sharded cache on the same two threads, the model axis
              cutting the heads and the cache's sequence (`tp_emulate.py`'s
              `decode_case`): fp32 Qwen1.5-MoE (4 layers, heads local) and
@@ -692,9 +698,12 @@ def phase_kernels(card):
 
 
 #: a tensor-parallel rank's heads (`lm.tp_groups`) over a model axis of 2:
-#: flash at Qwen's S=384 (16 over 16 heads -> 8 over 8) and Jamba's S=1000
-#: (32 over 8 -> 16 over 4); the scan at Mamba2's S=1000 (32 heads -> 16)
-TP_FLASH_SHARDS = (("qwen", 384, 16, 16, 2), ("jamba", 1000, 32, 8, 2))
+#: flash at Qwen's S=384 (16 over 16 heads of 128 -> 8 over 8), Jamba's
+#: S=1000 (32 over 8 -> 16 over 4) and Whisper's decoder prefill of 128
+#: (20 over 20 heads of 64 -> 10 over 10); the scan at Mamba2's S=1000 (32
+#: heads -> 16)
+TP_FLASH_SHARDS = (("qwen", 384, 16, 16, 2, 128), ("jamba", 1000, 32, 8, 2, 128),
+                   ("whisper", 128, 20, 20, 2, 64))
 TP_SSD_SHARDS = (("mamba2", 1000, 32, 128, 2),)
 
 
@@ -706,10 +715,10 @@ def _tp_flash_shards(gen, card):
 
     from repro_torch.kernels import ops, ref
     out = []
-    for tag, S, Hq, Hkv, tp in TP_FLASH_SHARDS:
+    for tag, S, Hq, Hkv, tp, D in TP_FLASH_SHARDS:
         hq, hkv = Hq // tp, Hkv // tp
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = _flash_case(gen, 1, S, Hq, Hkv, 128, dtype)
+            q, k, v = _flash_case(gen, 1, S, Hq, Hkv, D, dtype)
             whole = ops.flash_attention(q, k, v, causal=True)
             for r in range(tp):
                 part = ops.flash_attention(q[:, :, r * hq:(r + 1) * hq].contiguous(),
@@ -718,13 +727,13 @@ def _tp_flash_shards(gen, card):
                                            causal=True)
                 torch.cuda.synchronize()
                 same = torch.equal(part, whole[:, :, r * hq:(r + 1) * hq])
-                say(f"[kernels] flash tp shard {tag} S={S} Hq={Hq}->{hq} Hkv={Hkv}->{hkv} "
+                say(f"[kernels] flash tp shard {tag} S={S} Hq={Hq}->{hq} Hkv={Hkv}->{hkv} D={D} "
                     f"rank {r} of {tp} {dtype}: the whole call's slice bit for bit "
                     f"{'ok' if same else 'FAIL'}")
                 check(same, f"flash on rank {r}'s heads is not the whole call's slice "
                             f"({tag}, {dtype})")
-        t = _flash_timed(gen, S, hq, hkv, card, f"{tag} tp shard 1 of {tp}")
-        q, k, v = _flash_case(gen, 1, S, hq, hkv, 128, torch.bfloat16)
+        t = _flash_timed(gen, S, hq, hkv, card, f"{tag} tp shard 1 of {tp}", D=D)
+        q, k, v = _flash_case(gen, 1, S, hq, hkv, D, torch.bfloat16)
         ok, t["max_abs_err"] = within(ops.flash_attention(q, k, v, causal=True),
                                       ref.flash_attention_ref(q, k, v, causal=True),
                                       FLASH_TOL["bfloat16"])
@@ -3306,8 +3315,8 @@ TP_TRAIN_M_SHARE = 1e-3
 def _tp_train_emulated(card):
     """The tensor-parallel train step on the card, a model axis of 2
     emulated by two threads (`tools/tp_emulate.py`'s `train_case`): fp32
-    Minitron-4B and Qwen1.5-MoE at full width and 2 layers against the whole
-    step; the loss and the first moments within `TP_TRAIN_LOSS_REL` and
+    Minitron-4B, Qwen1.5-MoE and Whisper-large-v3 (2 encoder layers too) at
+    full width and 2 layers against the whole step; the loss and the first moments within `TP_TRAIN_LOSS_REL` and
     `TP_TRAIN_M_SHARE`, the replicated leaves' gradients equal on both
     threads, every group on its shard."""
     import torch
@@ -3335,6 +3344,33 @@ def _tp_train_emulated(card):
         out[arch] = r
         free_device()
     return out
+
+
+def _tp_whisper_emulated(card):
+    """Whisper-large-v3 served tensor-parallel on the card, a model axis of
+    2 emulated by two threads (`tools/tp_emulate.py`'s `whisper_case`): fp32
+    at full width, 2 encoder and 2 decoder layers, a prefill of 128 tokens
+    over 1500 frames and 8 greedy decode steps against the whole model, each
+    step's logits within `tp_emulate.DEC_REL` of its largest, picks equal,
+    both threads' logits equal, every group on its shard, and flash launched
+    once per decoder layer by each thread's prefill (on its 10 of the 20
+    heads)."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    import tp_emulate
+    r = tp_emulate.whisper_case(torch.device("cuda"), False, card,
+                                tag="[sharded tp whisper emulated]")
+    for i, row in enumerate(r["steps"]):
+        check(row["max_diff"] <= tp_emulate.DEC_REL * row["largest"] and row["picks_equal"],
+              f"[sharded tp whisper] step {i}: {row}")
+    check(r["ranks_agree"], "[sharded tp whisper] the two threads' logits differ")
+    check(r["counts"].get("tp_local", 0) > 0 and not r["counts"].get("tp_gathered"),
+          f"[sharded tp whisper] groups ran gathered: {r['counts']}")
+    want = {"flash_attention": tp_emulate.N * tp_emulate.WHISPER_LAYERS, "moe_topk": 0,
+            "ssd_scan": 0}
+    check(r["launches"] == want, f"[sharded tp whisper] launches {r['launches']}, want {want}")
+    free_device()
+    return r
 
 
 def _seq_decode_emulated(card):
@@ -3391,6 +3427,7 @@ def phase_sharded(card):
         out["train"] = _sharded_train(card, mesh, get_config(SSM_ARCH), TRAIN_LR[SSM_ARCH])
         free_device()
     out["tp_train"] = _tp_train_emulated(card)
+    out["tp_whisper"] = _tp_whisper_emulated(card)
     out["seq_decode"] = _seq_decode_emulated(card)
     out["seconds"] = time.perf_counter() - t0
     say(f"[sharded] phase {out['seconds']:.1f} s  [{card}]")
@@ -3841,6 +3878,7 @@ def main() -> int:
     by_path = {"qwen serve": launches, "mamba2 serve": ssm_launches,
                **{f"{name} serve": f["launches"] for name, f in families.items()},
                "whisper prefill": train[WHISPER_ARCH]["prefill_launches"],
+               "whisper tp prefill (two emulated ranks)": sharded["tp_whisper"]["launches"],
                "sharded prefill": {k: sum(n[k] for n in sharded["serve"]["launches"])
                                    for k in launches},
                "engine ranks": engine_ranks["launches"]}

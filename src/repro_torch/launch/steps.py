@@ -21,7 +21,7 @@ groups of `lm.tp_groups`: heads, ``d_ff`` columns, experts, SSM heads, the
 vocab), summing the partial outputs over the tensor axis at each residual
 add, the embedding's masked lookup and, in train, the vocab-parallel loss;
 a group whose dim does not divide the axis runs gathered whole, and is
-counted so (`ctx.note_tp`; the enc-dec stacks are gathered whole). Serving
+counted so (`ctx.note_tp`; the enc-dec stacks by the same rule). Serving
 logits leave as this rank's vocab columns, with no gather, and a cache
 leaf the tensor axis shards (an SSM state's heads and channels) is used in
 place. A train step gathers each layer inside its checkpointed scan step
@@ -201,7 +201,7 @@ def _train_params(cfg, params: Tree, leaves: List[torch.Tensor]) -> Tree:
     gathered here (`ctx.gather_shard`), the embedding and the LM head
     keeping their vocab shard where the vocab runs local (`lm.tp_groups`).
     Inside the step's context."""
-    vocab = cfg.encdec is None and lm.tp_groups(cfg)["vocab"]
+    vocab = lm.tp_groups(cfg)["vocab"]
     axis = ctx.tp_axis()
 
     def one(path, p, leaf):
@@ -397,7 +397,7 @@ def _serving_params(cfg, params: Tree) -> Tree:
     the vocab runs local (`lm.tp_groups`); the stacks stay sharded, cut a
     layer at a time as the model reaches them. Called inside the step's
     `ctx.activation_sharding`."""
-    vocab = cfg.encdec is None and lm.tp_groups(cfg)["vocab"]
+    vocab = lm.tp_groups(cfg)["vocab"]
     axis = ctx.tp_axis()
     return {k: v if k in STACKED else
             ctx.local_of(v, axis) if vocab and k in ("embed", "lm_head") else ctx.full_tree(v)
@@ -407,8 +407,6 @@ def _serving_params(cfg, params: Tree) -> Tree:
 def _tp_keys(cfg) -> Tuple[Optional[str], frozenset]:
     """The tensor axis of the current step and the cache keys it keeps as
     this rank's shard (`lm.tp_cache_local`); inside the step's context."""
-    if cfg.encdec is not None:
-        return None, frozenset()
     return ctx.tp_axis(), lm.tp_cache_local(cfg, lm.tp_groups(cfg))
 
 

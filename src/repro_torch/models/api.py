@@ -30,7 +30,7 @@ class Model:
             the same draws as without it, each cut to this rank's shard as
             it is made (`lm.init_layout_sharded`), so a model that no card
             holds whole lives across ranks. Every rank of the world makes
-            the model. Decoder-only models.
+            the model.
 
     Raises:
         RuntimeError: ``device`` is CUDA and no card is available.
@@ -49,11 +49,10 @@ class Model:
         if params is None and self.device.type == "meta":
             params = self.param_shapes()
         elif params is None and shardings is not None:
-            if self._is_encdec:
-                raise ValueError("sharded weights are made for decoder-only models")
+            layout = encdec.param_layout(cfg) if self._is_encdec else lm.param_layout(cfg)
             params = lm.init_layout_sharded(
-                lm.param_layout(cfg), torch.Generator(device=self.device).manual_seed(seed),
-                shardings, device=self.device)
+                layout, torch.Generator(device=self.device).manual_seed(seed), shardings,
+                device=self.device)
         elif params is None:
             params = self.init_params(
                 torch.Generator(device=self.device).manual_seed(seed))

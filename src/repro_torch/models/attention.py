@@ -362,27 +362,53 @@ def cross_attention(
     *,
     enc_out: Optional[torch.Tensor] = None,     # (B, S_enc, d): train, prefill
     cache: Optional[Cache] = None,              # decode: the encoder's K/V
-) -> Tuple[torch.Tensor, Cache]:
+    mode: str = "prefill",                      # train | prefill | decode
+) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Bidirectional attention of the decoder over the encoder output, in
     plain `sdpa`. Without ``cache`` it projects ``enc_out`` to K/V and
-    returns them as the new cache (computed once, at prefill); with one it
-    reads the cached K/V and returns the cache as it is.
+    returns them as the new cache (computed once, at prefill; none in
+    train); with one it reads the cached K/V and returns the cache as it is.
+
+    On a rank whose projections are its head shards (`lm.tp_groups`), ``q``
+    comes from its ``wq`` columns, K/V from its ``wk``/``wv`` columns over
+    the replicated ``enc_out`` (which enters the shard through
+    `ctx.tp_enter`, so that ``wk``/``wv`` take every rank's part of its
+    gradient), and the output is its partial ``wo`` product. The cache stays
+    whole over the heads, as the reference's specs keep it: prefill gathers
+    the new K/V heads for it, and decode reads the rank's ``[k0, k1)``.
 
     Raises:
         ValueError: neither ``enc_out`` nor ``cache`` is given.
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    q = (x @ p["wq"]).reshape(B, S, hq, hd)
+    hq, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
+    xs = ctx.tp_enter(x) if hq < cfg.num_heads else x
+    q = (xs @ p["wq"]).reshape(B, S, hq, hd)
+    k0, k1 = _kv_heads_read(cfg, hq, hkv)
     if cache is None:
         if enc_out is None:
             raise ValueError("cross-attention needs the encoder output or its cache")
         F_enc = enc_out.shape[1]
-        k = (enc_out @ p["wk"]).reshape(B, F_enc, hkv, hd)
-        v = (enc_out @ p["wv"]).reshape(B, F_enc, hkv, hd)
-        cache = {"k": k, "v": v}
-    out = sdpa(q, cache["k"], cache["v"], scale=hd ** -0.5, causal=False)
+        es = ctx.tp_enter(enc_out) if hkv < cfg.num_kv_heads else enc_out
+        k = (es @ p["wk"]).reshape(B, F_enc, hkv, hd)
+        v = (es @ p["wv"]).reshape(B, F_enc, hkv, hd)
+        if hkv < cfg.num_kv_heads:
+            k_own, v_own = k, v
+            if mode != "train":
+                k, v = ctx.tp_gather(k, 2), ctx.tp_gather(v, 2)
+        elif hq < cfg.num_heads:
+            # TRAP, replicated leaves: as in `gqa_attention`
+            k, v = ctx.tp_enter(k), ctx.tp_enter(v)
+            k_own, v_own = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+        else:
+            k_own, v_own = k, v
+        cache = None if mode == "train" else {"k": k, "v": v}
+    else:
+        k_own, v_own = cache["k"], cache["v"]
+        if (k0, k1) != (0, k_own.shape[2]):
+            k_own, v_own = k_own[:, :, k0:k1], v_own[:, :, k0:k1]
+    out = sdpa(q, k_own, v_own, scale=hd ** -0.5, causal=False)
     return out.reshape(B, S, hq * hd) @ p["wo"], cache
 
 

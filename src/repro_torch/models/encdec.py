@@ -13,6 +13,13 @@ model's: ``self/k``, ``self/v`` ``(L, B, S_max, Hkv, Dh)`` and ``cross/k``,
 ``cross/v`` ``(L, B, S_enc, Hkv, Dh)``. Causal prefill of the decoder goes
 through the flash kernel; the encoder, cross-attention, decode and training
 run plain ops, as the reference's do.
+
+In a tensor-parallel step (`sharding.ctx.tp`) every sub-layer follows the
+decoder-only models' rule (`lm.tp_groups`): the encoder's attention and
+MLP, the decoder's self-attention, cross-attention and MLP each run on this
+rank's shard of the tensor axis where the dim they split divides it
+(heads, ``d_ff``), the embedding and the tied head on the rank's vocab
+rows, and each partial output is summed once at its residual add.
 """
 from __future__ import annotations
 
@@ -91,57 +98,86 @@ def _checkpointed(fn, remat: bool):
     return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
-def _train_stack(body, x, layers: Params, *, remat: bool, count: bool = False):
-    """``x`` through a stack in train mode, a layer at a time: each layer
-    gathered whole inside its checkpointed ``body(x, lp)`` (`lm.train_steps`:
-    the model axis too, as Whisper has no tensor parallelism yet), counted
-    ``encdec:gathered`` once per forward where ``count`` (the decoder's, as
-    serving counts)."""
-    step = _checkpointed(lambda x, lp, gather: body(x, gather(lp)), remat)
-    for lp, gather in lm.train_steps(layers, axis=None):
-        if count:
-            ctx.note_tp("encdec", False)
-        x = step(x, lp, gather)
+def _run_stack(cfg: ModelConfig, layers: Params, stack: str, n: int, x, body, *,
+               mode: str, remat: bool):
+    """``x`` through the ``n`` layers of ``stack`` (``"enc_layers"`` or
+    ``"dec_layers"``), ``x = body(lp, x, partial, i)`` for layer ``i``:
+    ``partial`` says whether each sub-layer's output is a partial sum over
+    the tensor axis (`lm.note_encdec`, counted once per forward). The
+    groups of `lm.tp_groups` keep this rank's shard of the tensor axis
+    (`lm.encdec_local_paths`); every other leaf is gathered whole, in
+    serving a layer at a time as it is reached (`lm.layer_params`), in train
+    inside the layer's step, recomputed in backward when ``remat``
+    (`lm.train_steps`: the backward gathers the layer again, and no
+    gathered layer is saved)."""
+    groups = lm.tp_groups(cfg)
+    local, axis = lm.encdec_local_paths(stack, groups), ctx.tp_axis()
+    if mode == "train":
+        step = _checkpointed(lambda x, lp, gather, partial, i: body(gather(lp), x, partial, i),
+                             remat)
+        for i, (lp, gather) in enumerate(lm.train_steps(layers, local, axis)):
+            # TRAP, the recompute: counted here, not in the step that the
+            # backward runs again
+            x = step(x, lp, gather, lm.note_encdec(stack, groups), i)
+        return x
+    for i in range(n):
+        lp = lm.layer_params(layers, i, local, axis)
+        x = body(lp, x, lm.note_encdec(stack, groups), i)
+        del lp      # a gathered layer is freed before the next is gathered
     return x
+
+
+def _whole(x: torch.Tensor, sp: bool) -> torch.Tensor:
+    """The residual stream's whole sequence for a sub-layer's norm: ``x``,
+    or every rank's piece put together under sequence parallelism."""
+    return ctx.sp_gather(x, 1) if sp else x
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
            remat: bool = True, mode: str = "train") -> torch.Tensor:
     """Stub frame embeddings ``(B, F, d)`` -> encoder output ``(B, F, d)``;
     ``mode`` "train" (each layer gathered in its own step, recomputed in
-    backward when ``remat``) or "prefill"."""
+    backward when ``remat``) or "prefill". A sequence-parallel train step
+    cuts the residual stream over the frames only where they divide the
+    tensor axis (`ctx.sp_on`): else the encoder's stream stays whole while
+    the decoder's is cut."""
     B, F_enc, d = frames.shape
     x = frames.to(dtype_of(cfg))
     x = x + sinusoidal_positions(F_enc, d, device=x.device).to(x.dtype)[None]
     positions = torch.arange(F_enc, dtype=torch.int32, device=x.device)
+    sp = mode == "train" and ctx.sp_on(F_enc)
 
-    def body(x, lp):
-        h = apply_norm(cfg, lp["attn_norm"], x)
+    def body(lp, x, partial, i):
+        h = apply_norm(cfg, lp["attn_norm"], _whole(x, sp))
         out, _ = attn.gqa_attention(cfg, lp["attn"], h, positions=positions,
                                     mode="train", causal=False)
-        x = x + out
-        h = apply_norm(cfg, lp["mlp_norm"], x)
-        return constrain(x + ffn.mlp(cfg, lp["mlp"], h), "batch", "sp", None)
+        x = x + lm._exit(out, partial[0], sp)
+        h = apply_norm(cfg, lp["mlp_norm"], _whole(x, sp))
+        return constrain(x + lm._exit(ffn.mlp(cfg, lp["mlp"], h), partial[1], sp),
+                         "batch", "sp", None)
 
-    if mode == "train":
-        x = _train_stack(body, x, params["enc_layers"], remat=remat)
-    else:
-        for lp in lm.unstack(params["enc_layers"]):
-            x = body(x, lp)
-    return apply_norm(cfg, params["enc_norm"], x)
+    if sp:
+        x = ctx.sp_cut(x, 1)
+    x = _run_stack(cfg, params["enc_layers"], "enc_layers", cfg.encdec.num_encoder_layers, x,
+                   body, mode=mode, remat=remat)
+    return apply_norm(cfg, params["enc_norm"], _whole(x, sp))
 
 
-def _dec_layer(cfg, lp, x, *, positions, mode, self_cache, cross_cache, enc_out, pos):
-    h = apply_norm(cfg, lp["self_norm"], x)
+def _dec_layer(cfg, lp, x, *, positions, mode, self_cache, cross_cache, enc_out, pos,
+               partial=(False, False, False), sp=False):
+    """One decoder layer: returns (x, the new self cache, the new cross
+    cache). ``partial`` and ``sp`` as `lm._run_layer` takes them, for the
+    self-attention, the cross-attention and the MLP."""
+    h = apply_norm(cfg, lp["self_norm"], _whole(x, sp))
     out, new_self = attn.gqa_attention(cfg, lp["self_attn"], h, positions=positions,
                                        mode=mode, cache=self_cache, pos=pos)
-    x = x + out
-    h = apply_norm(cfg, lp["cross_norm"], x)
+    x = x + lm._exit(out, partial[0], sp)
+    h = apply_norm(cfg, lp["cross_norm"], _whole(x, sp))
     out, new_cross = attn.cross_attention(cfg, lp["cross_attn"], h, enc_out=enc_out,
-                                          cache=cross_cache)
-    x = x + out
-    h = apply_norm(cfg, lp["mlp_norm"], x)
-    return x + ffn.mlp(cfg, lp["mlp"], h), new_self, new_cross
+                                          cache=cross_cache, mode=mode)
+    x = x + lm._exit(out, partial[1], sp)
+    h = apply_norm(cfg, lp["mlp_norm"], _whole(x, sp))
+    return x + lm._exit(ffn.mlp(cfg, lp["mlp"], h), partial[2], sp), new_self, new_cross
 
 
 def decode_stack(
@@ -159,9 +195,21 @@ def decode_stack(
     cache). Train mode returns no cache, each layer recomputed in backward
     when ``remat``; prefill returns the new cache (self K/V of the prompt and
     the cross K/V of ``enc_out``, in the activation dtype); decode writes
-    the new self K/V entry into ``cache`` IN PLACE and returns it."""
+    the new self K/V entry into ``cache`` IN PLACE and returns it.
+
+    In a tensor-parallel step (`ctx.tp`) the embedding may be this rank's
+    vocab shard (the masked lookup, `lm._embed_lookup`; ``pos_embed`` stays
+    whole), and each layer's groups run on their shards (`_run_stack`), each
+    partial output summed once at its residual add (`lm._exit`).
+
+    Raises:
+        ValueError: an unknown ``mode``.
+    """
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
     B, S = tokens.shape
-    x = params["embed"][tokens].to(dtype_of(cfg))
+    ctx.note_tp("vocab", lm.tp_groups(cfg)["vocab"])
+    x = lm._embed_lookup(params, tokens, padded_vocab(cfg.vocab_size)).to(dtype_of(cfg))
     if mode == "decode":
         p = torch.as_tensor(pos, device=x.device).long()
         if p.dim() == 0:
@@ -174,34 +222,30 @@ def decode_stack(
     else:
         x = x + params["pos_embed"][:S][None].to(x.dtype)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-
-    def layer(x, lp, self_cache=None, cross_cache=None):
-        x, new_self, new_cross = _dec_layer(
-            cfg, lp, x, positions=positions, mode=mode, self_cache=self_cache,
-            cross_cache=cross_cache, enc_out=enc_out, pos=pos)
-        return (constrain(x, "batch", "sp" if mode == "train" else None, None),
-                new_self, new_cross)
-
-    if mode == "train":
-        x = _train_stack(lambda x, lp: layer(x, lp)[0], x, params["dec_layers"], remat=remat,
-                         count=True)
-        return apply_norm(cfg, params["dec_norm"], x), None
-
+    sp = mode == "train" and ctx.sp_on(S)
     per_layer = []
-    for i, lp in enumerate(lm.unstack(params["dec_layers"])):
-        ctx.note_tp("encdec", False)     # gathered whole in serving (no TP yet)
+
+    def body(lp, x, partial, i):
+        sc = cc = None
         if mode == "decode":
-            x, _, _ = layer(x, lp, {k: cache[f"self/{k}"][i] for k in "kv"},
-                            {k: cache[f"cross/{k}"][i] for k in "kv"})
-        elif mode == "prefill":
-            x, new_self, new_cross = layer(x, lp)
+            sc = {k: cache[f"self/{k}"][i] for k in "kv"}
+            cc = {k: cache[f"cross/{k}"][i] for k in "kv"}
+        x, new_self, new_cross = _dec_layer(
+            cfg, lp, x, positions=positions, mode=mode, self_cache=sc, cross_cache=cc,
+            enc_out=enc_out, pos=pos, partial=partial, sp=sp)
+        if mode == "prefill":
             per_layer.append({**{f"self/{k}": v for k, v in new_self.items()},
                               **{f"cross/{k}": v for k, v in new_cross.items()}})
-        else:
-            raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
+        return constrain(x, "batch", "sp" if mode == "train" else None, None)
+
+    if sp:
+        x = ctx.sp_cut(x, 1)
+    x = _run_stack(cfg, params["dec_layers"], "dec_layers", cfg.num_layers, x, body,
+                   mode=mode, remat=remat)
+    x = apply_norm(cfg, params["dec_norm"], _whole(x, sp))
     if mode == "prefill":
         cache = {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]}
-    return apply_norm(cfg, params["dec_norm"], x), cache
+    return x, None if mode == "train" else cache
 
 
 def cache_shape(cfg: ModelConfig, batch: int, s_max: int, enc_len: int
@@ -221,7 +265,10 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, enc_len: int, *,
 
 
 def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    return hidden @ params["embed"].T          # Whisper ties its embeddings
+    """``hidden`` through the tied embedding's transpose (Whisper ties its
+    embeddings): this rank's vocab columns where the embedding is its shard
+    (`lm.logits_fn`)."""
+    return lm.logits_fn(cfg, params, hidden)
 
 
 def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,

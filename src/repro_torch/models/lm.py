@@ -346,6 +346,41 @@ def _local_paths(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
     return frozenset(out)
 
 
+#: each enc-dec stack's sub-layers: (key, kind, name counted) (the
+#: reference's `_gqa_specs` / `_mlp_specs` for every one): the encoder's
+#: attention and MLP, the decoder's self-attention, cross-attention and MLP
+ENCDEC_SUBLAYERS = {"enc_layers": (("attn", "attn", "enc_attn"), ("mlp", "mlp", "enc_mlp")),
+                    "dec_layers": (("self_attn", "attn", "self_attn"),
+                                   ("cross_attn", "attn", "cross_attn"),
+                                   ("mlp", "mlp", "dec_mlp"))}
+
+
+def encdec_local_paths(stack: str, groups: Dict[str, bool]) -> frozenset:
+    """`_local_paths` of an enc-dec stack (``"enc_layers"`` or
+    ``"dec_layers"``): the paths (``self_attn/wq`` ...) of the leaves its
+    attention (``attn``, ``attn_kv``) and MLP (``mlp``) groups keep local."""
+    out = set()
+    for sub, kind, _ in ENCDEC_SUBLAYERS[stack]:
+        for g in (("attn", "attn_kv") if kind == "attn" else ("mlp",)):
+            if groups[g]:
+                out.update(f"{sub}/{leaf}" for leaf in TP_LEAVES[g][1])
+    return frozenset(out)
+
+
+def note_encdec(stack: str, groups: Dict[str, bool]) -> Tuple[bool, ...]:
+    """Count one layer of an enc-dec stack (`ctx.note_tp`), each sub-layer
+    under its own name (`ENCDEC_SUBLAYERS`; an attention's K/V heads as
+    ``<name>_kv``). Returns whether each sub-layer's output is a partial
+    sum over the tensor axis, in that order."""
+    out = []
+    for _, kind, name in ENCDEC_SUBLAYERS[stack]:
+        ctx.note_tp(name, groups[kind])
+        if kind == "attn":
+            ctx.note_tp(name + "_kv", groups["attn_kv"])
+        out.append(groups[kind])
+    return tuple(out)
+
+
 def _note_layer(cfg: ModelConfig, kind, groups: Dict[str, bool]) -> Tuple[bool, bool]:
     """Count one sub-layer's groups (`ctx.note_tp`); returns whether its
     mixer's and its ffn's outputs are partial sums over the tensor axis. An
@@ -482,20 +517,6 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, 
         out = ffn.mlp(cfg, p["ffn"], h)
     return (x + constrain(_exit(out, partial[1], sp), "batch",
                           "sp" if mode == "train" else None, None), new_cache, aux)
-
-
-def unstack(layers: Params):
-    """The stacked layer tree as one tree per scan step, in order: each
-    leaf a view from one `unbind` of its stacked leaf, so autograd writes
-    each stacked gradient once (indexing each layer would add a full-size
-    zero gradient per layer). A DTensor leaf gathers one layer at a time, as
-    the steps are taken (`ctx.layer_slice`): the enc-dec stacks in serving.
-    A train step takes `train_steps` instead."""
-    views = tree_util.map_tree(lambda _, v: v if is_dtensor(v) else v.unbind(0), layers)
-    steps = len(tree_util.leaves(views)[0])
-    for i in range(steps):
-        yield tree_util.map_tree(lambda _, vs: layer_slice(vs, i) if is_dtensor(vs) else vs[i],
-                                 views)
 
 
 def train_steps(layers: Params, local: frozenset = frozenset(), axis: Optional[str] = None):

@@ -10,7 +10,9 @@ spawned process per rank. Nothing here imports JAX.
     picks and the tensor-parallel counts (`ctx.tp_counts`);
   * ``odd``: the same on ``(1, 2, 2)`` for Minitron cut to 3 q heads over 1
     K/V head, which do not divide the model axis: attention runs gathered,
-    the MLP and the vocab on their shards;
+    the MLP and the vocab on their shards; ``odd:whisper_large_v3`` for
+    Whisper cut to 3 heads of 16 (the encoder's attention, the decoder's
+    self- and cross-attention gathered);
   * ``norm``: the SSM block's gated norm on each rank's half of a row whose
     halves differ a hundredfold, against the whole row's;
   * ``tie``: `ctx.tp_argmax` on vocab shards with ties within and across
@@ -42,7 +44,7 @@ import torch
 from _torch_dist_jobs import _fp32, _full, _meshes, _part
 
 TP_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "mamba2_370m", "jamba_v0_1_52b", "minicpm3_4b",
-            "qwen2_vl_2b")
+            "qwen2_vl_2b", "whisper_large_v3")
 B, S_PROMPT, N_NEW = 4, 8, 4
 SEQ_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "minicpm3_4b", "jamba_v0_1_52b",
              "whisper_large_v3")
@@ -82,7 +84,7 @@ def _parts():
     if spec:
         return [tuple(p.split(":")) for p in spec.split(",")]
     return ([("serve", a, m) for a in TP_ARCHS for m in ("1x2x2", "2x2x1")]
-            + [("odd",), ("norm",), ("tie",)]
+            + [("odd",), ("odd", "whisper_large_v3"), ("norm",), ("tie",)]
             + [("seq", a, lay) for a in SEQ_ARCHS for lay in ("seq2", "seq1")]
             + [("seqfp8", "qwen2_moe_a2_7b", "seq2")])
 
@@ -102,8 +104,13 @@ def tp_job(rank: int, world: int) -> dict:
                   part[2] == "seq1", True,
                   torch.float8_e4m3fn if part[0] == "seqfp8" else torch.float32)
         elif part[0] == "odd":
-            cfg = dataclasses.replace(_fp32("minitron_4b"), num_heads=3, num_kv_heads=1)
-            _part(out, "odd", _serve_part, cfg, *meshes["1x2x2"])
+            arch = part[1] if len(part) > 1 else "minitron_4b"
+            # Whisper's 3 heads of 16 (its d_model of 64 over 3 would leave
+            # projections of 63 columns, which the model axis cannot split)
+            cut = {"num_kv_heads": 1} if arch == "minitron_4b" else {"num_kv_heads": 3,
+                                                                   "head_dim": 16}
+            cfg = dataclasses.replace(_fp32(arch), num_heads=3, **cut)
+            _part(out, ":".join(part), _serve_part, cfg, *meshes["1x2x2"])
         else:
             _part(out, part[0], {"norm": _norm_part, "tie": _tie_part}[part[0]],
                   *meshes["1x2x2"])

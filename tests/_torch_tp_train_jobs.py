@@ -10,6 +10,10 @@ one spawned process per rank. Nothing here imports JAX.
     the same batch: the loss and metrics, every parameter and moment put
     together (rank 0), the moments of the leaves the model axis replicates
     as each rank holds them, and the tensor-parallel counts (`ctx.tp_counts`);
+  * ``frames``: the ``step`` of Whisper on ``(1, 2, 2)`` with sequence
+    parallelism, its encoder fed `ODD_FRAMES` frames, which do not divide
+    the model axis: the encoder's residual stream stays whole while the
+    decoder's is cut (each stack's `ctx.sp_on` verdict recorded);
   * ``ops``: each autograd collective of `sharding.ctx` (forward and
     backward) on the model axis of 2 against the same function on one
     device, and the wrong backward of each all-reduce beside it.
@@ -39,6 +43,11 @@ CASES = ([(a, "1x2x2", "sp", 1, "fp32") for a in TRAIN_ARCHS]
                                                      "mamba2_370m")]
          + [("minitron_4b", "2x2x1", "sp", 2, "fp32"),
             ("minitron_4b", "1x2x2", "sp", 2, "bfloat16")])
+
+
+#: the encoder frames of the ``frames`` part: odd, so that a model axis of 2
+#: cannot cut them
+ODD_FRAMES = 33
 
 
 def case_name(case) -> str:
@@ -76,7 +85,8 @@ def _parts():
     spec = os.environ.get("TP_TRAIN_PARTS")
     if spec:
         return [tuple(p.split(":")) for p in spec.split(",")]
-    return [("step",) + tuple(str(c) for c in case) for case in CASES] + [("ops",)]
+    return ([("step",) + tuple(str(c) for c in case) for case in CASES]
+            + [("frames",), ("ops",)])
 
 
 def tp_train_job(rank: int, world: int) -> dict:
@@ -87,6 +97,8 @@ def tp_train_job(rank: int, world: int) -> dict:
             _, arch, mname, sp, accum, dtype = part
             _part(out, ":".join(part[1:]), _step_part, arch, mname, sp, int(accum), dtype,
                   meshes)
+        elif part[0] == "frames":
+            _part(out, "frames", _frames_part, meshes)
         else:
             _part(out, "ops", _ops_part, *meshes["1x2x2"])
     return out
@@ -102,9 +114,37 @@ def _model(cfg, arch):
                      device="cpu")
 
 
-def _step_part(arch, mname, sp, accum, dtype, meshes):
+def _frames_part(meshes):
+    """`_step_part` of Whisper fed `ODD_FRAMES` encoder frames (module
+    notes), with each `ctx.sp_on` verdict of the sharded step's forward:
+    ``(sequence length, on)``."""
+    import dataclasses
+
+    from repro_torch.sharding import ctx
+    cfg = _fp32("whisper_large_v3")
+    cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(cfg.encdec,
+                                                              encoder_seq_len=ODD_FRAMES))
+    seen, sp_on = [], ctx.sp_on
+
+    def recorded(seq_len):
+        on = sp_on(seq_len)
+        if ctx.tp()[0] > 1:
+            seen.append((seq_len, on))
+        return on
+
+    ctx.sp_on = recorded
+    try:
+        out = _step_part("whisper_large_v3", "1x2x2", "sp", 1, "fp32", meshes, cfg=cfg)
+    finally:
+        ctx.sp_on = sp_on
+    out["sp_on"] = seen
+    return out
+
+
+def _step_part(arch, mname, sp, accum, dtype, meshes, cfg=None):
     """One sharded train step and one on one device, from the same weights
-    and batch; see the module's notes."""
+    and batch; see the module's notes. ``cfg``: ``arch``'s reduced fp32
+    config by default."""
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
 
@@ -114,7 +154,7 @@ def _step_part(arch, mname, sp, accum, dtype, meshes):
     from repro_torch.optim import AdamW
     from repro_torch.sharding import batch_specs, ctx, param_specs
     mesh, _ = meshes[mname]
-    cfg = _fp32(arch)
+    cfg = cfg or _fp32(arch)
     plan = plan_of(cfg, mname, sp, {m: p for m, (_, p) in meshes.items()})
     reduce_dtype = None if dtype == "fp32" else dtype
     opt = AdamW(lr=LR, weight_decay=WD)

@@ -130,8 +130,9 @@ def test_layer_slice_and_place_on_one_rank(mesh):
     dw = params["layers"]["mixer"]["wq"]
     assert dw.to_local().data_ptr() == w.data_ptr()           # one rank: a view, no copy
     assert torch.equal(lm.layer_slice(dw, 1), w[1])
-    assert all(torch.equal(a["mixer"]["wq"], b["mixer"]["wq"])
-               for a, b in zip(lm.unstack(params["layers"]), lm.unstack(model.params["layers"])))
+    assert all(torch.equal(lm.layer_params(params["layers"], i)["mixer"]["wq"],
+                           lm.layer_params(model.params["layers"], i)["mixer"]["wq"])
+               for i in range(cfg.num_layers))
 
 
 def test_adamw_on_dtensors_equals_plain_adamw(mesh):

@@ -9,11 +9,11 @@ that beside the rest of the suite on a loaded machine):
   * ONE job of 4 gloo ranks (`_torch_tp_jobs.tp_job`, one thread each,
     killed when no part finishes for `STALL_S` or after `LIMIT_S` in all):
     reduced fp32 Minitron-4B, Qwen1.5-MoE, Mamba2-370m, Jamba, MiniCPM3
-    (MLA) and Qwen2-VL (M-RoPE), each on ``(1, 2, 2)`` under
-    `default_plan()` (a model axis of 2: tensor-parallel) and ``(2, 2, 1)``
-    under `default_plan(multi_pod=True)` (a model axis of 1); Minitron cut
-    to heads that do not divide the axis; the gated norm and the vocab
-    argmax on shards;
+    (MLA), Qwen2-VL (M-RoPE) and Whisper (enc-dec), each on ``(1, 2, 2)``
+    under `default_plan()` (a model axis of 2: tensor-parallel) and
+    ``(2, 2, 1)`` under `default_plan(multi_pod=True)` (a model axis of 1);
+    Minitron and Whisper cut to heads that do not divide the axis; the
+    gated norm and the vocab argmax on shards;
   * the reference's `jit_prefill` / `jit_decode_step` on the same weights
     and prompts, in one child process per mesh (`_torch_tp_ref.py`,
     ``XLA_FLAGS`` for 4 host devices and one intra-op thread);
@@ -150,32 +150,45 @@ GROUPS = {
     "jamba_v0_1_52b": ("attn", "attn_kv", "ssm", "mlp", "experts"),
     "minicpm3_4b": ("mla", "mlp"),
     "qwen2_vl_2b": ("attn", "attn_kv", "mlp"),
+    "whisper_large_v3": ("enc_attn", "enc_attn_kv", "enc_mlp", "self_attn", "self_attn_kv",
+                         "cross_attn", "cross_attn_kv", "dec_mlp"),
 }
 
 
-@pytest.mark.parametrize("arch", TP_ARCHS)
-def test_every_dividing_dim_ran_local(jobs, arch):
-    """On ``(1, 2, 2)`` every group of the config (and the vocab) ran on its
-    model-axis shard, in the prefill and in every decode step, none
-    gathered; on ``(2, 2, 1)``, a model axis of one rank, nothing is
-    counted."""
-    cfg = _fp32(arch)
+def _group_layers(cfg, step: str) -> dict:
+    """How many sub-layers of each group name a ``step`` ("prefill" or
+    "decode") runs: an enc-dec model's encoder runs in the prefill alone."""
+    if cfg.encdec is not None:
+        enc = cfg.encdec.num_encoder_layers if step == "prefill" else 0
+        return {g: enc if g.startswith("enc_") else cfg.num_layers
+                for g in GROUPS["whisper_large_v3"]}
     per_layer = {"ssm": 0, "attn": 0, "mla": 0, "mlp": 0, "moe": 0}
     from repro_torch.models.lm import layer_kinds, n_scan_steps
     for mixer, f in layer_kinds(cfg):
         per_layer[mixer] += n_scan_steps(cfg)
         if f != "none":
             per_layer[f] += n_scan_steps(cfg)
-    want = {"vocab:local": 1}
-    for g in GROUPS[arch]:
-        n = {"attn_kv": per_layer["attn"], "experts": per_layer["moe"],
-             "shared": per_layer["moe"]}.get(g, per_layer.get(g))
-        want[f"{g}:local"] = n
-    want["tp_local"] = sum(want.values())
+    return dict(per_layer, attn_kv=per_layer["attn"], experts=per_layer["moe"],
+                shared=per_layer["moe"])
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_every_dividing_dim_ran_local(jobs, arch):
+    """On ``(1, 2, 2)`` every group of the config (and the vocab) ran on its
+    model-axis shard, in the prefill and in every decode step, none
+    gathered (Whisper: its encoder's attention and MLP in the prefill, its
+    decoder's self-attention, cross-attention and MLP in every step); on
+    ``(2, 2, 1)``, a model axis of one rank, nothing is counted."""
+    cfg = _fp32(arch)
+    want = {}
+    for step in ("prefill", "decode"):
+        n = _group_layers(cfg, step)
+        want[step] = {"vocab:local": 1, **{f"{g}:local": n[g] for g in GROUPS[arch] if n[g]}}
+        want[step]["tp_local"] = sum(want[step].values())
     for out in jobs["ranks"]:
         counts = _ok(out[f"serve:{arch}:1x2x2"])["counts"]
-        assert counts["prefill"] == want
-        assert counts["decode"] == [want] * N_NEW
+        assert counts["prefill"] == want["prefill"]
+        assert counts["decode"] == [want["decode"]] * N_NEW
         assert _ok(out[f"serve:{arch}:2x2x1"])["counts"] == {"prefill": {},
                                                              "decode": [{}] * N_NEW}
 
@@ -192,6 +205,29 @@ def test_heads_that_do_not_divide_run_gathered(jobs):
                 "tp_local": 1 + L, "tp_gathered": 2 * L}
         assert r["counts"]["prefill"] == want
         assert r["counts"]["decode"] == [want] * N_NEW
+        _close(r["logits"], r["one_logits"])
+        assert np.array_equal(r["picks"], r["one_picks"])
+
+
+def test_whisper_heads_that_do_not_divide_run_gathered(jobs):
+    """Whisper cut to 3 heads on the model axis of 2: the encoder's
+    attention and the decoder's self- and cross-attention gather their
+    layers whole and are counted so, the MLPs and the vocab run on their
+    shards; the logits and picks are the one-device port's."""
+    cfg = _fp32("whisper_large_v3")
+    L, L_enc = cfg.num_layers, cfg.encdec.num_encoder_layers
+    dec = {"vocab:local": 1, "dec_mlp:local": L,
+           **{f"{a}:gathered": L for a in ("self_attn", "self_attn_kv", "cross_attn",
+                                           "cross_attn_kv")}}
+    pre = dict(dec, **{"enc_attn:gathered": L_enc, "enc_attn_kv:gathered": L_enc,
+                       "enc_mlp:local": L_enc})
+    for want in (dec, pre):
+        want["tp_local"] = sum(n for k, n in want.items() if k.endswith(":local"))
+        want["tp_gathered"] = sum(n for k, n in want.items() if k.endswith(":gathered"))
+    for out in jobs["ranks"]:
+        r = _ok(out["odd:whisper_large_v3"])
+        assert r["counts"]["prefill"] == pre
+        assert r["counts"]["decode"] == [dec] * N_NEW
         _close(r["logits"], r["one_logits"])
         assert np.array_equal(r["picks"], r["one_picks"])
 

@@ -18,8 +18,10 @@ the reference's children ~50 s each):
     VLM and enc-dec configs), Minitron with it forced off, and three
     configs on ``(2, 2, 1)`` under `default_plan(multi_pod=True)`; one and
     two accumulation steps; one step whose gradients are reduced in bf16;
-    beside each, the one-device port's step on the same weights and batch;
-    and the autograd collectives of `sharding.ctx` one by one;
+    Whisper's step with 33 encoder frames, which the model axis cannot cut
+    (its encoder's residual stream whole, the decoder's cut); beside each,
+    the one-device port's step on the same weights and batch; and the
+    autograd collectives of `sharding.ctx` one by one;
   * the reference's `jit_train_step` on the same cases, in four child
     processes of their own (`_torch_tp_train_ref.py`, ``XLA_FLAGS`` for 4
     host devices and one intra-op thread).
@@ -45,7 +47,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 from _torch_dist_jobs import LR, WD, _fp32, run_job
-from _torch_tp_train_jobs import BF16_SHARE, CASES, TRAIN_ARCHS, bf16_excess, case_name
+from _torch_tp_train_jobs import (BF16_SHARE, CASES, ODD_FRAMES, S, TRAIN_ARCHS, bf16_excess,
+                                  case_name)
 
 from repro_torch import tree as tree_util
 from repro_torch.models import Model
@@ -193,14 +196,20 @@ GROUPS = {
     "jamba_v0_1_52b": ("attn", "attn_kv", "ssm", "mlp", "experts"),
     "minicpm3_4b": ("mla", "mlp"),
     "qwen2_vl_2b": ("attn", "attn_kv", "mlp"),
+    "whisper_large_v3": ("enc_attn", "enc_attn_kv", "enc_mlp", "self_attn", "self_attn_kv",
+                         "cross_attn", "cross_attn_kv", "dec_mlp"),
 }
 
 
 def _want_counts(arch, forwards):
     cfg = _fp32(arch)
     if cfg.encdec is not None:
-        n = forwards * cfg.num_layers
-        return {"encdec:gathered": n, "tp_gathered": n}
+        want = {"vocab:local": forwards}
+        for g in GROUPS[arch]:
+            n = cfg.encdec.num_encoder_layers if g.startswith("enc_") else cfg.num_layers
+            want[f"{g}:local"] = forwards * n
+        want["tp_local"] = sum(want.values())
+        return want
     from repro_torch.models.lm import layer_kinds, n_scan_steps
     per_layer = {"ssm": 0, "attn": 0, "mla": 0, "mlp": 0, "moe": 0}
     for mixer, f in layer_kinds(cfg):
@@ -220,9 +229,9 @@ def _want_counts(arch, forwards):
 def test_every_dividing_dim_ran_local(jobs, case):
     """On ``(1, 2, 2)`` every group of the config and the vocab ran on its
     model-axis shard, once per forward (a recomputed layer is not counted
-    again), none gathered; Whisper's layers ran gathered whole (its tensor
-    parallelism is not ported yet). On ``(2, 2, 1)``, a model axis of one
-    rank, no tensor-parallel code runs and nothing is counted."""
+    again), none gathered (Whisper: each sub-layer of its encoder and
+    decoder). On ``(2, 2, 1)``, a model axis of one rank, no
+    tensor-parallel code runs and nothing is counted."""
     arch, _, _, accum, _ = case.split(":")
     for out in jobs["ranks"]:
         assert _ok(out[case])["counts"] == _want_counts(arch, int(accum))
@@ -242,6 +251,24 @@ def test_sequence_parallel_where_the_plan_sets_it(jobs):
     for arch, on in want.items():
         assert _ok(r[f"{arch}:1x2x2:sp:1:fp32"])["sequence_parallel"] is on, arch
     assert _ok(r["minitron_4b:1x2x2:nosp:1:fp32"])["sequence_parallel"] is False
+
+
+def test_sp_keeps_frames_that_do_not_divide_whole(jobs):
+    """Whisper's SP step with `ODD_FRAMES` encoder frames on the model axis
+    of 2: the encoder's residual stream stays whole (its frames do not
+    divide), the decoder's is cut; every group still runs on its shard, and
+    the loss, metrics, params and moments are the one-device step's."""
+    for out in jobs["ranks"]:
+        r = _ok(out["frames"])
+        assert [tuple(v) for v in r["sp_on"]] == [(ODD_FRAMES, False), (S, True)], r["sp_on"]
+        assert r["counts"] == _want_counts("whisper_large_v3", 1)
+        assert _rel(r["loss"], r["one_loss"])
+        for k, v in r["one_metrics"].items():
+            assert _rel(r["metrics"][k], v, 1e-6), k
+        p = r["params_check"]
+        assert p["bad"] == 0 and p["flips"] <= 1e-3 * p["total"], p
+        assert r["m_check"]["bad"] == 0 and r["v_check"]["bad"] == 0, (r["m_check"],
+                                                                        r["v_check"])
 
 
 TOL = 1e-12

@@ -2,11 +2,11 @@
 """The serving engine laid out across four H100s: params and pool span the
 ranks a plan resolves to.
 
-    torchrun --nproc-per-node 4 tools/engine_ranks.py [--parts builders,seq,qwen,pod,jamba]
+    torchrun --nproc-per-node 4 tools/engine_ranks.py [--parts builders,seq,whisper,qwen,pod,jamba]
     torchrun --nproc-per-node 4 tools/engine_ranks.py --device cpu --reduced
 
 One process per card (``torchrun`` gives each its rank; the group is made
-over ``env://``, a localhost rendezvous). Five parts, each freeing its
+over ``env://``, a localhost rendezvous). Six parts, each freeing its
 models before the next:
 
   builders  the tensor-parallel `jit_prefill` and three greedy
@@ -35,6 +35,24 @@ models before the next:
          each rank's peak against the dry run's prediction for the same
          step and layout (a child process), and the TPOT of each.
 
+  whisper  Whisper-large-v3 tensor-parallel on the (1, 2, 2) mesh under
+         `default_plan()` (its 20 heads, ``d_ff`` and vocab divide the model
+         axis of 2: every group on its shard): `jit_prefill` of `WHISPER_B`
+         prompts of `WHISPER_S` tokens over the 1500 frames, then
+         `WHISPER_NEW` greedy `jit_decode_step`s, against the same steps on
+         rank 0's card: first in fp32 at full width and `WHISPER_LAYERS`
+         encoder and decoder layers, each side fed its own picks (every
+         step's logits within `WHISPER_REL` of its largest, picks equal),
+         then whole in bf16, fed one card's tokens (every step within
+         `chip_smoke.py`'s bf16 `PATH_LOGITS_TOL`, a pick that differs only
+         at a near-tie within the step's difference: random weights leave
+         near-ties among 51,866 logits closer than a bf16 path lies to
+         fp32), with both bf16 sides' distance from the same weights run in
+         fp32 on rank 0; the
+         prefill's flash launches on each rank (one per decoder layer, on
+         the rank's 10 heads), each rank's peak in prefill and in decode
+         against the dry run's prediction for the same step (a child
+         process), and the TPOT of both sides.
   qwen   Qwen1.5-MoE-A2.7B at full width (bf16, random weights from seed 0)
          on the (1, 2, 2) mesh under `default_plan()`: the serve cell of
          `chip_smoke.py` (8 slots, s_max 512, pages of 16, its 8 prompts x 16
@@ -123,6 +141,11 @@ SEQ_B, SEQ_S, SEQ_S_MAX, SEQ_NEW = 4, 62, 128, 4
 QWEN_SEQ_B, QWEN_SEQ_S_MAX, QWEN_SEQ_FILL, QWEN_SEQ_NEW = 8, 16384, 8200, 8
 #: the same in fp32 first, over fewer rows (its cache drawn whole on a card)
 QWEN_SEQ_B_FP32 = 4
+#: the whisper part: prompts, their tokens, the greedy decode steps, the
+#: fp32 case's encoder and decoder layers and how far its logits may be from
+#: one card's, relative to the step's largest logit
+WHISPER_B, WHISPER_S, WHISPER_NEW, WHISPER_LAYERS = 2, 128, 8, 2
+WHISPER_REL = 5e-6
 
 
 def rank() -> int:
@@ -668,8 +691,9 @@ def part_builders(env, mesh_shape):
 
 
 def predict_decode(spec: str) -> dict:
-    """``--predict arch:B:s_max:plan:device``: the dry run of that bf16
-    decode step on a fake (1, 2, 2) world under the decode plan
+    """``--predict arch:B:s_max:plan:device[:kind]``: the dry run of that
+    bf16 decode step (or, with ``kind`` "prefill", the prefill of B prompts
+    of ``s_max`` tokens) on a fake (1, 2, 2) world under the decode plan
     (``plan`` "seq") or `default_plan()` ("whole"): argument and peak GB a
     rank, wire GB per axis, the tensor-parallel counts."""
     import torch
@@ -679,9 +703,10 @@ def predict_decode(spec: str) -> dict:
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import Model
     from repro_torch.sharding import default_plan
-    arch, B, s_max, which, device = spec.split(":")
+    arch, B, s_max, which, device, *kind = spec.split(":")
     cfg = get_config(arch)
-    cell = ShapeCell("d", "decode", int(s_max), int(B))
+    kind = kind[0] if kind else "decode"
+    cell = ShapeCell(kind[0], kind, int(s_max), int(B))
     mesh = mesh_lib.fake_mesh((1, 2, 2), ("pod", "data", "model"), device=device)
     plan = dryrun.plan_for_cell(cfg, cell, False) if which == "seq" else default_plan()
     inputs = dryrun.build_step(Model(cfg, device="meta"), cell, mesh, plan)
@@ -693,11 +718,11 @@ def predict_decode(spec: str) -> dict:
             "tp": rec["tp"]}
 
 
-def _predicted(arch, B, s_max, which) -> dict:
+def _predicted(arch, B, s_max, which, kind="decode") -> dict:
     import subprocess
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--predict",
-                           f"{arch}:{B}:{s_max}:{which}:cpu"], capture_output=True, text=True,
-                          timeout=900)
+                           f"{arch}:{B}:{s_max}:{which}:cpu:{kind}"], capture_output=True,
+                          text=True, timeout=900)
     fail(proc.returncode == 0, f"the dry run's prediction failed:\n{proc.stderr[-3000:]}")
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
@@ -881,6 +906,190 @@ def part_seq(env, mesh_shape):
     return out
 
 
+def _whisper_batch(env, cfg, S):
+    """`WHISPER_B` seeded prompts of ``S`` tokens and their frames."""
+    import torch
+
+    from repro_torch.models.common import dtype_of
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(2, cfg.vocab_size, size=(WHISPER_B, S)).astype(np.int32)
+    frames = rng.standard_normal((WHISPER_B, cfg.encdec.encoder_seq_len, cfg.d_model))
+    return {"tokens": torch.as_tensor(tokens, device=env.device),
+            "frames": torch.as_tensor(frames, dtype=dtype_of(cfg), device=env.device)}
+
+
+def _whisper_run(env, cfg, model, prefill, decode, batch, forced=None):
+    """The prefill and `WHISPER_NEW` greedy decode steps (host clock around
+    each, synced), each step fed its own pick or, with ``forced``, the
+    given token of each step: every step's logits on the host, the tokens
+    fed, the counts and the kernel launches of the prefill, the counts of a
+    decode step, the prefill's seconds, each decode step's ms, and this
+    rank's peak GB in the prefill and in the decode steps."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.common import dtype_of
+    from repro_torch.sharding import ctx
+    V, S = cfg.vocab_size, batch["tokens"].shape[1]
+    s_max = S + WHISPER_NEW + 1
+    env.free()
+    env.reset_peak()
+    ops.reset_launches()
+    ctx.reset_tp_counts()
+    env.sync()
+    t0 = time.perf_counter()
+    logits, pre = prefill(batch)
+    env.sync()
+    out = {"prefill_s": time.perf_counter() - t0, "launches": dict(ops.LAUNCHES),
+           "prefill_counts": ctx.tp_counts(), "prefill_peak_gb": env.peak()}
+    full = model.init_cache(WHISPER_B, s_max, dtype=dtype_of(cfg))
+    for k, v in pre.items():
+        full[k][:, :, :v.shape[2]] = ctx.full(v)
+    del pre
+    steps, ms, fed = [ctx.full(logits).float().cpu()], [], []
+    env.reset_peak()
+    for i in range(WHISPER_NEW):
+        fed.append(steps[-1][:, :V].argmax(-1) if forced is None else forced[i])
+        t = fed[-1].to(torch.int32).to(env.device)
+        ctx.reset_tp_counts()
+        env.sync()
+        t0 = time.perf_counter()
+        logits, full = decode(t[:, None], full, torch.tensor(S + i, device=env.device))
+        env.sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        steps.append(ctx.full(logits).float().cpu())
+    out.update(steps=steps, fed=fed, decode_ms=ms, decode_counts=ctx.tp_counts(),
+               decode_peak_gb=env.peak())
+    return out
+
+
+def _near_ties(got, want, V):
+    """Where ``got``'s greedy pick differs from ``want``'s: ``(step, row,
+    want's top-2 gap, the step's max |diff|)``, and whether each is a
+    near-tie (the gap within the step's difference)."""
+    import torch
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        diff = float((a - b).abs().max())
+        for r in (a[:, :V].argmax(-1) != b[:, :V].argmax(-1)).nonzero().flatten().tolist():
+            top = torch.topk(b[r, :V], 2).values
+            out.append((i, r, float(top[0] - top[1]), diff))
+    return out, all(gap <= diff for _, _, gap, diff in out)
+
+
+def part_whisper(env, mesh_shape):
+    """Whisper-large-v3 tensor-parallel against rank 0's card (module
+    doc)."""
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.steps import jit_decode_step, jit_prefill
+    from repro_torch.models import Model
+    from repro_torch.sharding import default_plan, rank_mesh
+    tag = "[engine ranks whisper]"
+    mesh = rank_mesh(mesh_shape, device=env.device.type)
+    plan = default_plan()
+    out = {}
+    S = 8 if env.reduced else WHISPER_S       # the reduced config's positions: 128
+    s_max = S + WHISPER_NEW + 1
+    for dtype, layers in (("float32", WHISPER_LAYERS), (env.dtype, None)):
+        cfg = env.cfg("whisper_large_v3", layers)
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, activ_dtype=dtype)
+        if layers:
+            cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+                cfg.encdec, num_encoder_layers=layers))
+        name = f"{cfg.encdec.num_encoder_layers}+{cfg.num_layers} layers {dtype}"
+        pred = None
+        if rank() == 0 and not env.reduced and dtype == "bfloat16":
+            pred = {kind: _predicted("whisper_large_v3", WHISPER_B,
+                                     S if kind == "prefill" else s_max, "whole", kind)
+                    for kind in ("prefill", "decode")}
+            say(f"{tag} the dry run's prediction for the same steps: {pred}  [{env.card}]")
+        batch = _whisper_batch(env, cfg, S)
+        one = true = None
+        whole = layers is None
+        if rank() == 0:
+            model = Model(cfg, device=env.device, seed=0)
+            with torch.no_grad():
+                one = _whisper_run(env, cfg, model, model.prefill, model.decode_step, batch)
+                if whole:       # the same weights in fp32, fed the same tokens
+                    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                                activ_dtype="float32")
+                    m32 = Model(cfg32, tree_util.map_tree(lambda _, x: x.float(), model.params),
+                                device=env.device)
+                    true = _whisper_run(env, cfg32, m32, m32.prefill, m32.decode_step,
+                                        _whisper_batch(env, cfg32, S), one["fed"])
+                    del m32
+            del model
+            env.free()
+        # whole: fed one card's tokens, so that a pick that parts at a
+        # near-tie leaves the later steps comparable
+        forced = bcast(one["fed"] if rank() == 0 else None) if whole else None
+        model = sharded_model(env, cfg, mesh, plan)
+        pre = jit_prefill(model, mesh, plan, ShapeCell("p", "prefill", S, WHISPER_B))
+        dec = jit_decode_step(model, mesh, plan, ShapeCell("d", "decode", s_max, WHISPER_B))
+        got = _whisper_run(env, cfg, model, lambda b: pre(model.params, b),
+                           lambda t, c, p: dec(model.params, t, c, p), batch, forced)
+        peaks = gather((got["prefill_peak_gb"], got["decode_peak_gb"]))
+        launches = gather(got["launches"])
+        row, ok = None, True
+        if rank() == 0:
+            V = cfg.vocab_size
+            diffs = [float((a - b).abs().max()) for a, b in zip(got["steps"], one["steps"])]
+            rel = max(d / float(b.abs().max()) for d, b in zip(diffs, one["steps"]))
+            ties, only_ties = _near_ties(got["steps"], one["steps"], V)
+            picks = not ties
+            if whole:       # bf16 on the card: the path tolerance, picks up to near-ties
+                held = only_ties and all(cs.within(a, b, cs.PATH_LOGITS_TOL[dtype])[0]
+                                         for a, b in zip(got["steps"], one["steps"]))
+            else:           # fp32 at a few layers, each side fed its own picks
+                held = picks and rel <= WHISPER_REL
+            to_true = true and {
+                "one_card": max(float((a - b).abs().max())
+                                for a, b in zip(one["steps"], true["steps"])),
+                "sharded": max(float((a - b).abs().max())
+                               for a, b in zip(got["steps"], true["steps"]))}
+            counts = (got["prefill_counts"], got["decode_counts"])
+            local = all(c.get("tp_local", 0) > 0 and not c.get("tp_gathered") for c in counts)
+            want = {"flash_attention": cfg.num_layers, "moe_topk": 0, "ssd_scan": 0}
+            launched = not env.cuda or all(n == want for n in launches)
+            ok = held and (local or mesh.shape["model"] == 1) and launched
+            tpot = sorted(got["decode_ms"])[WHISPER_NEW // 2]
+            one_tpot = sorted(one["decode_ms"])[WHISPER_NEW // 2]
+            row = {"max_diff": max(diffs), "rel": rel, "picks_equal": picks,
+                   "picks_parted": ties, "max_diff_to_fp32": to_true,
+                   "prefill_counts": counts[0], "decode_counts": counts[1],
+                   "launches_by_rank": launches, "prefill_s": got["prefill_s"],
+                   "one_prefill_s": one["prefill_s"], "decode_ms": got["decode_ms"],
+                   "one_decode_ms": one["decode_ms"], "tpot_ms_median": tpot,
+                   "one_tpot_ms_median": one_tpot,
+                   "peak_gb_by_rank": {"prefill": [p[0] for p in peaks],
+                                       "decode": [p[1] for p in peaks]},
+                   "one_peak_gb": {"prefill": one["prefill_peak_gb"],
+                                   "decode": one["decode_peak_gb"]},
+                   "predicted": pred}
+            say(f"{tag} {cfg.name} {name} {tuple(mesh.shape.values())}: prefill of "
+                f"{WHISPER_B} x {S} over {cfg.encdec.encoder_seq_len} frames and "
+                f"{WHISPER_NEW} decode steps, logits max|diff| {max(diffs):.4g} ({rel:.3e} of "
+                f"the largest; limit {'PATH_LOGITS_TOL' if whole else WHISPER_REL}), "
+                f"{'fed one card tokens, ' if whole else ''}picks equal {picks} (parted "
+                f"(step, row, one card's top-2 gap, the step's max|diff|): {ties}); against the "
+                f"same weights in fp32: {to_true}; prefill counts {counts[0]}; a decode step's "
+                f"{counts[1]}; launches a prefill by rank {launches} (want {want}); prefill "
+                f"{got['prefill_s']:.3f} s (one card {one['prefill_s']:.3f} s), TPOT median "
+                f"{tpot:.2f} ms (one card {one_tpot:.2f} ms); peak GB by rank prefill "
+                f"{[round(p[0], 2) for p in peaks]} decode {[round(p[1], 2) for p in peaks]} "
+                f"(one card {one['prefill_peak_gb']:.2f} / {one['decode_peak_gb']:.2f}); the dry "
+                f"run's {pred and {k: round(v['peak_gb'], 2) for k, v in pred.items()}}  "
+                f"{'ok' if ok else 'FAIL'}  [{env.card}]")
+        fail(bcast(ok), f"{tag} {name}: the sharded steps leave one card's")
+        out["fp32 cut" if layers else "whole"] = row
+        del model, pre, dec, got
+        env.free()
+    return out
+
+
 def part_jamba(env, mesh_shape, whole: bool):
     from repro_torch.serving import ServingEngine
     from repro_torch.sharding import default_plan, rank_mesh
@@ -917,7 +1126,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reduced", action="store_true", help="the reduced fp32 configs")
-    ap.add_argument("--parts", default="builders,seq,qwen,pod,jamba")
+    ap.add_argument("--parts", default="builders,seq,whisper,qwen,pod,jamba")
     ap.add_argument("--predict", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.predict:
@@ -958,6 +1167,8 @@ def main(argv=None) -> int:
         out["builders"] = part_builders(env, qwen_mesh)
     if "seq" in parts:
         out["seq"] = part_seq(env, qwen_mesh)
+    if "whisper" in parts:
+        out["whisper"] = part_whisper(env, qwen_mesh)
     if "qwen" in parts or "pod" in parts:
         out["qwen"], oracle = part_qwen(env, qwen_mesh)
     if "pod" in parts:

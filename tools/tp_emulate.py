@@ -2,7 +2,7 @@
 """Tensor parallelism emulated on ONE card: two threads, each one rank of a
 model axis of 2, against the same config run whole.
 
-    python3 tools/tp_emulate.py [--device cpu] [--train | --decode]
+    python3 tools/tp_emulate.py [--device cpu] [--train | --decode | --whisper]
 
 Each thread holds its rank's cut of the seeded weights as plain tensors
 (the model-axis dim of every group `lm.tp_groups` runs local, and the
@@ -27,9 +27,17 @@ sums round otherwise, and a near-tie then picks another expert. The cases:
 Qwen1.5-MoE whole in bf16 and at 12 layers in fp32, Jamba-v0.1 at 8
 layers in bf16 (full width; the reduced configs with ``--device cpu``).
 
+``--whisper`` serves Whisper-large-v3 instead (`whisper_case`): fp32 at
+full width, 2 encoder and 2 decoder layers, the prefill (the decoder's
+causal self-attention through the flash kernel on each thread's 10 heads)
+and 8 greedy decode steps against the whole model: each step's logits
+within `DEC_REL` of its largest, picks equal, every group on its shard.
+``chip_smoke.py`` runs the same check.
+
 ``--train`` runs one train step's loss and gradients instead (`train_case`,
 sequence-parallel as the dry run's plan sets it for a train cell), fp32
-Minitron-4B and Qwen1.5-MoE at full width and 2 layers, against the whole
+Minitron-4B, Qwen1.5-MoE and Whisper-large-v3 (2 encoder layers too, over
+its 1500 frames) at full width and 2 layers, against the whole
 model's `make_train_step`: the loss, each first AdamW moment (the clipped
 gradient times 1 - beta1, the clip scale from the global norm over both
 threads' shards), and the replicated leaves' gradients equal on both
@@ -71,7 +79,7 @@ CASES = (("qwen2_moe_a2_7b", None, "bfloat16"), ("qwen2_moe_a2_7b", 12, "float32
          ("jamba_v0_1_52b", 8, "bfloat16"))
 #: the train cases: fp32 at full width, 2 layers, B x S tokens (a whole MoE
 #: dispatch group of 1024 a row), the loss in chunks of 256, the card's LR
-TRAIN_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b")
+TRAIN_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "whisper_large_v3")
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_LOSS_CHUNK, TRAIN_LR = 2, 2, 1024, 256, 1e-4
 N = 2                   # ranks of the emulated model axis
 B, S, NEW = 4, 64, 3
@@ -82,6 +90,11 @@ B, S, NEW = 4, 64, 3
 DEC_CASES = (("qwen2_moe_a2_7b", 4, True), ("minitron_4b", 2, False))
 DEC_B, DEC_S, DEC_S_MAX, DEC_NEW = 4, 60, 128, 8
 DEC_REL = 1e-5
+#: Whisper-large-v3 served tensor-parallel (`whisper_case`): fp32 at full
+#: width, WHISPER_LAYERS encoder and as many decoder layers, WHISPER_B
+#: prompts of WHISPER_S tokens over the config's 1500 frames, WHISPER_NEW
+#: greedy decode steps (the reduced config on the CPU: prompts of 8)
+WHISPER_LAYERS, WHISPER_B, WHISPER_S, WHISPER_NEW = 2, 2, 128, 8
 
 _TL = threading.local()
 _BAR = threading.Barrier(N)
@@ -176,20 +189,34 @@ def _run_ranks(fn) -> list:
     return res
 
 
+def _local_leaves(cfg) -> frozenset:
+    """Every leaf path of the parameter tree (``layers/mixer/wq``,
+    ``dec_layers/cross_attn/wk``, ``embed`` ...) that the step keeps as
+    this rank's shard: the local groups' leaves of each layer stack, and the
+    embedding and LM head where the vocab runs local. Inside the step's
+    context."""
+    from repro_torch.models import lm
+    groups = lm.tp_groups(cfg)
+    if cfg.encdec is not None:
+        stacks = {s: lm.encdec_local_paths(s, groups) for s in lm.ENCDEC_SUBLAYERS}
+    else:
+        stacks = {"layers": lm._local_paths(cfg, groups)}
+    out = {f"{s}/{p}" for s, paths in stacks.items() for p in paths}
+    return frozenset(out | ({"embed", "lm_head"} if groups["vocab"] else set()))
+
+
 def cut_params(cfg, params, plan, r):
     """Emulated rank ``r``'s tree: the leaves of the groups that run local
     (and the vocab) cut to its shard of their model-axis dim, as plain
-    tensors; every other leaf as it is. Inside the step's context."""
+    tensors (`_local_leaves`); every other leaf as it is. Inside the step's
+    context."""
     from repro_torch import tree as tree_util
-    from repro_torch.models import lm
     from repro_torch.sharding.plan import param_specs
-    groups = lm.tp_groups(cfg)
-    local = lm._local_paths(cfg, groups)
+    local = _local_leaves(cfg)
     specs = dict(tree_util.items(param_specs(cfg, plan)))
     leaves, cut = [], set()
     for name, x in tree_util.items(params):
-        sub = name[len("layers/"):] if name.startswith("layers/") else None
-        if sub in local or (name in ("embed", "lm_head") and groups["vocab"]):
+        if name in local:
             spec = specs[name]
             d = next(i for i in range(len(spec)) if "model" in spec.axes(i))
             w = x.shape[d] // N
@@ -199,20 +226,39 @@ def cut_params(cfg, params, plan, r):
     return tree_util.like(params, leaves), cut
 
 
+def _fp32_layers(arch, reduced: bool, layers: int):
+    """``arch`` (the reduced config on the CPU) in fp32 at ``layers``
+    layers, an enc-dec model's encoder too."""
+    from repro_torch.configs import get_config, get_reduced_config
+    cfg = get_reduced_config(arch) if reduced else get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers, param_dtype="float32",
+                              activ_dtype="float32")
+    if cfg.encdec is not None:
+        cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+            cfg.encdec, num_encoder_layers=layers))
+    return cfg
+
+
+def _frames(cfg, rng, rows, dev):
+    """Seeded stub frame embeddings of an enc-dec model, fp32."""
+    import torch
+    return torch.as_tensor(rng.standard_normal(
+        (rows, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32), device=dev)
+
+
 def train_config(arch, dev, reduced: bool):
     """``arch`` in fp32 at `TRAIN_LAYERS` (the reduced config on the CPU)
     and a seeded batch of `TRAIN_B` rows of `TRAIN_S` + 1 tokens (16 on
-    the CPU) made on ``dev``."""
+    the CPU) made on ``dev``, an enc-dec model's frames with it."""
     import torch
-
-    from repro_torch.configs import get_config, get_reduced_config
-    cfg = get_reduced_config(arch) if reduced else get_config(arch)
-    cfg = dataclasses.replace(cfg, num_layers=TRAIN_LAYERS, param_dtype="float32",
-                              activ_dtype="float32")
+    cfg = _fp32_layers(arch, reduced, TRAIN_LAYERS)
     S = 16 if reduced else TRAIN_S
     rng = np.random.default_rng(5)
     tokens = rng.integers(2, cfg.vocab_size, size=(TRAIN_B, S + 1)).astype(np.int32)
-    return cfg, {"tokens": torch.as_tensor(tokens, device=dev)}
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    if cfg.encdec is not None:
+        batch["frames"] = _frames(cfg, rng, TRAIN_B, dev)
+    return cfg, batch
 
 
 def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
@@ -413,6 +459,80 @@ def run_case(dev, reduced, routing, arch, layers, dtype, card):
     del model
 
 
+def whisper_case(dev, reduced, card, tag="[tp emulate whisper]") -> dict:
+    """Whisper-large-v3 served on two emulated ranks of a model axis of 2
+    under `default_plan()` (every group on its shard: 20 heads, ``d_ff``
+    and the vocab divide 2) against the whole model: a prefill of
+    `WHISPER_B` prompts over the frames, then `WHISPER_NEW` greedy decode
+    steps, each side fed its own picks. Returns per step the max |diff|,
+    the step's largest logit and whether the picks are equal; whether both
+    threads' logits agree; the threads' counts; the kernel launches of the
+    two threads, counted from 0 (each thread's prefill launches flash once
+    per decoder layer)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.plan import Mesh, default_plan
+    cfg = _fp32_layers("whisper_large_v3", reduced, WHISPER_LAYERS)
+    model = Model(cfg, device=dev, seed=0)
+    plan = default_plan()
+    devs = np.empty((1, 1, N), dtype=object)
+    devs[...] = dev
+    mesh = Mesh(devs)
+    rng = np.random.default_rng(3)
+    S = 8 if reduced else WHISPER_S
+    batch = {"tokens": torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(WHISPER_B, S)),
+                                       device=dev),
+             "frames": _frames(cfg, rng, WHISPER_B, dev)}
+    V, s_max = cfg.vocab_size, S + WHISPER_NEW + 1
+
+    def serve(params):
+        logits, pre = model.prefill(batch, params=params)
+        cache = model.init_cache(WHISPER_B, s_max, dtype=torch.float32)
+        for k, v in pre.items():
+            cache[k][:, :, :v.shape[2]] = v
+        steps = [ctx.tp_gather(logits, 1).float().cpu()]
+        for i in range(WHISPER_NEW):
+            t = steps[-1][:, :V].argmax(-1).to(torch.int32).to(dev)
+            logits, cache = model.decode_step(t[:, None], cache, torch.tensor(S + i, device=dev),
+                                              params=params)
+            steps.append(ctx.tp_gather(logits, 1).float().cpu())
+        return steps
+
+    with torch.no_grad():
+        whole = serve(model.params)
+
+    def rank(r):
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True):
+            params, _ = cut_params(cfg, model.params, plan, r)
+            ctx.reset_tp_counts()
+            return serve(params), ctx.tp_counts()
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with installed(ctx):
+        res = _run_ranks(rank)
+    secs = time.perf_counter() - t0
+    got, counts = res[0]
+    out = {"steps": [], "counts": counts, "seconds": secs, "launches": dict(ops.LAUNCHES),
+           "ranks_agree": all(torch.equal(a, b) for a, b in zip(got, res[1][0]))}
+    name = (f"{tag} {cfg.name} {cfg.encdec.num_encoder_layers}+{cfg.num_layers} layers fp32, "
+            f"B={WHISPER_B} prompts of {S} over {cfg.encdec.encoder_seq_len} frames")
+    for i, (a, b) in enumerate(zip(got, whole)):
+        row = {"max_diff": float((a - b).abs().max()), "largest": float(b.abs().max()),
+               "picks_equal": bool(torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1)))}
+        out["steps"].append(row)
+        print(f"{name} {'prefill' if i == 0 else f'decode {i}'}: max|diff| "
+              f"{row['max_diff']:.4g} of {row['largest']:.4g} against the whole model, picks "
+              f"equal {row['picks_equal']}  [{card}]", flush=True)
+    print(f"{name}: threads agree {out['ranks_agree']}; launches on the two threads "
+          f"{out['launches']}; {counts}; {secs:.2f} s two threads  [{card}]", flush=True)
+    del model
+    return out
+
+
 def decode_case(dev, arch, layers, heads_local, reduced, card, *,
                 cache_dtype=None, tag="[tp emulate decode]") -> dict:
     """The decode step over a sequence-sharded cache on two emulated ranks
@@ -521,6 +641,8 @@ def main(argv=None) -> None:
     ap.add_argument("--train", action="store_true", help="a train step instead of serving")
     ap.add_argument("--decode", action="store_true",
                     help="decode over a sequence-sharded cache instead of serving")
+    ap.add_argument("--whisper", action="store_true",
+                    help="Whisper-large-v3's prefill and decode instead of serving")
     args = ap.parse_args(argv)
     import torch
 
@@ -536,6 +658,9 @@ def main(argv=None) -> None:
                                "--format=csv,noheader", "-i", "0"], capture_output=True,
                               text=True, check=True).stdout.strip()
     dev = torch.device(args.device)
+    if args.whisper:
+        whisper_case(dev, reduced, card)
+        return
     if args.decode:
         for cache_dtype in (torch.float32, torch.float8_e4m3fn):
             for arch, layers, heads_local in DEC_CASES:

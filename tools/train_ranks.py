@@ -3,15 +3,15 @@
 the FSDP axis as the step reaches it, tensor-parallel on the model axis,
 the residual stream sequence-parallel where the plan says so.
 
-    torchrun --nproc-per-node 4 tools/train_ranks.py [--parts builders,qwen,minitron]
+    torchrun --nproc-per-node 4 tools/train_ranks.py [--parts builders,qwen,minitron,whisper]
     torchrun --nproc-per-node 4 tools/train_ranks.py --device cpu --reduced
 
 One process per card (``torchrun`` gives each its rank; the group is made
 over ``env://``, a localhost rendezvous), on the (1, 2, 2) mesh under
 `default_plan()` with ``sequence_parallel`` as the dry run's `plan_for_cell`
-sets it for a train cell (on for the dense and MoE configs, off for the SSM
-one). Seeded weights are made straight into their shards. Three parts,
-each freeing its models before the next:
+sets it for a train cell (on for the dense, MoE and enc-dec configs, off
+for the SSM one). Seeded weights are made straight into their shards. Four
+parts, each freeing its models before the next:
 
   builders  one `jit_train_step` at full width in fp32, cut to a few layers
          (Minitron-4B 2, Qwen1.5-MoE 4, Mamba2-370m 4, MiniCPM3-4B 2; B=2 x
@@ -32,6 +32,14 @@ each freeing its models before the next:
          1e-4, loss chunk 256), the train phase's B=2 x S=1024 of
          `chip_smoke.py`, `MINITRON_STEPS` steps: ms a step and each rank's
          peak, against one card's (PERF.md).
+  whisper  first the builders' check of Whisper-large-v3 at 2 encoder and 2
+         decoder layers (B=2 x 448 tokens over 1500 frames); then Whisper
+         whole (32 + 32 layers, bf16 params, fp32 moments), the train
+         phase's B=2 x 448 tokens over 1500 frames of `chip_smoke.py`,
+         `WHISPER_STEPS` steps, every group on its shard
+         (20 heads, ``d_ff`` and the vocab divide the model axis of 2): every
+         loss (finite), ms a step, each rank's peak against the dry run's
+         predicted peak for the same layout (a child process).
 
 Any failed check ends the run non-zero (``torchrun`` then stops every
 rank). Rank 0 prints the results and writes ``train_ranks.json`` beside
@@ -62,10 +70,13 @@ CARD_BYTES = 80e9
 LR = 1e-4
 BUILDER_CASES = (("minitron_4b", 2), ("qwen2_moe_a2_7b", 4), ("mamba2_370m", 4),
                  ("minicpm3_4b", 2))
+#: the whisper part's builders case: 2 encoder and 2 decoder layers
+WHISPER_BUILDER = (("whisper_large_v3", 2),)
 BUILDER_LOSS_REL = 1e-5
 BUILDER_M_SHARE = 1e-3
 QWEN_STEPS, QWEN_B = 5, 4
 MINITRON_STEPS, MINITRON_B, MINITRON_CHUNK = 5, 2, 256
+WHISPER_STEPS = 5
 SEQ = 1024
 
 
@@ -115,12 +126,37 @@ class Env:
         self.seq = 16 if args.reduced else SEQ
 
     def cfg(self, arch, layers=None, dtype=None):
+        """``arch``'s config (reduced in fp32 with ``--reduced``) at
+        ``layers`` layers (an enc-dec model's encoder too)."""
         from repro_torch.configs import get_config, get_reduced_config
         cfg = get_reduced_config(arch) if self.reduced else get_config(arch)
         if self.reduced or dtype:
             dt = "float32" if self.reduced else dtype
             cfg = dataclasses.replace(cfg, param_dtype=dt, activ_dtype=dt)
+        if layers and cfg.encdec is not None:
+            cfg = dataclasses.replace(cfg, encdec=dataclasses.replace(
+                cfg.encdec, num_encoder_layers=layers))
         return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+    def seq_of(self, cfg) -> int:
+        """The train cell's tokens a row: the train phase's 448 for an
+        enc-dec model (16 on the reduced configs), `SEQ` otherwise."""
+        if cfg.encdec is not None:
+            return 16 if self.reduced else cs.WHISPER_TRAIN_SEQ
+        return self.seq
+
+    def batch(self, cfg, B, step, placements=None):
+        """Batch ``step`` of the seeded stream at B x `seq_of`: its rows
+        under ``placements`` (`SyntheticLM.sharded_batch_at`) or whole; an
+        enc-dec model's with its frames (`data.make_batch`), whole (the
+        sharded step places it)."""
+        from repro_torch.configs import ShapeCell
+        from repro_torch.data import SyntheticLM, make_batch
+        if cfg.encdec is not None:
+            return make_batch(cfg, ShapeCell("train", "train", self.seq_of(cfg), B), step=step,
+                              device=self.device)
+        ds = SyntheticLM(cfg.vocab_size, self.seq, B, seed=0, device=self.device)
+        return ds.batch_at(step) if placements is None else ds.sharded_batch_at(step, placements)
 
     def sync(self):
         import torch
@@ -148,14 +184,14 @@ class Env:
 def setup(env, cfg, B, mesh, **model_kw):
     """``cfg``'s seeded weights made into their shards, its AdamW state, the
     sharded train step and the batches' placements, under the plan
-    `plan_for_cell` gives a train cell of B x `env.seq`."""
+    `plan_for_cell` gives a train cell of B x `env.seq_of`."""
     from repro_torch.configs import ShapeCell
     from repro_torch.launch.dryrun import plan_for_cell
     from repro_torch.launch.steps import jit_train_step, named
     from repro_torch.models import Model
     from repro_torch.optim import AdamW
     from repro_torch.sharding import batch_specs, default_plan, plan_to_shardings
-    cell = ShapeCell("train", "train", env.seq, B)
+    cell = ShapeCell("train", "train", env.seq_of(cfg), B)
     plan = default_plan().with_(
         sequence_parallel=plan_for_cell(cfg, cell, False).sequence_parallel)
     t0 = time.perf_counter()
@@ -171,12 +207,12 @@ def setup(env, cfg, B, mesh, **model_kw):
     return model, opt, state, step, named(mesh, batch_specs(cfg, plan, cell)), plan
 
 
-def part_builders(env, mesh):
-    """The sharded step against rank 0's card (module doc)."""
+def part_builders(env, mesh, cases=BUILDER_CASES):
+    """The sharded step of each of ``cases`` against rank 0's card (module
+    doc)."""
     import torch
 
     from repro_torch import tree as tree_util
-    from repro_torch.data import SyntheticLM
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import Model
     from repro_torch.optim import AdamW
@@ -184,15 +220,15 @@ def part_builders(env, mesh):
     tag = "[train ranks builders]"
     B = 2
     out = {}
-    for arch, layers in BUILDER_CASES:
+    for arch, layers in cases:
         cfg = env.cfg(arch, layers, "float32")
-        ds = SyntheticLM(cfg.vocab_size, env.seq, B, seed=0, device=env.device)
         one_loss, one_m = None, None
         if rank() == 0:
             model = Model(cfg, device=env.device, seed=0)
             opt = AdamW(lr=LR)
             state = opt.init(model.params)
-            _, state, loss, _ = make_train_step(model, opt)(model.params, state, ds.batch_at(0))
+            _, state, loss, _ = make_train_step(model, opt)(model.params, state,
+                                                            env.batch(cfg, B, 0))
             one_loss, one_m = float(loss), state["m"]
             del model, state
             env.free()
@@ -200,7 +236,7 @@ def part_builders(env, mesh):
         ctx.reset_tp_counts()
         env.sync()
         t0 = time.perf_counter()
-        _, state, loss, _ = step(model.params, state, ds.sharded_batch_at(0, bsh))
+        _, state, loss, _ = step(model.params, state, env.batch(cfg, B, 0, bsh))
         env.sync()
         secs = time.perf_counter() - t0
         counts = ctx.tp_counts()
@@ -226,7 +262,8 @@ def part_builders(env, mesh):
                          "loss_rel": rel, "m_outside": bad, "m_total": total,
                          "m_worst_share": worst, "counts": counts, "seconds": secs,
                          "sequence_parallel": plan.sequence_parallel}
-            say(f"{tag} {cfg.name} {cfg.num_layers} layers fp32 {MESH} B={B} x S={env.seq}: "
+            say(f"{tag} {cfg.name} {cfg.num_layers} layers fp32 {MESH} B={B} x "
+                f"S={env.seq_of(cfg)}: "
                 f"loss {loss:.6f} against one card's {one_loss:.6f} (rel {rel:.2e}, limit "
                 f"{BUILDER_LOSS_REL}); m outside atol 1e-7 + rtol 1e-4 at {bad} of {total} "
                 f"(limit {BUILDER_M_SHARE:g} of them), largest |diff| {worst:.3e} of a leaf's "
@@ -275,18 +312,16 @@ def predict(spec: str) -> dict:
 
 
 def run_steps(env, tag, cfg, B, n, mesh, **model_kw):
-    """``n`` steps of ``cfg`` (B x `env.seq`, batches 0 .. n - 1 of the
+    """``n`` steps of ``cfg`` (B x `env.seq_of`, batches 0 .. n - 1 of the
     seeded stream): each loss, ms a step (host clock around the step,
     ending in the loss's read), each rank's peak."""
-    from repro_torch.data import SyntheticLM
     from repro_torch.sharding import ctx
     env.reset_peak()
     model, opt, state, step, bsh, plan = setup(env, cfg, B, mesh, **model_kw)
-    ds = SyntheticLM(cfg.vocab_size, env.seq, B, seed=0, device=env.device)
     params = model.params
     losses, ms = [], []
     for i in range(n):
-        batch = ds.sharded_batch_at(i, bsh)
+        batch = env.batch(cfg, B, i, bsh)
         env.sync()
         ctx.reset_tp_counts()
         t0 = time.perf_counter()
@@ -297,7 +332,7 @@ def run_steps(env, tag, cfg, B, n, mesh, **model_kw):
     counts = ctx.tp_counts()
     peaks = gather(env.peak())
     warm = sorted(ms[1:])
-    res = {"layers": cfg.num_layers, "B": B, "S": env.seq, "losses": losses, "ms": ms,
+    res = {"layers": cfg.num_layers, "B": B, "S": env.seq_of(cfg), "losses": losses, "ms": ms,
            "ms_median_warm": warm[len(warm) // 2] if warm else None,
            "peak_gb_by_rank": peaks, "counts": counts,
            "sequence_parallel": plan.sequence_parallel}
@@ -307,7 +342,7 @@ def run_steps(env, tag, cfg, B, n, mesh, **model_kw):
     if env.cuda:
         fail(max(peaks) * 1e9 < CARD_BYTES, f"{tag} a rank's peak is over 80 GB: {peaks}")
     say(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.param_dtype} {MESH} B={B} x "
-        f"S={env.seq}, {n} steps: losses {[round(x, 4) for x in losses]}; ms a step "
+        f"S={env.seq_of(cfg)}, {n} steps: losses {[round(x, 4) for x in losses]}; ms a step "
         f"{[round(x, 1) for x in ms]} (median of the warm steps {res['ms_median_warm']:.1f}); "
         f"peak GB by rank {[round(p, 2) for p in peaks]}; {counts}  [{env.card}]")
     del model, state, step, params
@@ -331,11 +366,24 @@ def part_minitron(env, mesh):
                      MINITRON_STEPS, mesh, loss_chunk=MINITRON_CHUNK)
 
 
+def part_whisper(env, mesh):
+    out = {"builders": part_builders(env, mesh, WHISPER_BUILDER)}
+    tag = "[train ranks whisper]"
+    cfg = env.cfg("whisper_large_v3")
+    pred = None
+    if rank() == 0 and not env.reduced:
+        pred = predicted_peak("whisper_large_v3", cs.WHISPER_TRAIN_BATCH, env.seq_of(cfg), "cpu")
+        say(f"{tag} the dry run's prediction for the same layout: {pred}  [{env.card}]")
+    out["whole"] = run_steps(env, tag, cfg, cs.WHISPER_TRAIN_BATCH, WHISPER_STEPS, mesh)
+    out["whole"]["predicted"] = pred
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--reduced", action="store_true", help="the reduced fp32 configs")
-    ap.add_argument("--parts", default="builders,qwen,minitron")
+    ap.add_argument("--parts", default="builders,qwen,minitron,whisper")
     ap.add_argument("--predict", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.predict:
@@ -370,7 +418,7 @@ def main(argv=None) -> int:
     parts = args.parts.split(",")
     out = {"world": world, "card": args.card}
     for name, fn in (("builders", part_builders), ("qwen", part_qwen),
-                     ("minitron", part_minitron)):
+                     ("minitron", part_minitron), ("whisper", part_whisper)):
         if name in parts:
             out[name] = fn(env, mesh)
     out["seconds"] = time.perf_counter() - t_start
