@@ -16,7 +16,14 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              the same function where there is one (the yardstick; the port
              never calls it); each kernel's eager time per call through its
              custom op and through its launch alone; and the launch floor, an
-             empty kernel timed the same way.
+             empty kernel timed the same way. Flash and the scan on a
+             tensor-parallel rank's heads over a model axis of 2 equal the
+             whole call's slice bit for bit, and flash on a rank's padded
+             head slots over a model axis of 16 (Minitron-4B's 24 over 8
+             heads at S=384, Whisper's 20 over 20 of 64 at S=128; each slot
+             reading its K/V head by index, a padding slot's q zero) equals
+             the whole call's slice on the real slots and feeds exactly 0
+             into the output through its zero out-projection rows.
 4. serve   — ``ServingEngine`` serving full-width Qwen1.5-MoE-A2.7B (bf16,
              random weights from seed 0) on the paged pool: 8 requests, 16 new
              tokens each. The launch counters are zeroed just before the first
@@ -178,7 +185,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              greedy steps across the halves against the whole model's
              decode (logits within 1e-5 of the step's largest, picks
              equal), then the cache in fp8 against the whole model's fp8
-             decode on the CPU (within `PATH_LOGITS_TOL`).
+             decode on the CPU (within `PATH_LOGITS_TOL`); then attention
+             heads that do not divide a model axis of 16, emulated by 16
+             threads (`tp_emulate.py`'s `padded_case` and `train_case`):
+             fp32 Minitron-4B (24 heads: 2 slots a thread) and MiniCPM3-4B
+             (40 MLA heads: 3 slots a thread) at full width and 2 layers, a
+             prefill (flash on each thread's slots) and 8 greedy decode
+             steps against the whole model (logits within 1e-5 of the
+             step's largest, picks equal), and Minitron's train step (B=2
+             x S=1024, sequence-parallel) against the whole step; every
+             attention counted padded.
 15. dryrun — in a child process (the fake world and the sharded phase's NCCL
              group must not meet in one process): the dry run
              (`launch.dryrun`) of four steps on a fake world of one rank,
@@ -207,8 +223,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              runs eagerly across ranks by design.
 17. output — a ``{"kernels": [...]}`` JSON line (each kernel's launches on
              its first serve path and on every serve path, Whisper's prefill,
-             the sharded prefills and the engine-ranks phase included, and
-             its times at the other families' shapes), then, last, the
+             the sharded prefills, the padded prefill on 16 emulated ranks
+             and the engine-ranks phase included, and its times at the
+             other families' shapes and on a rank's heads and padded head
+             slots), then, last, the
              result line ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card, ``nvcc`` (``$CUDA_HOME``, the PATH or /usr/local/cuda)
@@ -557,7 +575,7 @@ def phase_kernels(card):
     for tag, (S, Hq, Hkv) in (("jamba", (1000, 32, 8)), ("qwen2vl", (384, 12, 2))):
         flash_times[tag] = _flash_timed(gen, S, Hq, Hkv, card, tag)
     flash_times["nemotron"] = _flash_timed(gen, 384, 96, 8, card, "nemotron", D=192)
-    flash_shards = _tp_flash_shards(gen, card)
+    flash_shards = _tp_flash_shards(gen, card) + _tp_flash_padded(gen, card)
     t = flash_times[384]
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -705,6 +723,12 @@ def phase_kernels(card):
 TP_FLASH_SHARDS = (("qwen", 384, 16, 16, 2, 128), ("jamba", 1000, 32, 8, 2, 128),
                    ("whisper", 128, 20, 20, 2, 64))
 TP_SSD_SHARDS = (("mamba2", 1000, 32, 128, 2),)
+#: a rank's padded head slots (`ctx.head_slots`) over a model axis of 16,
+#: the one extent on which the shipped configs pad: Minitron-4B's prefill
+#: at S=384 (24 over 8 heads of 128 -> 2 slots, ranks 12-15 padding alone)
+#: and Whisper's decoder prefill of 128 (20 over 20 heads of 64 -> 2 slots,
+#: ranks 10-15 padding alone)
+TP_FLASH_PADDED = (("minitron", 384, 24, 8, 16, 128), ("whisper", 128, 20, 20, 16, 64))
 
 
 def _tp_flash_shards(gen, card):
@@ -739,6 +763,69 @@ def _tp_flash_shards(gen, card):
                                       FLASH_TOL["bfloat16"])
         check(ok, f"flash on a rank's heads disagrees with its plain version ({tag})")
         t["whole"] = f"Hq={Hq} Hkv={Hkv}"
+        out.append(t)
+    return out
+
+
+def _tp_flash_padded(gen, card):
+    """Flash on each rank's padded head slots, as the model calls it
+    (`attention._kv_heads_read`, `_take_kv`): the rank's real q heads, a
+    zero q for each padding slot, and the K/V head each slot reads. On the
+    real slots it equals that slice of the whole call, bit for bit where
+    the heads are computed alike (a rank's call may read its K/V heads
+    grouped otherwise than the whole call; a difference is printed and held
+    within `FLASH_TOL`); a padding slot's output is finite, so its zero
+    out-projection rows feed exactly 0 into the layer's output. fp32 and
+    bf16; the bf16 call of the rank that reads the most K/V heads timed as
+    the whole call is (`_flash_timed`)."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import _take_kv
+    out = []
+    for tag, S, Hq, Hkv, tp, D in TP_FLASH_PADDED:
+        k = -(-Hq // tp)
+        group = Hq // Hkv
+        index = [tuple(h // group if h < Hq else 0 for h in range(r * k, (r + 1) * k))
+                 for r in range(tp)]
+        bitwise = True
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kk, vv = _flash_case(gen, 1, S, Hq, Hkv, D, dtype)
+            whole = ops.flash_attention(q, kk, vv, causal=True)
+            wo = torch.zeros((k * D, 64), dtype=dtype, device="cuda")
+            for r in range(tp):
+                real = [h for h in range(r * k, (r + 1) * k) if h < Hq]
+                qr = torch.zeros((1, S, k, D), dtype=dtype, device="cuda")
+                qr[:, :, :len(real)] = q[:, :, real]
+                part = ops.flash_attention(qr, _take_kv(kk, index[r]).contiguous(),
+                                           _take_kv(vv, index[r]).contiguous(), causal=True)
+                torch.cuda.synchronize()
+                got, want = part[:, :, :len(real)], whole[:, :, real]
+                same = torch.equal(got, want)
+                bitwise = bitwise and same
+                ok, err = (True, 0.0) if same else within(got, want,
+                                                          FLASH_TOL[str(dtype)[6:]])
+                pad = part[:, :, len(real):]
+                # a padding slot's out-projection rows are zero (`ctx.slot_cut`)
+                fed = pad.reshape(S, -1) @ wo[len(real) * D:]
+                zero = bool(torch.isfinite(pad).all()) and not bool(fed.any())
+                say(f"[kernels] flash tp padded {tag} S={S} Hq={Hq}->{k} slots ({len(real)} "
+                    f"real) Hkv={Hkv} reads {index[r]} D={D} rank {r} of {tp} {dtype}: the "
+                    f"whole call's slice {'bit for bit' if same else f'max|err|={err:.3e}'}, "
+                    f"padding feeds 0 {zero} {'ok' if ok and zero else 'FAIL'}")
+                check(ok and zero, f"flash on rank {r}'s padded slots ({tag}, {dtype}): "
+                                   f"max|err| {err}, padding feeds 0 {zero}")
+        r = max(range(tp), key=lambda r: len(set(index[r])))
+        hkv = _take_kv(kk, index[r]).shape[2]
+        t = _flash_timed(gen, S, k, hkv, card, f"{tag} tp padded rank {r} of {tp}", D=D)
+        q, kk, vv = _flash_case(gen, 1, S, k, hkv, D, torch.bfloat16)
+        ok, t["max_abs_err"] = within(ops.flash_attention(q, kk, vv, causal=True),
+                                      ref.flash_attention_ref(q, kk, vv, causal=True),
+                                      FLASH_TOL["bfloat16"])
+        check(ok, f"flash on a rank's padded slots disagrees with its plain version ({tag})")
+        t["whole"] = f"Hq={Hq} Hkv={Hkv}"
+        t["padded"] = {"tp": tp, "slots": k, "rank": r, "reads": list(index[r]),
+                       "bit_for_bit": bitwise}
         out.append(t)
     return out
 
@@ -3412,10 +3499,65 @@ def _seq_decode_emulated(card):
     return out
 
 
+def _tp_padded_emulated(card):
+    """Attention heads that do not divide a model axis of 16, emulated by
+    16 threads on the card (`tools/tp_emulate.py`'s `padded_case` and
+    `train_case`): fp32 Minitron-4B and MiniCPM3-4B at full width and 2
+    layers served (a prefill and 8 greedy decode steps, each step's logits
+    within `tp_emulate.DEC_REL` of its largest, picks equal, every thread's
+    logits equal; flash launched once per layer by each thread's Minitron
+    prefill), and Minitron's train step (the loss and first moments within
+    `TP_TRAIN_LOSS_REL` and `TP_TRAIN_M_SHARE` of the whole step's); every
+    attention counted padded, nothing gathered."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    import tp_emulate
+    dev = torch.device("cuda")
+    out = {}
+    with tp_emulate.ranks(tp_emulate.PADDED_TP):
+        n = tp_emulate.N
+        for arch in tp_emulate.PADDED_ARCHS:
+            r = tp_emulate.padded_case(dev, arch, False, card, tag="[sharded tp padded emulated]")
+            for i, row in enumerate(r["steps"]):
+                check(row["max_diff"] <= tp_emulate.DEC_REL * row["largest"]
+                      and row["picks_equal"], f"[sharded tp padded] {arch} step {i}: {row}")
+            check(r["ranks_agree"], f"[sharded tp padded] {arch}: the threads' logits differ")
+            mixer = "mla" if arch == "minicpm3_4b" else "attn"
+            steps = tp_emulate.PADDED_LAYERS * (1 + tp_emulate.DEC_NEW)
+            c = r["counts"]
+            check(c.get(f"{mixer}:padded") == steps and not c.get("tp_gathered"),
+                  f"[sharded tp padded] {arch}: attention not padded in every step: {c}")
+            want = {"flash_attention": n * tp_emulate.PADDED_LAYERS if mixer == "attn" else 0,
+                    "moe_topk": 0, "ssd_scan": 0}
+            check(r["launches"] == want,
+                  f"[sharded tp padded] {arch}: launches {r['launches']}, want {want}")
+            out[arch] = r
+            free_device()
+        cfg, batch = tp_emulate.train_config("minitron_4b", dev, False)
+        r = tp_emulate.train_case(dev, cfg, batch, tp_emulate.TRAIN_LR, card,
+                                  "[sharded tp padded train emulated]",
+                                  loss_chunk=tp_emulate.TRAIN_LOSS_CHUNK)
+        for key in ("loss", "loss_rank1"):
+            check(abs(r[key] - r["whole_loss"]) <= TP_TRAIN_LOSS_REL * abs(r["whole_loss"]),
+                  f"[sharded tp padded train] {key} {r[key]} against the whole step's "
+                  f"{r['whole_loss']}")
+        check(r["m_outside"] <= TP_TRAIN_M_SHARE * r["m_total"],
+              f"[sharded tp padded train]: m outside the tolerance at {r['m_outside']} of "
+              f"{r['m_total']} coordinates")
+        check(r["replicated_grads_equal"],
+              "[sharded tp padded train]: the replicated leaves' gradients differ between ranks")
+        c = r["counts"]
+        check(c.get("attn:padded") == tp_emulate.TRAIN_LAYERS and not c.get("tp_gathered"),
+              f"[sharded tp padded train]: attention not padded: {c}")
+        out["train"] = r
+        free_device()
+    return out
+
+
 def phase_sharded(card):
-    """The sharded builders on a one-rank NCCL mesh of the card, and the
-    tensor-parallel train step on two emulated ranks (see the module
-    docstring, phase 14); each model freed before the next."""
+    """The sharded builders on a one-rank NCCL mesh of the card, the
+    tensor-parallel steps on two emulated ranks and padded heads on 16 (see
+    the module docstring, phase 14); each model freed before the next."""
     from repro_torch.configs import get_config
     from repro_torch.sharding import rank_mesh
     t0 = time.perf_counter()
@@ -3429,6 +3571,7 @@ def phase_sharded(card):
     out["tp_train"] = _tp_train_emulated(card)
     out["tp_whisper"] = _tp_whisper_emulated(card)
     out["seq_decode"] = _seq_decode_emulated(card)
+    out["tp_padded"] = _tp_padded_emulated(card)
     out["seconds"] = time.perf_counter() - t0
     say(f"[sharded] phase {out['seconds']:.1f} s  [{card}]")
     return out
@@ -3879,6 +4022,8 @@ def main() -> int:
                **{f"{name} serve": f["launches"] for name, f in families.items()},
                "whisper prefill": train[WHISPER_ARCH]["prefill_launches"],
                "whisper tp prefill (two emulated ranks)": sharded["tp_whisper"]["launches"],
+               "minitron tp padded prefill (16 emulated ranks)":
+                   sharded["tp_padded"]["minitron_4b"]["launches"],
                "sharded prefill": {k: sum(n[k] for n in sharded["serve"]["launches"])
                                    for k in launches},
                "engine ranks": engine_ranks["launches"]}

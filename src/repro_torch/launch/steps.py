@@ -20,8 +20,11 @@ tensor-axis shard local (`lm.layer_params`, `lm.train_steps`, with the
 groups of `lm.tp_groups`: heads, ``d_ff`` columns, experts, SSM heads, the
 vocab), summing the partial outputs over the tensor axis at each residual
 add, the embedding's masked lookup and, in train, the vocab-parallel loss;
-a group whose dim does not divide the axis runs gathered whole, and is
-counted so (`ctx.note_tp`; the enc-dec stacks by the same rule). Serving
+attention heads that do not divide the axis run padded on each rank's head
+slots (the leaf gathered whole, then cut: `ctx.slot_cut`; in train its
+gradient summed over the axis), any other group whose dim does not divide
+runs gathered whole, and each is counted so (`ctx.note_tp`; the enc-dec
+stacks by the same rule). Serving
 logits leave as this rank's vocab columns, with no gather, and a cache
 leaf the tensor axis shards (an SSM state's heads and channels) is used in
 place. A train step gathers each layer inside its checkpointed scan step
@@ -201,7 +204,7 @@ def _train_params(cfg, params: Tree, leaves: List[torch.Tensor]) -> Tree:
     gathered here (`ctx.gather_shard`), the embedding and the LM head
     keeping their vocab shard where the vocab runs local (`lm.tp_groups`).
     Inside the step's context."""
-    vocab = lm.tp_groups(cfg)["vocab"]
+    vocab = lm.tp_groups(cfg)["vocab"] == ctx.LOCAL
     axis = ctx.tp_axis()
 
     def one(path, p, leaf):
@@ -397,7 +400,7 @@ def _serving_params(cfg, params: Tree) -> Tree:
     the vocab runs local (`lm.tp_groups`); the stacks stay sharded, cut a
     layer at a time as the model reaches them. Called inside the step's
     `ctx.activation_sharding`."""
-    vocab = lm.tp_groups(cfg)["vocab"]
+    vocab = lm.tp_groups(cfg)["vocab"] == ctx.LOCAL
     axis = ctx.tp_axis()
     return {k: v if k in STACKED else
             ctx.local_of(v, axis) if vocab and k in ("embed", "lm_head") else ctx.full_tree(v)

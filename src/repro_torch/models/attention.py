@@ -23,7 +23,12 @@ Modes:
 In a tensor-parallel step (`sharding.ctx.tp`), a layer whose projections
 are this rank's head shards (`lm.tp_groups`; read off their widths)
 attends over its own q heads and the K/V heads they read, and returns its
-partial output projection, which the layer sums over the tensor axis. The
+partial output projection, which the layer sums over the tensor axis.
+Heads that do not divide the axis are padded (`ctx.head_slots`): the rank
+holds ``k`` head slots from ``r * k``, a slot past the real heads has zero
+q columns and zero out-projection rows, and each slot reads its K/V head
+by an explicit index (`_kv_heads_read`), since a rank's slots can straddle
+a K/V group unevenly. The
 cache stays whole over that axis, as the reference's specs keep it: new K/V
 heads computed on their shards are gathered before they are written. In
 train, every replicated tensor that enters a shard's computation (the
@@ -38,7 +43,8 @@ softmax is combined over the sequence axes flash-decoding style (a MAX
 all-reduce of the row maximum, then one SUM all-reduce of the rescaled
 sums and weighted values, in fp32). Where the tensor axis that holds the
 rank's q heads also cuts the sequence, the query is gathered over the
-heads first and the rank keeps its own heads after the combine.
+heads first (every rank's slots, padding included) and the rank keeps its
+own slots after the combine.
 """
 from __future__ import annotations
 
@@ -191,13 +197,15 @@ def _heads_for_seq(hq: int, total: int) -> bool:
     return hq < total and ctx.tp_axis() in ctx.seq_axes()
 
 
-def _gqa_decode_seq(q, k_cache, v_cache, k, v, pos, *, scale, kv_heads, gather):
+def _gqa_decode_seq(q, k_cache, v_cache, k, v, pos, *, scale, kv_index, gather, heads):
     """GQA decode over this rank's piece of the cache's sequence: the new
     K/V written where ``pos`` falls, ``q (B, 1, hq, D)`` attending over the
     local positions below ``pos + 1``, combined over the sequence axes
-    (`_combine`). ``kv_heads``: the ``[k0, k1)`` of the cache's K/V heads
-    this rank's q heads read; ``gather``: `_heads_for_seq`. Returns
-    ``(B, 1, hq, Dv)``."""
+    (`_combine`). ``kv_index``: the cache's K/V head each of this rank's q
+    slots reads (`_kv_heads_read`); ``gather``: `_heads_for_seq`, the
+    query then gathered over every rank's slots, the ``heads`` real ones
+    attending over every K/V head in their groups, a padding slot's output
+    0, and the rank keeping its own slots. Returns ``(B, 1, hq, Dv)``."""
     _, index = ctx.seq_piece()
     S = k_cache.shape[1]
     offset = index * S
@@ -205,10 +213,9 @@ def _gqa_decode_seq(q, k_cache, v_cache, k, v, pos, *, scale, kv_heads, gather):
     _write_local(v_cache, v, pos, offset)
     B, Q, hq, D = q.shape
     if gather:
-        q = ctx.tp_gather(q, 2)
+        q = ctx.tp_gather(q, 2)[:, :, :heads]
     else:
-        k0, k1 = kv_heads
-        k_cache, v_cache = k_cache[:, :, k0:k1], v_cache[:, :, k0:k1]
+        k_cache, v_cache = _take_kv(k_cache, kv_index), _take_kv(v_cache, kv_index)
     if k_cache.dtype != q.dtype:    # low-precision cache: upcast for the math
         k_cache, v_cache = k_cache.to(q.dtype), v_cache.to(q.dtype)
     Hq, Hkv = q.shape[2], k_cache.shape[2]
@@ -221,7 +228,9 @@ def _gqa_decode_seq(q, k_cache, v_cache, k, v, pos, *, scale, kv_heads, gather):
                                                   v_cache))
     out = out.permute(0, 3, 1, 2, 4).reshape(B, Q, Hq, v_cache.shape[-1]).to(q.dtype)
     if gather:
-        r = ctx.tp()[1]
+        n, r = ctx.tp()
+        if n * hq > heads:      # padding slots: zero out-projection rows
+            out = torch.cat([out, out.new_zeros((B, Q, n * hq - heads, out.shape[-1]))], 2)
         out = out[:, :, r * hq:(r + 1) * hq]
     ctx.note_seq("attn")
     return out
@@ -280,19 +289,20 @@ def gqa_attention(
     if cs is not None:
         q = apply_rope(q, *cs)
         k = apply_rope(k, *cs)
-    # the K/V heads the rank's q heads read: [k0, k1) of the cache's heads;
-    # K/V computed on their shards are gathered whole for the cache
-    k0, k1 = _kv_heads_read(cfg, hq, hkv)
+    # the K/V head each of the rank's q slots reads (K/V computed on their
+    # shards are its own already); those are gathered whole for the cache
+    kv_index = _kv_heads_read(cfg, hq)
     if hkv < cfg.num_kv_heads:
         k_own, v_own = k, v
         if mode != "train":
             k, v = ctx.tp_gather(k, 2), ctx.tp_gather(v, 2)
     elif hq < cfg.num_heads:
         # TRAP, replicated leaves: K/V computed whole (replicated) enter
-        # the q heads' shard before the rank's slice, so wk/wv take every
-        # rank's part of their gradient
+        # the q heads' shard before the rank's heads are read, so wk/wv
+        # take every rank's part of their gradient
         k, v = ctx.tp_enter(k), ctx.tp_enter(v)
-        k_own, v_own = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+        k_own = _take_kv(k, kv_index).contiguous()
+        v_own = _take_kv(v, kv_index).contiguous()
     else:
         k_own, v_own = k, v
 
@@ -311,7 +321,8 @@ def gqa_attention(
         new_cache = cache
         if ctx.seq_axes():      # this rank's piece of the cache's sequence
             out = _gqa_decode_seq(q, k_cache, v_cache, k, v, pos, scale=scale,
-                                  kv_heads=(k0, k1), gather=_heads_for_seq(hq, cfg.num_heads))
+                                  kv_index=kv_index, gather=_heads_for_seq(hq, cfg.num_heads),
+                                  heads=cfg.num_heads)
         else:
             if pos.dim() == 0:  # one position for the whole batch (indexed by a
                 at = pos.reshape(1).long()   # tensor: no read of pos on the host)
@@ -321,8 +332,7 @@ def gqa_attention(
                 bidx = torch.arange(B, device=x.device)
                 k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
                 v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
-            if (k0, k1) != (0, k_cache.shape[2]):
-                k_cache, v_cache = k_cache[:, :, k0:k1], v_cache[:, :, k0:k1]
+            k_cache, v_cache = _take_kv(k_cache, kv_index), _take_kv(v_cache, kv_index)
             out = sdpa(q, k_cache, v_cache, scale=scale, causal=False, kv_len=pos + 1)
     else:
         raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
@@ -331,18 +341,37 @@ def gqa_attention(
     return out, new_cache
 
 
-def _kv_heads_read(cfg: ModelConfig, hq: int, hkv: int) -> Tuple[int, int]:
-    """The ``[k0, k1)`` of the K/V heads this rank's ``hq`` q heads read
-    (GQA maps q head ``h`` to K/V head ``h // (Hq / Hkv)``): every head
-    unless the q heads are the rank's shard of the tensor axis."""
-    if hq == cfg.num_heads:
-        return 0, cfg.num_kv_heads
-    n, r = ctx.tp()
-    group = cfg.num_heads // cfg.num_kv_heads
-    if hkv < cfg.num_kv_heads:
-        return r * hkv, (r + 1) * hkv
-    k0 = r * hq // group
-    return k0, (r * hq + hq - 1) // group + 1
+def _kv_heads_read(cfg: ModelConfig, hq: int) -> Optional[Tuple[int, ...]]:
+    """The K/V head of the whole set (the cache's) each of this rank's
+    ``hq`` q head slots reads: GQA maps q head ``h`` to K/V head
+    ``h // (Hq / Hkv)``, and a padding slot (``>= Hq``, `ctx.head_slots`)
+    reads head 0. The rank's slots are its run from `ctx.head_slots` (its
+    even shard where the heads divide); None where ``hq`` is every head
+    (each reads its own group)."""
+    H = cfg.num_heads
+    if hq == H:
+        return None
+    group = H // cfg.num_kv_heads
+    first = ctx.head_slots(H)[1]
+    return tuple(h // group if h < H else 0 for h in range(first, first + hq))
+
+
+def _take_kv(t: torch.Tensor, index: Optional[Tuple[int, ...]]) -> torch.Tensor:
+    """The K/V heads (dim 2) of ``t`` as the q slots of ``index`` read them
+    (`_kv_heads_read`), in the grouping `sdpa` and the flash kernel take (q
+    slot ``j`` reads K/V head ``j // (slots / heads)``): ``t`` itself where
+    the slots are every head or read all of ``t``'s heads in order, a slice
+    of ``t`` where they read a run of its heads in equal groups, else one
+    K/V head per slot (`index_select`, attention then MHA): contiguous
+    slots can straddle a K/V group unevenly, which no grouping
+    expresses."""
+    if index is None:
+        return t
+    hq, k0 = len(index), index[0]
+    heads = index[-1] - k0 + 1
+    if hq % heads == 0 and index == tuple(k0 + j // (hq // heads) for j in range(hq)):
+        return t if (k0 == 0 and heads == t.shape[2]) else t[:, :, k0:k0 + heads]
+    return t.index_select(2, torch.tensor(index, dtype=torch.long, device=t.device))
 
 
 # ---------------------------------------------------------------------------
@@ -369,13 +398,14 @@ def cross_attention(
     returns them as the new cache (computed once, at prefill; none in
     train); with one it reads the cached K/V and returns the cache as it is.
 
-    On a rank whose projections are its head shards (`lm.tp_groups`), ``q``
-    comes from its ``wq`` columns, K/V from its ``wk``/``wv`` columns over
-    the replicated ``enc_out`` (which enters the shard through
-    `ctx.tp_enter`, so that ``wk``/``wv`` take every rank's part of its
-    gradient), and the output is its partial ``wo`` product. The cache stays
-    whole over the heads, as the reference's specs keep it: prefill gathers
-    the new K/V heads for it, and decode reads the rank's ``[k0, k1)``.
+    On a rank whose projections are its head shards or its padded head
+    slots (`lm.tp_groups`), ``q`` comes from its ``wq`` columns, K/V from
+    its ``wk``/``wv`` columns over the replicated ``enc_out`` (which enters
+    the shard through `ctx.tp_enter`, so that ``wk``/``wv`` take every
+    rank's part of its gradient) or whole, and the output is its partial
+    ``wo`` product. The cache stays whole over the heads, as the
+    reference's specs keep it: prefill gathers the new K/V heads for it,
+    and decode reads the heads the rank's slots read (`_kv_heads_read`).
 
     Raises:
         ValueError: neither ``enc_out`` nor ``cache`` is given.
@@ -385,7 +415,7 @@ def cross_attention(
     hq, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
     xs = ctx.tp_enter(x) if hq < cfg.num_heads else x
     q = (xs @ p["wq"]).reshape(B, S, hq, hd)
-    k0, k1 = _kv_heads_read(cfg, hq, hkv)
+    kv_index = _kv_heads_read(cfg, hq)
     if cache is None:
         if enc_out is None:
             raise ValueError("cross-attention needs the encoder output or its cache")
@@ -400,14 +430,13 @@ def cross_attention(
         elif hq < cfg.num_heads:
             # TRAP, replicated leaves: as in `gqa_attention`
             k, v = ctx.tp_enter(k), ctx.tp_enter(v)
-            k_own, v_own = k[:, :, k0:k1].contiguous(), v[:, :, k0:k1].contiguous()
+            k_own = _take_kv(k, kv_index).contiguous()
+            v_own = _take_kv(v, kv_index).contiguous()
         else:
             k_own, v_own = k, v
         cache = None if mode == "train" else {"k": k, "v": v}
     else:
-        k_own, v_own = cache["k"], cache["v"]
-        if (k0, k1) != (0, k_own.shape[2]):
-            k_own, v_own = k_own[:, :, k0:k1], v_own[:, :, k0:k1]
+        k_own, v_own = _take_kv(cache["k"], kv_index), _take_kv(cache["v"], kv_index)
     out = sdpa(q, k_own, v_own, scale=hd ** -0.5, causal=False)
     return out.reshape(B, S, hq * hd) @ p["wo"], cache
 
@@ -437,8 +466,10 @@ def mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], object]]:
 
 
 def _mla_heads(cfg: ModelConfig, p: dict) -> int:
-    """This rank's MLA heads: all of them, or its shard of the tensor axis
-    (``w_uk``'s width, `lm.tp_groups`)."""
+    """This rank's MLA heads: all of them, or its shard of the tensor axis,
+    or its padded head slots (``w_uk``'s width, `lm.tp_groups`; a padding
+    slot's ``w_uq``/``w_uk``/``w_uv`` columns and ``wo`` rows are zero, so
+    its part of the output is exactly 0)."""
     m = cfg.mla or MLAConfig()
     return p["w_uk"].shape[1] // m.qk_nope_head_dim
 
@@ -515,8 +546,9 @@ def _mla_decode_seq(cfg: ModelConfig, p: dict, q_nope, q_pe, cache: Cache, ckv_n
     the new entry written where ``pos`` falls, the latent query and its
     rotary part against the local positions, ``o_lat`` combined over the
     sequence axes (`_combine`) before ``w_uv``. ``gather``: the query's
-    ``(B, 1, H, R + Dr)`` gathered over the heads and the rank's own heads
-    kept after the combine (`_heads_for_seq`). Returns ``(B, 1, hq, Dv)``."""
+    ``(B, 1, H, R + Dr)`` gathered over every rank's head slots (padding
+    included) and the rank's own slots kept after the combine
+    (`_heads_for_seq`). Returns ``(B, 1, hq, Dv)``."""
     m = cfg.mla or MLAConfig()
     R = m.kv_lora_rank
     B, Q, hq = q_nope.shape[:3]

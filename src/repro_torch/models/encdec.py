@@ -18,8 +18,10 @@ In a tensor-parallel step (`sharding.ctx.tp`) every sub-layer follows the
 decoder-only models' rule (`lm.tp_groups`): the encoder's attention and
 MLP, the decoder's self-attention, cross-attention and MLP each run on this
 rank's shard of the tensor axis where the dim they split divides it
-(heads, ``d_ff``), the embedding and the tied head on the rank's vocab
-rows, and each partial output is summed once at its residual add.
+(heads, ``d_ff``), each attention on its padded head slots where its heads
+do not divide it (the cross cache stays whole over the heads), the
+embedding and the tied head on the rank's vocab rows, and each partial
+output is summed once at its residual add.
 """
 from __future__ import annotations
 
@@ -104,24 +106,25 @@ def _run_stack(cfg: ModelConfig, layers: Params, stack: str, n: int, x, body, *,
     ``"dec_layers"``), ``x = body(lp, x, partial, i)`` for layer ``i``:
     ``partial`` says whether each sub-layer's output is a partial sum over
     the tensor axis (`lm.note_encdec`, counted once per forward). The
-    groups of `lm.tp_groups` keep this rank's shard of the tensor axis
-    (`lm.encdec_local_paths`); every other leaf is gathered whole, in
+    groups of `lm.tp_groups` keep this rank's shard of the tensor axis, or
+    its padded head slots (`lm.encdec_cut`); every other leaf is gathered
+    whole, in
     serving a layer at a time as it is reached (`lm.layer_params`), in train
     inside the layer's step, recomputed in backward when ``remat``
     (`lm.train_steps`: the backward gathers the layer again, and no
     gathered layer is saved)."""
     groups = lm.tp_groups(cfg)
-    local, axis = lm.encdec_local_paths(stack, groups), ctx.tp_axis()
+    cut, axis = lm.encdec_cut(cfg, stack, groups), ctx.tp_axis()
     if mode == "train":
         step = _checkpointed(lambda x, lp, gather, partial, i: body(gather(lp), x, partial, i),
                              remat)
-        for i, (lp, gather) in enumerate(lm.train_steps(layers, local, axis)):
+        for i, (lp, gather) in enumerate(lm.train_steps(layers, cut, axis)):
             # TRAP, the recompute: counted here, not in the step that the
             # backward runs again
             x = step(x, lp, gather, lm.note_encdec(stack, groups), i)
         return x
     for i in range(n):
-        lp = lm.layer_params(layers, i, local, axis)
+        lp = lm.layer_params(layers, i, cut, axis)
         x = body(lp, x, lm.note_encdec(stack, groups), i)
         del lp      # a gathered layer is freed before the next is gathered
     return x

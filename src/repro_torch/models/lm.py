@@ -254,19 +254,24 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
     return init_layout(param_layout(cfg), gen, device=device)
 
 
-def layer_params(layers: Params, i: int, local: frozenset = frozenset(),
+def layer_params(layers: Params, i: int, cut: "TPCut" = None,
                  axis: Optional[str] = None, path: str = "") -> Params:
     """Layer ``i``'s slice of the stacked layer tree: views, no copies; a
     DTensor leaf gathers that layer's shards alone (`ctx.layer_slice`), or,
-    where its path is in ``local``, keeps this rank's shard of mesh axis
-    ``axis`` and gathers the others (`ctx.layer_local`)."""
+    where its path is in ``cut.local``, keeps this rank's shard of mesh
+    axis ``axis`` and gathers the others (`ctx.layer_local`); a padded
+    leaf of ``cut`` is gathered whole, then cut to this rank's head slots
+    (`ctx.slot_cut`)."""
+    cut = cut or TPCut()
     out = {}
     for k, v in layers.items():
         sub = f"{path}/{k}" if path else k
         if isinstance(v, dict):
-            out[k] = layer_params(v, i, local, axis, sub)
-        elif sub in local:
+            out[k] = layer_params(v, i, cut, axis, sub)
+        elif sub in cut.local:
             out[k] = ctx.layer_local(v, i, axis)
+        elif sub in cut.padded:
+            out[k] = ctx.slot_cut(layer_slice(v, i), cut.padded[sub])
         else:
             out[k] = layer_slice(v, i)
     return out
@@ -290,60 +295,106 @@ TP_LEAVES = {
 }
 
 
-def tp_groups(cfg: ModelConfig) -> Dict[str, bool]:
-    """Which tensor-parallel groups of a step run on this rank's
-    shard of the tensor axis (`ctx.tp`) and which gather whole, by the
-    reference's divisibility rule: a group runs on its shard when the dim
-    it splits divides by the axis's extent. Every group is False where no
-    tensor axis splits the step.
+def tp_groups(cfg: ModelConfig) -> Dict[str, str]:
+    """How each tensor-parallel group of a step runs on this rank: on its
+    even shard of the tensor axis (`ctx.LOCAL`), on its padded head slots
+    (`ctx.PADDED`), or gathered whole (`ctx.GATHERED`), by the reference's
+    rule: a group runs on its shard when the dim it splits divides by the
+    axis's extent, and attention heads that do not divide are padded, as
+    the reference's compiler pads them (`ctx.head_slots`). Every group is
+    gathered where no tensor axis splits the step.
 
       * ``attn``: the q heads (``wq`` columns, ``wo`` rows) when the plan
-        shards heads and ``num_heads`` divides; ``attn_kv``: the K/V heads
-        too, when ``num_kv_heads`` divides as well (otherwise K/V are
-        computed whole, and each rank's q heads must read one K/V head:
-        the extent a multiple of the K/V heads);
+        shards heads: local where ``num_heads`` divides, else padded (a
+        single head is not padded: it runs gathered); ``attn_kv``: the K/V
+        heads local too where the q heads are local and ``num_kv_heads``
+        divides as well, otherwise K/V are computed whole and each q slot
+        reads its K/V head by index (`attention._kv_heads_read`), counted
+        padded beside padded q heads and gathered beside local ones;
       * ``mla``: MLA's heads (``w_uq``/``w_uk``/``w_uv`` columns, ``wo``
-        rows), the latent whole;
+        rows), local or padded as ``attn``, the latent whole;
       * ``ssm``: the SSM heads (one group of B/C, `ssm.ssm_dims`);
       * ``mlp`` / ``shared``: the ``d_ff`` (``d_shared``) columns and rows;
       * ``experts``: the experts, when the expert axis is the tensor axis;
       * ``vocab``: the embedding's rows and the LM head's columns.
     """
+    LOCAL, PADDED, GATHERED = ctx.LOCAL, ctx.PADDED, ctx.GATHERED
     n, _ = ctx.tp()
     names = ("attn", "attn_kv", "mla", "ssm", "mlp", "experts", "shared", "vocab")
     if n == 1:
-        return {k: False for k in names}
+        return {k: GATHERED for k in names}
     plan = ctx.current()[1]
+
+    def state(on: bool) -> str:
+        return LOCAL if on else GATHERED
+
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    heads = plan.shard_attn_heads and hq > 0 and hq % n == 0
-    kv = heads and hkv > 0 and hkv % n == 0
-    out = {"attn": heads and (kv or n % hkv == 0), "attn_kv": kv, "mla": heads,
-           "ssm": False, "mlp": cfg.d_ff > 0 and cfg.d_ff % n == 0,
-           "experts": False, "shared": False,
-           "vocab": plan.shard_vocab and padded_vocab(cfg.vocab_size) % n == 0}
+    heads = (GATHERED if not plan.shard_attn_heads or hq < 2 else
+             LOCAL if hq % n == 0 else PADDED)
+    kv = (LOCAL if heads == LOCAL and hkv > 0 and hkv % n == 0 else
+          PADDED if heads == PADDED else GATHERED)
+    out = {"attn": heads, "attn_kv": kv, "mla": heads, "ssm": GATHERED,
+           "mlp": state(cfg.d_ff > 0 and cfg.d_ff % n == 0),
+           "experts": GATHERED, "shared": GATHERED,
+           "vocab": state(plan.shard_vocab and padded_vocab(cfg.vocab_size) % n == 0)}
     if cfg.ssm is not None:
         _, H, _, _, _ = ssd.ssm_dims(cfg)
-        out["ssm"] = cfg.ssm.n_groups == 1 and H % n == 0
+        out["ssm"] = state(cfg.ssm.n_groups == 1 and H % n == 0)
     if cfg.moe is not None:
         m = cfg.moe
-        out["experts"] = (plan.ep_axis == plan.tp_axis
-                          and ffn.padded_experts(m.num_experts) % n == 0)
-        out["shared"] = bool(m.num_shared_experts) and m.d_shared % n == 0
+        out["experts"] = state(plan.ep_axis == plan.tp_axis
+                               and ffn.padded_experts(m.num_experts) % n == 0)
+        out["shared"] = state(bool(m.num_shared_experts) and m.d_shared % n == 0)
     return out
 
 
-def _local_paths(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
-    """The layer-tree paths (``[pos{off}/]mixer/wq`` ...) of the leaves the
-    groups that run on their shard keep local."""
-    out = set()
+def _slot_cuts(cfg: ModelConfig, group: str) -> Dict[str, ctx.SlotCut]:
+    """The leaves of a padded head group (``attn`` or ``mla``) and how each
+    is cut to this rank's slots (`ctx.slot_cut`): a q projection's columns,
+    an out-projection's rows, each head ``width`` wide."""
+    H = cfg.num_heads
+    if group == "attn":
+        hd = cfg.resolved_head_dim
+        return {"wq": ctx.SlotCut(1, hd, H), "wo": ctx.SlotCut(0, hd, H)}
+    m = cfg.mla
+    return {"w_uq": ctx.SlotCut(1, m.qk_nope_head_dim + m.qk_rope_head_dim, H),
+            "w_uk": ctx.SlotCut(1, m.qk_nope_head_dim, H),
+            "w_uv": ctx.SlotCut(1, m.v_head_dim, H),
+            "wo": ctx.SlotCut(0, m.v_head_dim, H)}
+
+
+@dataclasses.dataclass(frozen=True)
+class TPCut:
+    """How a tensor-parallel step cuts a stack's layer leaves: the paths
+    (``[pos{off}/]mixer/wq`` ...) that keep this rank's even shard of the
+    tensor axis, and those of padded head groups with their `ctx.SlotCut`
+    (gathered whole, then cut to the rank's slots); every other leaf is
+    gathered whole."""
+
+    local: frozenset = frozenset()
+    padded: Dict[str, ctx.SlotCut] = dataclasses.field(default_factory=dict)
+
+
+def _cut_of(cfg: ModelConfig, groups: Dict[str, str], subs) -> TPCut:
+    """The `TPCut` of ``subs``: ``(key prefix, group)`` pairs, the prefix
+    naming the sub-layer's leaves (``pos0/mixer/``, ``self_attn/`` ...)."""
+    local, padded = set(), {}
+    for pre, g in subs:
+        if groups[g] == ctx.LOCAL:
+            local.update(pre + leaf for leaf in TP_LEAVES[g][1])
+        elif groups[g] == ctx.PADDED and g in ("attn", "mla"):
+            padded.update({pre + k: c for k, c in _slot_cuts(cfg, g).items()})
+    return TPCut(frozenset(local), padded)
+
+
+def tp_cut(cfg: ModelConfig, groups: Dict[str, str]) -> TPCut:
+    """The `TPCut` of a decoder-only model's layer tree."""
+    subs = []
     for pre, (mixer, f) in zip(sub_prefixes(cfg), layer_kinds(cfg)):
         names = [mixer] + (["attn_kv"] if mixer == "attn" else [])
         names += {"mlp": ["mlp"], "moe": ["experts", "shared"], "none": []}[f]
-        for g in names:
-            if groups[g]:
-                sub, leaves = TP_LEAVES[g]
-                out.update(f"{pre}{sub}/{leaf}" for leaf in leaves)
-    return frozenset(out)
+        subs += [(f"{pre}{TP_LEAVES[g][0]}/", g) for g in names]
+    return _cut_of(cfg, groups, subs)
 
 
 #: each enc-dec stack's sub-layers: (key, kind, name counted) (the
@@ -355,51 +406,50 @@ ENCDEC_SUBLAYERS = {"enc_layers": (("attn", "attn", "enc_attn"), ("mlp", "mlp", 
                                    ("mlp", "mlp", "dec_mlp"))}
 
 
-def encdec_local_paths(stack: str, groups: Dict[str, bool]) -> frozenset:
-    """`_local_paths` of an enc-dec stack (``"enc_layers"`` or
-    ``"dec_layers"``): the paths (``self_attn/wq`` ...) of the leaves its
-    attention (``attn``, ``attn_kv``) and MLP (``mlp``) groups keep local."""
-    out = set()
-    for sub, kind, _ in ENCDEC_SUBLAYERS[stack]:
-        for g in (("attn", "attn_kv") if kind == "attn" else ("mlp",)):
-            if groups[g]:
-                out.update(f"{sub}/{leaf}" for leaf in TP_LEAVES[g][1])
-    return frozenset(out)
+def encdec_cut(cfg: ModelConfig, stack: str, groups: Dict[str, str]) -> TPCut:
+    """The `TPCut` of an enc-dec stack (``"enc_layers"`` or
+    ``"dec_layers"``): each attention's ``attn``/``attn_kv`` groups and
+    each MLP's ``mlp``, under the sub-layer's own key (``self_attn/wq``
+    ...)."""
+    return _cut_of(cfg, groups, [(f"{sub}/", g) for sub, kind, _ in ENCDEC_SUBLAYERS[stack]
+                                 for g in (("attn", "attn_kv") if kind == "attn" else ("mlp",))])
 
 
-def note_encdec(stack: str, groups: Dict[str, bool]) -> Tuple[bool, ...]:
+def note_encdec(stack: str, groups: Dict[str, str]) -> Tuple[bool, ...]:
     """Count one layer of an enc-dec stack (`ctx.note_tp`), each sub-layer
     under its own name (`ENCDEC_SUBLAYERS`; an attention's K/V heads as
     ``<name>_kv``). Returns whether each sub-layer's output is a partial
-    sum over the tensor axis, in that order."""
+    sum over the tensor axis (local or padded), in that order."""
     out = []
     for _, kind, name in ENCDEC_SUBLAYERS[stack]:
         ctx.note_tp(name, groups[kind])
         if kind == "attn":
             ctx.note_tp(name + "_kv", groups["attn_kv"])
-        out.append(groups[kind])
+        out.append(groups[kind] != ctx.GATHERED)
     return tuple(out)
 
 
-def _note_layer(cfg: ModelConfig, kind, groups: Dict[str, bool]) -> Tuple[bool, bool]:
+def _note_layer(cfg: ModelConfig, kind, groups: Dict[str, str]) -> Tuple[bool, bool]:
     """Count one sub-layer's groups (`ctx.note_tp`); returns whether its
-    mixer's and its ffn's outputs are partial sums over the tensor axis. An
-    MoE whose experts and shared expert are not both on their shards sums
-    its shard's part itself (`mlp.moe_ffn`), and returns a whole output."""
+    mixer's and its ffn's outputs are partial sums over the tensor axis (a
+    local or a padded group's). An MoE whose experts and shared expert are
+    not both on their shards sums its shard's part itself (`mlp.moe_ffn`),
+    and returns a whole output."""
     mixer, f = kind
     ctx.note_tp(mixer, groups[mixer])
     if mixer == "attn":
         ctx.note_tp("attn_kv", groups["attn_kv"])
+    partial = groups[mixer] != ctx.GATHERED
     if f == "mlp":
         ctx.note_tp("mlp", groups["mlp"])
-        return groups[mixer], groups["mlp"]
+        return partial, groups["mlp"] == ctx.LOCAL
     if f == "moe":
         ctx.note_tp("experts", groups["experts"])
         if cfg.moe.num_shared_experts:
             ctx.note_tp("shared", groups["shared"])
-        return groups[mixer], groups["experts"] and (not cfg.moe.num_shared_experts
-                                                     or groups["shared"])
-    return groups[mixer], False
+        return partial, groups["experts"] == ctx.LOCAL and (
+            not cfg.moe.num_shared_experts or groups["shared"] == ctx.LOCAL)
+    return partial, False
 
 
 def _embed_lookup(params: Params, tokens: torch.Tensor, v_pad: int) -> torch.Tensor:
@@ -519,24 +569,34 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, 
                           "sp" if mode == "train" else None, None), new_cache, aux)
 
 
-def train_steps(layers: Params, local: frozenset = frozenset(), axis: Optional[str] = None):
+def train_steps(layers: Params, cut: "TPCut" = None, axis: Optional[str] = None):
     """The stacked layer tree of a train step, one scan step at a time:
     yields ``(lp, gather)``, ``lp`` the step's leaves (views from one
     `unbind` of each stacked leaf; of a DTensor leaf, of this rank's shard)
     and ``gather(lp)`` the layer the model computes on: each DTensor leaf
     gathered over its FSDP axes, and over the tensor axis ``axis`` unless
-    its path is in ``local`` (`ctx.gather_shard`: its gradient comes back
-    to the shard, summed over the ranks that split the rows). A
-    checkpointed step calls ``gather`` inside, so its backward gathers the
-    layer again and no gathered layer is saved."""
+    its path is in ``cut.local`` (`ctx.gather_shard`: its gradient comes
+    back to the shard, summed over the ranks that split the rows). A padded
+    leaf of ``cut`` is gathered whole, then cut to this rank's head slots
+    (`ctx.slot_cut`), and its gradient is summed over ``axis`` too (each
+    rank's is its own slots' part). A checkpointed step calls ``gather``
+    inside, so its backward gathers the layer again and no gathered layer
+    is saved."""
+    cut = cut or TPCut()
+    padded = cut.padded
     plans = dict(tree_util.items(tree_util.map_tree(
-        lambda path, v: ctx.gather_plan(v, axis if path in local else None, stacked=True),
+        lambda path, v: ctx.gather_plan(v, axis if path in cut.local else None, stacked=True,
+                                        summed=axis if path in padded else None),
         layers)))
     views = tree_util.map_tree(
         lambda _, v: (v.to_local() if is_dtensor(v) else v).unbind(0), layers)
 
+    def one(path, t):
+        w = ctx.gather_shard(t, plans[path])
+        return ctx.slot_cut(w, padded[path]) if path in padded else w
+
     def gather(lp: Params) -> Params:
-        return tree_util.map_tree(lambda path, t: ctx.gather_shard(t, plans[path]), lp)
+        return tree_util.map_tree(one, lp)
 
     steps = len(tree_util.leaves(views)[0])
     for i in range(steps):
@@ -575,7 +635,7 @@ def _train_layers(cfg, layers, x, positions, *, remat, remat_policy, groups, sp)
     sequence (`_run_layer`)."""
     kinds, prefixes = layer_kinds(cfg), sub_prefixes(cfg)
     context_fn = _remat_context(remat_policy)
-    local = _local_paths(cfg, groups)
+    cut = tp_cut(cfg, groups)
 
     def step(x, lp, gather, partial):
         lp = gather(lp)
@@ -590,7 +650,7 @@ def _train_layers(cfg, layers, x, positions, *, remat, remat_policy, groups, sp)
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, gather in train_steps(layers, local, ctx.tp_axis()):
+    for lp, gather in train_steps(layers, cut, ctx.tp_axis()):
         # TRAP, the recompute: counted here, once per forward, not in the
         # step that the backward runs again
         partial = [_note_layer(cfg, kind, groups) for kind in kinds]
@@ -661,11 +721,11 @@ def forward(
             x = ctx.sp_gather(x, 1)
         return apply_norm(cfg, params["final_norm"], x), None, aux
 
-    local = _local_paths(cfg, groups)
+    cut = tp_cut(cfg, groups)
     axis = ctx.tp_axis()
     per_step = []
     for i in range(n_scan_steps(cfg)):
-        lp = layer_params(params["layers"], i, local, axis)
+        lp = layer_params(params["layers"], i, cut, axis)
         new_lc: Cache = {}
         for pre, kind in zip(prefixes, kinds):
             sc = ({k[len(pre):]: v[i] for k, v in cache.items() if k.startswith(pre)}
@@ -689,7 +749,7 @@ def tp_cache_local(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
     the tensor axis: an SSM sub-layer's ``conv_x`` channels and ``ssm``
     heads where its heads run local (`tp_groups`); K/V and the MLA latent
     stay whole (replicated over the axis, as the reference's specs)."""
-    if not groups["ssm"]:
+    if groups["ssm"] != ctx.LOCAL:
         return frozenset()
     return frozenset(pre + k for pre, (mixer, _) in zip(sub_prefixes(cfg), layer_kinds(cfg))
                      if mixer == "ssm" for k in ("conv_x", "ssm"))

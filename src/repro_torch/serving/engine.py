@@ -294,12 +294,14 @@ class ServingEngine:
         #: and PREPARE's) and their seconds; PREPARE executables a swap
         #: installed or discarded (bound to a pool the swap replaced)
         #: ``multi_rank_eager`` counts the steps of a multi-rank layout, eager
-        #: by design (see the module doc); ``tp_local`` / ``tp_gathered`` its
-        #: decode steps' sub-layers that ran on their tensor-axis shard or
-        #: gathered whole (`ctx.note_tp`; none where the axis has one rank)
+        #: by design (see the module doc); ``tp_local`` / ``tp_padded`` /
+        #: ``tp_gathered`` its decode steps' sub-layers that ran on their
+        #: tensor-axis shard, on their padded head slots or gathered whole
+        #: (`ctx.note_tp`; none where the axis has one rank)
         self.decode_stats = {"eager": 0, "replays": 0, "captures": 0,
                              "capture_s": 0.0, "installs": 0, "discards": 0,
-                             "multi_rank_eager": 0, "tp_local": 0, "tp_gathered": 0}
+                             "multi_rank_eager": 0, "tp_local": 0, "tp_padded": 0,
+                             "tp_gathered": 0}
         #: when set, `step` keeps the step's logits ``(n_slots, V_pad)`` in
         #: ``last_logits`` (on every rank of a multi-rank engine's mesh) and
         #: the ``(lane, rid)`` pairs it decoded in ``last_lanes``, for checks
@@ -1272,7 +1274,7 @@ class ServingEngine:
                                           self.page_tables if self.paged else None)
                      if self._is_member() else np.full(self.n_slots, -1, dtype=np.int64))
             after = ctx.tp_counts()
-            for k in ("tp_local", "tp_gathered"):
+            for k in ("tp_local", "tp_padded", "tp_gathered"):
                 self.decode_stats[k] += after.get(k, 0) - before.get(k, 0)
             self.decode_stats["eager"] += 1
             self.decode_stats["multi_rank_eager"] += 1

@@ -20,8 +20,12 @@ splits the work as the reference's compiler splits it: each rank computes
 on its own shard of that axis (`layer_local`, `local_of`), the partial
 results are summed over the axis where the math needs a sum (`tp_sum`), the
 new K/V heads are gathered for the replicated cache (`tp_gather`), and the
-greedy pick reads the vocab shards (`tp_argmax`). Each sub-layer notes
-whether it ran on its shard or gathered whole (`note_tp`, read by
+greedy pick reads the vocab shards (`tp_argmax`). Attention heads that
+do not divide the axis run padded, as the reference's compiler pads them:
+the head count rounded up to a multiple of the extent, each rank holding
+its run of head slots of the leaf gathered whole (`head_slots`,
+`slot_cut`), a slot past the real heads zero. Each sub-layer notes whether
+it ran on its shard, padded or gathered whole (`note_tp`, read by
 `tp_counts`).
 
 A train step differentiates through the same sums, so each has an
@@ -574,16 +578,24 @@ class GatherPlan(NamedTuple):
     cast: Optional[torch.dtype]
 
 
-def gather_plan(v: Any, keep: Optional[str], *, stacked: bool) -> Optional[GatherPlan]:
+def gather_plan(v: Any, keep: Optional[str], *, stacked: bool,
+                summed: Optional[str] = None) -> Optional[GatherPlan]:
     """The `GatherPlan` of DTensor leaf ``v`` in the current train step:
     gather every mesh dim that shards it but ``keep`` (the tensor axis,
     where the leaf's group runs on its shard), its layer dim dropped when
-    ``stacked``; None for a plain tensor, or where nothing moves."""
+    ``stacked``; None for a plain tensor, or where nothing moves.
+    ``summed``: a mesh axis whose ranks each compute a different part of
+    the gathered leaf's gradient, which is summed over it as over the axes
+    that split the rows (TRAP, a padded leaf: the tensor axis, each rank's
+    gradient non-zero on its own head slots alone, `slot_cut`; cutting it
+    would keep one rank's part of the chunk)."""
     if not is_dtensor(v):
         return None
     from torch.distributed.tensor import Shard
     s = _stack()
     rows = set(s[-1].row_axes) if s else set()
+    if summed is not None:
+        rows.add(summed)
     shard_grads = s[-1].shard_grads if s else True
     cast = s[-1].grad_dtype if s else None
     dm = v.device_mesh
@@ -720,24 +732,66 @@ def local_of(v: Any, axis: Optional[str]) -> torch.Tensor:
     return _keep_local(v.to_local(), v, axis, drop_dim0=False)
 
 
-def note_tp(name: str, local: bool) -> None:
-    """Count one sub-layer ``name`` of a tensor-parallel step as run on its
-    shard (``local``) or gathered whole (`tp_counts`); nothing where no
-    tensor axis splits the step."""
+class SlotCut(NamedTuple):
+    """One leaf of a padded head group (`lm.tp_groups`): the dim of one
+    layer's leaf that holds the heads, each head's width along it, and the
+    real head count ``H``."""
+
+    dim: int
+    width: int
+    heads: int
+
+
+def head_slots(heads: int) -> Tuple[int, int]:
+    """``(k, first)``: this rank's head slots when ``heads`` are padded over
+    the tensor axis of extent ``n``, as the reference's compiler pads them:
+    ``H_pad = ceil(H / n) * n``, ``k = H_pad / n`` slots a rank, rank ``r``
+    holding ``[r * k, (r + 1) * k)``; a slot ``>= H`` is padding. Heads that
+    divide the axis give the rank its even shard."""
+    n, r = tp()
+    k = -(-heads // n)
+    return k, r * k
+
+
+def slot_cut(w: torch.Tensor, cut: SlotCut) -> torch.Tensor:
+    """This rank's ``k`` head slots (`head_slots`) of ``w``, whole along
+    ``cut.dim`` (``H`` heads of ``cut.width``): the real heads it holds,
+    then zeros for its padding slots, so that a padding slot's q columns
+    (or its out-projection rows) are zero and its part of the output is
+    exactly 0. Differentiable: the gradient of the whole ``w`` is this
+    rank's slots' part, zero elsewhere."""
+    k, first = head_slots(cut.heads)
+    lo, hi = min(first, cut.heads), min(first + k, cut.heads)
+    part = w.narrow(cut.dim, lo * cut.width, (hi - lo) * cut.width)
+    if hi - lo == k:
+        return part
+    shape = list(w.shape)
+    shape[cut.dim] = (k - (hi - lo)) * cut.width
+    return torch.cat([part, w.new_zeros(shape)], dim=cut.dim)
+
+
+#: the states of a tensor-parallel group (`lm.tp_groups`): on this rank's
+#: even shard, on its padded head slots, or gathered whole
+LOCAL, PADDED, GATHERED = "local", "padded", "gathered"
+
+
+def note_tp(name: str, state: str) -> None:
+    """Count one sub-layer ``name`` of a tensor-parallel step as run in
+    ``state`` (`LOCAL`, `PADDED` or `GATHERED`): ``"<name>:<state>"`` and
+    the total ``"tp_<state>"`` in `tp_counts`; nothing where no tensor axis
+    splits the step."""
     if tp()[0] == 1:
         return
     c = _live_counts()
-    key = f"{name}:{'local' if local else 'gathered'}"
-    c[key] = c.get(key, 0) + 1
-    c["tp_local" if local else "tp_gathered"] = c.get("tp_local" if local else "tp_gathered",
-                                                       0) + 1
+    for key in (f"{name}:{state}", f"tp_{state}"):
+        c[key] = c.get(key, 0) + 1
 
 
 def note_seq(name: str) -> None:
     """Count one attention sub-layer ``name`` of a decode step as run over
     this rank's piece of the cache's sequence (``"<name>:seq_local"`` in
-    `tp_counts`; the totals ``tp_local`` / ``tp_gathered`` do not take
-    it)."""
+    `tp_counts`; the totals ``tp_local`` / ``tp_padded`` /
+    ``tp_gathered`` do not take it)."""
     c = _live_counts()
     key = f"{name}:seq_local"
     c[key] = c.get(key, 0) + 1
@@ -745,8 +799,9 @@ def note_seq(name: str) -> None:
 
 def _live_counts() -> dict:
     """This thread's running counts of `note_tp` (``"<name>:local"``,
-    ``"<name>:gathered"``, and the totals ``"tp_local"`` /
-    ``"tp_gathered"``), the dict itself."""
+    ``"<name>:padded"``, ``"<name>:gathered"``, and the totals
+    ``"tp_local"`` / ``"tp_padded"`` / ``"tp_gathered"``), the dict
+    itself."""
     if not hasattr(_STATE, "tp_counts"):
         _STATE.tp_counts = {}
     return _STATE.tp_counts

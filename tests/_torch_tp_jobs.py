@@ -9,10 +9,13 @@ spawned process per rank. Nothing here imports JAX.
     one-device port's prefill and decode: every step's logits, the greedy
     picks and the tensor-parallel counts (`ctx.tp_counts`);
   * ``odd``: the same on ``(1, 2, 2)`` for Minitron cut to 3 q heads over 1
-    K/V head, which do not divide the model axis: attention runs gathered,
-    the MLP and the vocab on their shards; ``odd:whisper_large_v3`` for
-    Whisper cut to 3 heads of 16 (the encoder's attention, the decoder's
-    self- and cross-attention gathered);
+    K/V head, which do not divide the model axis: attention runs padded (4
+    head slots, 2 a rank, the last one padding), the MLP and the vocab on
+    their shards; ``odd:minicpm3_4b`` for MiniCPM3 cut to 3 MLA heads;
+    ``odd:whisper_large_v3`` for Whisper cut to 3 heads of 16 (the
+    encoder's attention, the decoder's self- and cross-attention padded);
+    each from the weights the test module wrote for the cut config
+    (`odd_config`, ``odd_<arch>.pkl``);
   * ``norm``: the SSM block's gated norm on each rank's half of a row whose
     halves differ a hundredfold, against the whole row's;
   * ``tie``: `ctx.tp_argmax` on vocab shards with ties within and across
@@ -54,6 +57,18 @@ SEQ_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "minicpm3_4b", "jamba_v0_1_52b",
 #: last piece no step reaches (all masked). The prompt divides the pieces,
 #: as the reference's prefill shards the cache it returns.
 SEQ_ROWS, SEQ_PROMPT, SEQ_S_MAX = 2, 4, 12
+#: the configs cut to 3 heads, which do not divide a model axis of 2
+ODD_ARCHS = ("minitron_4b", "minicpm3_4b", "whisper_large_v3")
+
+
+def odd_config(cfg, arch: str):
+    """``cfg`` (either package's reduced config of ``arch``) cut to 3
+    attention heads: Minitron's over 1 K/V head, MiniCPM3's MLA heads, and
+    Whisper's 3 heads of 16 (its d_model of 64 over 3 would leave
+    projections of 63 columns, which the model axis cannot split)."""
+    cut = {"minitron_4b": {"num_kv_heads": 1}, "minicpm3_4b": {"num_kv_heads": 3},
+           "whisper_large_v3": {"num_kv_heads": 3, "head_dim": 16}}[arch]
+    return dataclasses.replace(cfg, num_heads=3, **cut)
 
 
 def prompt_batch(cfg, rows: int = B, s_prompt: int = S_PROMPT) -> dict:
@@ -84,7 +99,8 @@ def _parts():
     if spec:
         return [tuple(p.split(":")) for p in spec.split(",")]
     return ([("serve", a, m) for a in TP_ARCHS for m in ("1x2x2", "2x2x1")]
-            + [("odd",), ("odd", "whisper_large_v3"), ("norm",), ("tie",)]
+            + [("odd",), ("odd", "minicpm3_4b"), ("odd", "whisper_large_v3"), ("norm",),
+               ("tie",)]
             + [("seq", a, lay) for a in SEQ_ARCHS for lay in ("seq2", "seq1")]
             + [("seqfp8", "qwen2_moe_a2_7b", "seq2")])
 
@@ -105,16 +121,19 @@ def tp_job(rank: int, world: int) -> dict:
                   torch.float8_e4m3fn if part[0] == "seqfp8" else torch.float32)
         elif part[0] == "odd":
             arch = part[1] if len(part) > 1 else "minitron_4b"
-            # Whisper's 3 heads of 16 (its d_model of 64 over 3 would leave
-            # projections of 63 columns, which the model axis cannot split)
-            cut = {"num_kv_heads": 1} if arch == "minitron_4b" else {"num_kv_heads": 3,
-                                                                   "head_dim": 16}
-            cfg = dataclasses.replace(_fp32(arch), num_heads=3, **cut)
-            _part(out, ":".join(part), _serve_part, cfg, *meshes["1x2x2"])
+            _part(out, ":".join(part), _serve_part, f"odd_{arch}", *meshes["1x2x2"])
         else:
             _part(out, part[0], {"norm": _norm_part, "tie": _tie_part}[part[0]],
                   *meshes["1x2x2"])
     return out
+
+
+def arch_config(arch: str):
+    """The reduced fp32 config of ``arch``, or of ``odd_<arch>`` cut to 3
+    heads (`odd_config`)."""
+    if arch.startswith("odd_"):
+        return odd_config(_fp32(arch[4:]), arch[4:])
+    return _fp32(arch)
 
 
 def _model(cfg, arch):
@@ -125,7 +144,7 @@ def _model(cfg, arch):
     from repro_torch import bridge
     from repro_torch.models import Model
     path = os.path.join(os.environ.get("TP_WEIGHTS", ""), f"{arch}.pkl")
-    if arch is None or not os.path.exists(path):
+    if not os.path.exists(path):
         return Model(cfg, device="cpu")
     with open(path, "rb") as f:
         return Model(cfg, bridge.params_from_numpy(cfg, pickle.load(f), device="cpu"),
@@ -147,8 +166,8 @@ def _serve_part(arch, mesh, plan, rows=B, s_prompt=S_PROMPT, s_max=S_PROMPT + N_
     from repro_torch.models.lm import is_positional
     from repro_torch.serving.engine import trace_collectives
     from repro_torch.sharding import ctx, param_specs
-    cfg = _fp32(arch) if isinstance(arch, str) else arch
-    model = _model(cfg, arch if isinstance(arch, str) else None)
+    cfg = arch_config(arch)
+    model = _model(cfg, arch)
     batch = {k: torch.from_numpy(v) for k, v in prompt_batch(cfg, rows, s_prompt).items()}
     B = rows
     V = cfg.vocab_size

@@ -11,8 +11,11 @@ into a zeroed fp32 cache of ``S_PROMPT + N_NEW + 1`` positions, each step
 fed its own greedy pick. A case ``arch:seq2`` or ``arch:seq1`` runs on
 ``(1, 2, 2)`` under `_torch_tp_jobs.seq_plan` (the cache's sequence over
 the model axis with `SEQ_ROWS` rows, or over the data and model axes with
-one), from `SEQ_PROMPT` tokens in a cache of `SEQ_S_MAX` positions. Every
-step's logits go to ``OUT.npz`` as ``{arch}:{mesh}:{step}``.
+one), from `SEQ_PROMPT` tokens in a cache of `SEQ_S_MAX` positions. A case
+``arch:odd`` runs the config cut to 3 heads (`_torch_tp_jobs.odd_config`,
+the weights of ``odd_<arch>.pkl``) on ``(1, 2, 2)`` under `default_plan()`,
+where the reference's partitioner pads the heads over the model axis of 2.
+Every step's logits go to ``OUT.npz`` as ``{arch}:{mesh}:{step}``.
 """
 import json
 import os
@@ -32,8 +35,8 @@ def case(weights_dir, arch, mname):
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from _torch_tp_jobs import (N_NEW, S_PROMPT, SEQ_PROMPT, SEQ_ROWS, SEQ_S_MAX, prompt_batch,
-                                seq_plan)
+    from _torch_tp_jobs import (N_NEW, S_PROMPT, SEQ_PROMPT, SEQ_ROWS, SEQ_S_MAX, odd_config,
+                                prompt_batch, seq_plan)
 
     from repro.configs import get_reduced_config
     from repro.configs.base import ShapeCell
@@ -42,8 +45,11 @@ def case(weights_dir, arch, mname):
     from repro.sharding import default_plan
     cfg = dataclasses.replace(get_reduced_config(arch), param_dtype="float32",
                               activ_dtype="float32")
+    name = arch
+    if mname == "odd":
+        cfg, name = odd_config(cfg, arch), f"odd_{arch}"
     model = build_model(cfg)
-    with open(os.path.join(weights_dir, f"{arch}.pkl"), "rb") as f:
+    with open(os.path.join(weights_dir, f"{name}.pkl"), "rb") as f:
         params = jax.tree.map(jnp.asarray, pickle.load(f))
     shape = {"2x2x1": (2, 2, 1)}.get(mname, (1, 2, 2))
     s_prompt, s_max, rows = S_PROMPT, S_PROMPT + N_NEW + 1, None

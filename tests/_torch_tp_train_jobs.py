@@ -10,13 +10,19 @@ one spawned process per rank. Nothing here imports JAX.
     the same batch: the loss and metrics, every parameter and moment put
     together (rank 0), the moments of the leaves the model axis replicates
     as each rank holds them, and the tensor-parallel counts (`ctx.tp_counts`);
+  * ``step`` of ``odd_minitron_4b`` and ``odd_whisper_large_v3``: the
+    configs cut to 3 heads (`_torch_tp_jobs.odd_config`), which do not
+    divide the model axis of 2: attention runs on each rank's padded head
+    slots, its leaves' gradients summed over the axis;
   * ``frames``: the ``step`` of Whisper on ``(1, 2, 2)`` with sequence
     parallelism, its encoder fed `ODD_FRAMES` frames, which do not divide
     the model axis: the encoder's residual stream stays whole while the
     decoder's is cut (each stack's `ctx.sp_on` verdict recorded);
   * ``ops``: each autograd collective of `sharding.ctx` (forward and
     backward) on the model axis of 2 against the same function on one
-    device, and the wrong backward of each all-reduce beside it.
+    device, and the wrong backward of each all-reduce beside it; a padded
+    leaf's cut (`ctx.slot_cut`) and the sum of its gradient over the axis,
+    against the cut backward.
 
 To debug a part alone: ``DIST_JOB_TRACE=1`` prints each part as a rank
 enters it, and ``TP_TRAIN_PARTS=step:minitron_4b:1x2x2:sp:1:fp32,ops`` picks
@@ -29,11 +35,15 @@ import os
 import numpy as np
 import torch
 from _torch_dist_jobs import LR, WD, _fp32, _full, _meshes, _part, _train_check
+from _torch_tp_jobs import arch_config
 
 TRAIN_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "mamba2_370m", "jamba_v0_1_52b",
                "minicpm3_4b", "qwen2_vl_2b", "whisper_large_v3")
 B, S = 8, 16
 
+#: the configs cut to 3 heads (`_torch_tp_jobs.odd_config`) a case trains
+#: as ``odd_<arch>``
+ODD_TRAIN = ("minitron_4b", "whisper_large_v3")
 #: (arch, mesh, sequence parallelism: "sp" as `plan_for_cell` sets it, "nosp"
 #: forced off; accumulation steps; the gradients' reduce dtype)
 CASES = ([(a, "1x2x2", "sp", 1, "fp32") for a in TRAIN_ARCHS]
@@ -42,7 +52,8 @@ CASES = ([(a, "1x2x2", "sp", 1, "fp32") for a in TRAIN_ARCHS]
          + [(a, "2x2x1", "sp", 1, "fp32") for a in ("minitron_4b", "qwen2_moe_a2_7b",
                                                      "mamba2_370m")]
          + [("minitron_4b", "2x2x1", "sp", 2, "fp32"),
-            ("minitron_4b", "1x2x2", "sp", 2, "bfloat16")])
+            ("minitron_4b", "1x2x2", "sp", 2, "bfloat16")]
+         + [(f"odd_{a}", "1x2x2", "sp", 1, "fp32") for a in ODD_TRAIN])
 
 
 #: the encoder frames of the ``frames`` part: odd, so that a model axis of 2
@@ -154,7 +165,7 @@ def _step_part(arch, mname, sp, accum, dtype, meshes, cfg=None):
     from repro_torch.optim import AdamW
     from repro_torch.sharding import batch_specs, ctx, param_specs
     mesh, _ = meshes[mname]
-    cfg = cfg or _fp32(arch)
+    cfg = cfg or arch_config(arch)
     plan = plan_of(cfg, mname, sp, {m: p for m, (_, p) in meshes.items()})
     reduce_dtype = None if dtype == "fp32" else dtype
     opt = AdamW(lr=LR, weight_decay=WD)
@@ -346,4 +357,44 @@ def _ops_part(mesh, plan):
         res[shard_grads] = [list(kept.shape), _err(kept, w1[:, c0:c0 + 5]),
                             _err(gl, gw[r0:r0 + 3, c0:c0 + 5])]
     out["gather_shard"] = res
+    out["padded"] = _padded_part(mesh, plan)
+    return out
+
+
+def _padded_part(mesh, plan):
+    """A padded head group's leaves on the model axis of 2: 3 heads of
+    width 2, stored as the plan stores them (``wq`` columns and ``wo`` rows
+    split 3 and 3 over the axis, 1.5 heads a rank), each gathered whole and
+    cut to the rank's 2 head slots (`ctx.slot_cut`; rank 1's second slot
+    padding), the rank's partial product summed over the axis. Errors of
+    the forward and of ``wq``'s and ``wo``'s gradients (each rank's shard
+    put together) against one device, with the gradient summed over the
+    axis (``summed``) and with the gathered leaf's backward cut, as a
+    replicated leaf's is."""
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.plan import P, leaf_sharding
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((4, 5), generator=g, dtype=torch.float64)
+    wq = torch.randn((5, 6), generator=g, dtype=torch.float64)
+    wo = torch.randn((6, 5), generator=g, dtype=torch.float64)
+    wq1, wo1 = wq.clone().requires_grad_(True), wo.clone().requires_grad_(True)
+    y1 = torch.tanh(x @ wq1) @ wo1
+    gq1, go1 = torch.autograd.grad((y1 * y1).sum(), [wq1, wo1])
+    out = {}
+    with ctx.activation_sharding(mesh, plan, tensor_parallel=True):
+        for how in ("summed", "cut"):
+            leaves = []
+            for w, spec, dim in ((wq, P(None, "model"), 1), (wo, P("model", None), 0)):
+                wp = ctx.place(w, leaf_sharding(mesh, spec))
+                local = ctx.local_shard(wp).detach().clone().requires_grad_(True)
+                plan_w = ctx.gather_plan(wp, None, stacked=False,
+                                         summed="model" if how == "summed" else None)
+                whole = ctx.gather_shard(local, plan_w)
+                leaves.append((local, ctx.slot_cut(whole, ctx.SlotCut(dim, 2, 3))))
+            (lq, q), (lo, o) = leaves
+            y = ctx.tp_reduce(torch.tanh(ctx.tp_enter(x) @ q) @ o)
+            gq, go = torch.autograd.grad((y * y).sum(), [lq, lo])
+            out[how] = [_err(y, y1), _err(ctx.tp_gather(gq, 1), gq1),
+                        _err(ctx.tp_gather(go, 0), go1)]
+        out["slots"] = list(q.shape)
     return out

@@ -29,6 +29,7 @@ def case(weights_dir, arch, mname, sp, accum, dtype):
     import jax
     import jax.numpy as jnp
     import numpy as np
+    from _torch_tp_jobs import odd_config
     from _torch_tp_train_jobs import B, LR, S, WD, train_batch
 
     from repro.configs import get_reduced_config
@@ -38,8 +39,11 @@ def case(weights_dir, arch, mname, sp, accum, dtype):
     from repro.models import build_model
     from repro.optim import AdamW
     from repro.sharding import default_plan
-    cfg = dataclasses.replace(get_reduced_config(arch), param_dtype="float32",
+    base = arch[4:] if arch.startswith("odd_") else arch
+    cfg = dataclasses.replace(get_reduced_config(base), param_dtype="float32",
                               activ_dtype="float32")
+    if arch.startswith("odd_"):     # cut to 3 heads: the partitioner pads them
+        cfg = odd_config(cfg, base)
     model = build_model(cfg)
     with open(os.path.join(weights_dir, f"{arch}.pkl"), "rb") as f:
         params = jax.tree.map(jnp.asarray, pickle.load(f))

@@ -222,8 +222,9 @@ def test_collectives_of_one_gathered_layer_on_2x2(jobs):
 def test_reduced_decode_tensor_parallel_on_the_fake_world(jobs):
     """Reduced Minitron-4B's ``decode_32k`` on the fake 16 x 16 world: its
     4 q heads (and 2 K/V heads) do not divide the model axis of 16, so its
-    attention runs gathered, counted so; the MLP's 192 columns and the
-    vocab's 256 run on their shards. The plan shards the cache's sequence
+    attention runs padded (16 head slots, one a rank, ranks 4-15 padding
+    alone), counted so; the MLP's 192 columns and the vocab's 256 run on
+    their shards. The plan shards the cache's sequence
     over the model axis, and each rank attends over its own 2,048 of the
     32,768 positions (``attn:seq_local``): FLOPs a rank within 2x of the
     reference's partitioned step's (the gathered sequence counted 18.8x),
@@ -235,8 +236,8 @@ def test_reduced_decode_tensor_parallel_on_the_fake_world(jobs):
     ref = jobs["reference"]["records"]["minitron_4b:decode_32k"]
     for cell in ("minitron_4b:decode_32k", "minitron_4b:decode_32k:optimized"):
         rec = jobs["port"]["records"][cell]
-        assert rec["tp"] == {"vocab:local": 1, "attn:gathered": L, "attn_kv:gathered": L,
-                             "mlp:local": L, "tp_local": 1 + L, "tp_gathered": 2 * L,
+        assert rec["tp"] == {"vocab:local": 1, "attn:padded": L, "attn_kv:padded": L,
+                             "mlp:local": L, "tp_local": 1 + L, "tp_padded": 2 * L,
                              "attn:seq_local": L}
         assert rec["flops"] <= 2 * ref["flops"]
     rec = jobs["port"]["records"]["minitron_4b:decode_32k"]

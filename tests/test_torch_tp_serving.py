@@ -12,11 +12,13 @@ that beside the rest of the suite on a loaded machine):
     (MLA), Qwen2-VL (M-RoPE) and Whisper (enc-dec), each on ``(1, 2, 2)``
     under `default_plan()` (a model axis of 2: tensor-parallel) and
     ``(2, 2, 1)`` under `default_plan(multi_pod=True)` (a model axis of 1);
-    Minitron and Whisper cut to heads that do not divide the axis; the
-    gated norm and the vocab argmax on shards;
+    Minitron, MiniCPM3 and Whisper cut to 3 heads, which do not divide the
+    axis (attention padded, as the reference pads it); the gated norm and
+    the vocab argmax on shards;
   * the reference's `jit_prefill` / `jit_decode_step` on the same weights
     and prompts, in one child process per mesh (`_torch_tp_ref.py`,
-    ``XLA_FLAGS`` for 4 host devices and one intra-op thread);
+    ``XLA_FLAGS`` for 4 host devices and one intra-op thread), and one for
+    the configs cut to 3 heads;
   * in the same job and children, the decode step over a sequence-sharded
     cache (`ctx.seq_axes`) on ``(1, 2, 2)`` for reduced fp32 Minitron
     (attention gathered), Qwen1.5-MoE (heads local), MiniCPM3 (MLA), Jamba
@@ -42,7 +44,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 from _torch_dist_jobs import _fp32, run_job
-from _torch_tp_jobs import N_NEW, SEQ_ARCHS, TP_ARCHS
+from _torch_tp_jobs import N_NEW, ODD_ARCHS, SEQ_ARCHS, TP_ARCHS, arch_config
 
 from repro_torch import tree as tree_util
 from repro_torch.models import Model
@@ -50,6 +52,8 @@ from repro_torch.models import Model
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = ("1x2x2", "2x2x1")
 SEQ_LAYOUTS = ("seq2", "seq1")
+#: the reference's child of the configs cut to 3 heads (`_torch_tp_ref.py`)
+ODD = "odd"
 REL = 1e-5
 #: the rank job is killed when no part finishes for STALL_S seconds, every
 #: process after LIMIT_S in all: the fixture takes ~45 s alone and took
@@ -61,19 +65,21 @@ LIMIT_S = 1200
 @pytest.fixture(scope="module")
 def jobs():
     tmp = tempfile.mkdtemp()
-    for arch in dict.fromkeys(TP_ARCHS + SEQ_ARCHS):
-        tree = tree_util.map_tree(lambda _, x: x.numpy(), Model(_fp32(arch), device="cpu").params)
+    for arch in list(dict.fromkeys(TP_ARCHS + SEQ_ARCHS)) + [f"odd_{a}" for a in ODD_ARCHS]:
+        tree = tree_util.map_tree(lambda _, x: x.numpy(),
+                                  Model(arch_config(arch), device="cpu").params)
         with open(os.path.join(tmp, f"{arch}.pkl"), "wb") as f:
             pickle.dump(tree, f)
+    archs = {ODD: ODD_ARCHS, **{m: SEQ_ARCHS for m in SEQ_LAYOUTS}}
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
                JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     env.pop("XLA_FLAGS", None)
     refs = {m: subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "_torch_tp_ref.py"), tmp,
          os.path.join(tmp, f"ref_{m}.npz"),
-         ",".join(f"{a}:{m}" for a in (SEQ_ARCHS if m in SEQ_LAYOUTS else TP_ARCHS))],
+         ",".join(f"{a}:{m}" for a in archs.get(m, TP_ARCHS))],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
-        for m in MESHES + SEQ_LAYOUTS}
+        for m in MESHES + SEQ_LAYOUTS + (ODD,)}
     deadline = time.monotonic() + LIMIT_S
     old = os.environ.get("TP_WEIGHTS")
     os.environ["TP_WEIGHTS"] = tmp
@@ -193,43 +199,67 @@ def test_every_dividing_dim_ran_local(jobs, arch):
                                                              "decode": [{}] * N_NEW}
 
 
-def test_heads_that_do_not_divide_run_gathered(jobs):
-    """Minitron cut to 3 q heads over 1 K/V head on the model axis of 2:
-    attention gathers its layers whole and is counted so, the MLP and the
-    vocab run on their shards; the logits and picks are the one-device
-    port's."""
-    L = _fp32("minitron_4b").num_layers
+def _odd_part(arch: str) -> str:
+    return "odd" if arch == "minitron_4b" else f"odd:{arch}"
+
+
+@pytest.mark.parametrize("arch", ["minitron_4b", "minicpm3_4b"])
+def test_heads_that_do_not_divide_run_padded(jobs, arch):
+    """Minitron cut to 3 q heads over 1 K/V head, MiniCPM3 to 3 MLA heads,
+    on the model axis of 2: attention runs on each rank's 2 padded head
+    slots (rank 1's second slot padding) and is counted so, K/V computed
+    whole and read by each slot's index, the MLP and the vocab on their
+    shards; the logits and picks are the one-device port's."""
+    L = _fp32(arch).num_layers
+    mixer = {"minitron_4b": {"attn:padded": L, "attn_kv:padded": L},
+             "minicpm3_4b": {"mla:padded": L}}[arch]
+    want = {"vocab:local": 1, "mlp:local": L, "tp_local": 1 + L, **mixer,
+            "tp_padded": sum(mixer.values())}
     for out in jobs["ranks"]:
-        r = _ok(out["odd"])
-        want = {"vocab:local": 1, "attn:gathered": L, "attn_kv:gathered": L, "mlp:local": L,
-                "tp_local": 1 + L, "tp_gathered": 2 * L}
+        r = _ok(out[_odd_part(arch)])
         assert r["counts"]["prefill"] == want
         assert r["counts"]["decode"] == [want] * N_NEW
         _close(r["logits"], r["one_logits"])
         assert np.array_equal(r["picks"], r["one_picks"])
 
 
-def test_whisper_heads_that_do_not_divide_run_gathered(jobs):
+def test_whisper_heads_that_do_not_divide_run_padded(jobs):
     """Whisper cut to 3 heads on the model axis of 2: the encoder's
-    attention and the decoder's self- and cross-attention gather their
-    layers whole and are counted so, the MLPs and the vocab run on their
-    shards; the logits and picks are the one-device port's."""
+    attention and the decoder's self- and cross-attention run on each
+    rank's padded head slots and are counted so (the cross cache whole over
+    the heads), the MLPs and the vocab on their shards; the logits and
+    picks are the one-device port's."""
     cfg = _fp32("whisper_large_v3")
     L, L_enc = cfg.num_layers, cfg.encdec.num_encoder_layers
     dec = {"vocab:local": 1, "dec_mlp:local": L,
-           **{f"{a}:gathered": L for a in ("self_attn", "self_attn_kv", "cross_attn",
-                                           "cross_attn_kv")}}
-    pre = dict(dec, **{"enc_attn:gathered": L_enc, "enc_attn_kv:gathered": L_enc,
+           **{f"{a}:padded": L for a in ("self_attn", "self_attn_kv", "cross_attn",
+                                         "cross_attn_kv")}}
+    pre = dict(dec, **{"enc_attn:padded": L_enc, "enc_attn_kv:padded": L_enc,
                        "enc_mlp:local": L_enc})
     for want in (dec, pre):
         want["tp_local"] = sum(n for k, n in want.items() if k.endswith(":local"))
-        want["tp_gathered"] = sum(n for k, n in want.items() if k.endswith(":gathered"))
+        want["tp_padded"] = sum(n for k, n in want.items() if k.endswith(":padded"))
     for out in jobs["ranks"]:
         r = _ok(out["odd:whisper_large_v3"])
         assert r["counts"]["prefill"] == pre
         assert r["counts"]["decode"] == [dec] * N_NEW
         _close(r["logits"], r["one_logits"])
         assert np.array_equal(r["picks"], r["one_picks"])
+
+
+@pytest.mark.parametrize("arch", ODD_ARCHS)
+def test_padded_heads_match_reference_builders(jobs, arch):
+    """The configs cut to 3 heads against the reference's `jit_prefill` and
+    `jit_decode_step` on ``(1, 2, 2)``, whose partitioner pads the heads
+    over the model axis of 2, fed their own greedy picks: logits within
+    REL, picks equal."""
+    st = jobs["status"][f"{arch}:{ODD}"]
+    assert st["status"] == "ok", st.get("trace")
+    want = [jobs["ref"][f"{arch}:{ODD}:{i}"] for i in range(N_NEW + 1)]
+    r = _ok(jobs["ranks"][0][_odd_part(arch)])
+    _close(r["logits"], want)
+    V = _fp32(arch).vocab_size
+    assert np.array_equal(r["picks"], np.stack([w[:, :V].argmax(-1) for w in want], 1))
 
 
 def test_gated_norm_takes_the_global_mean(jobs):

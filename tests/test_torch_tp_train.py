@@ -18,6 +18,8 @@ the reference's children ~50 s each):
     VLM and enc-dec configs), Minitron with it forced off, and three
     configs on ``(2, 2, 1)`` under `default_plan(multi_pod=True)`; one and
     two accumulation steps; one step whose gradients are reduced in bf16;
+    Minitron and Whisper cut to 3 heads (``odd_<arch>``), their attention
+    on each rank's padded head slots;
     Whisper's step with 33 encoder frames, which the model axis cannot cut
     (its encoder's residual stream whole, the decoder's cut); beside each,
     the one-device port's step on the same weights and batch; and the
@@ -47,8 +49,9 @@ from pathlib import Path
 import numpy as np
 import pytest
 from _torch_dist_jobs import LR, WD, _fp32, run_job
-from _torch_tp_train_jobs import (BF16_SHARE, CASES, ODD_FRAMES, S, TRAIN_ARCHS, bf16_excess,
-                                  case_name)
+from _torch_tp_jobs import arch_config
+from _torch_tp_train_jobs import (BF16_SHARE, CASES, ODD_FRAMES, ODD_TRAIN, S, TRAIN_ARCHS,
+                                  bf16_excess, case_name)
 
 from repro_torch import tree as tree_util
 from repro_torch.models import Model
@@ -79,8 +82,9 @@ def _ref_split(names, n):
 @pytest.fixture(scope="module")
 def jobs():
     tmp = tempfile.mkdtemp()
-    for arch in TRAIN_ARCHS:
-        tree = tree_util.map_tree(lambda _, x: x.numpy(), Model(_fp32(arch), device="cpu").params)
+    for arch in TRAIN_ARCHS + tuple(f"odd_{a}" for a in ODD_TRAIN):
+        tree = tree_util.map_tree(lambda _, x: x.numpy(),
+                                  Model(arch_config(arch), device="cpu").params)
         with open(os.path.join(tmp, f"{arch}.pkl"), "wb") as f:
             pickle.dump(tree, f)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT / "tests")]),
@@ -225,7 +229,8 @@ def _want_counts(arch, forwards):
     return want
 
 
-@pytest.mark.parametrize("case", [c for c in NAMES if ":1x2x2:" in c])
+@pytest.mark.parametrize("case", [c for c in NAMES
+                                  if ":1x2x2:" in c and not c.startswith("odd_")])
 def test_every_dividing_dim_ran_local(jobs, case):
     """On ``(1, 2, 2)`` every group of the config and the vocab ran on its
     model-axis shard, once per forward (a recomputed layer is not counted
@@ -238,6 +243,28 @@ def test_every_dividing_dim_ran_local(jobs, case):
     for other in NAMES:
         if ":2x2x1:" in other:
             assert _ok(jobs["ranks"][0][other])["counts"] == {}
+
+
+@pytest.mark.parametrize("arch", ODD_TRAIN)
+def test_heads_that_do_not_divide_run_padded(jobs, arch):
+    """Minitron cut to 3 q heads over 1 K/V head and Whisper to 3 heads of
+    16, on the model axis of 2: every attention ran on the rank's padded
+    head slots (K/V whole, read by index), once per forward, every other
+    group and the vocab on its shard, none gathered."""
+    cfg = arch_config(f"odd_{arch}")
+    if cfg.encdec is not None:
+        L, L_enc = cfg.num_layers, cfg.encdec.num_encoder_layers
+        want = {"vocab:local": 1, "enc_mlp:local": L_enc, "dec_mlp:local": L,
+                "enc_attn:padded": L_enc, "enc_attn_kv:padded": L_enc}
+        for a in ("self_attn", "self_attn_kv", "cross_attn", "cross_attn_kv"):
+            want[f"{a}:padded"] = L
+    else:
+        L = cfg.num_layers
+        want = {"vocab:local": 1, "mlp:local": L, "attn:padded": L, "attn_kv:padded": L}
+    for state in ("local", "padded"):
+        want[f"tp_{state}"] = sum(n for k, n in want.items() if k.endswith(f":{state}"))
+    for out in jobs["ranks"]:
+        assert _ok(out[f"odd_{arch}:1x2x2:sp:1:fp32"])["counts"] == want
 
 
 def test_sequence_parallel_where_the_plan_sets_it(jobs):
@@ -297,6 +324,20 @@ def test_each_all_reduce_needs_its_own_backward(jobs):
     for out in jobs["ranks"]:
         r = _ok(out["ops"])
         assert r["reduce_wrong"] > 1.0 and r["sum_shard_wrong"] > 0.1
+
+
+def test_padded_leaf_gradient_sums_over_the_axis(jobs):
+    """A padded head group's leaves (3 heads, stored 1.5 heads a rank),
+    gathered whole and cut to each rank's 2 head slots: the forward is the
+    one-device product, and each leaf's gradient, summed over the model axis
+    into the rank's shard (``summed``: a reduce-scatter), is the
+    one-device gradient's shard; cut as a replicated leaf's backward is,
+    each rank would keep its own slots' part alone, far off."""
+    for out in jobs["ranks"]:
+        r = _ok(out["ops"])["padded"]
+        assert r["slots"] == [5, 4]
+        assert max(r["summed"]) <= TOL, r["summed"]
+        assert r["cut"][0] <= TOL and min(r["cut"][1:]) > 0.1, r["cut"]
 
 
 def test_layer_gather_returns_the_summed_shard(jobs):

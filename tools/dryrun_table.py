@@ -8,16 +8,17 @@ Reads the JSON records `python -m repro_torch.launch.dryrun` writes (one a
 cell and mesh). Each mesh's cell shows the argument and peak GB a rank
 (peak marked ``*`` where it exceeds the card's memory), the FLOPs a rank,
 the wire GB a rank moves over each mesh axis, and the roofline term that
-bounds the step, how many sub-layers ran on their model-axis shard and
-gathered whole (and how many attention sub-layers of a decode step ran
-over the rank's piece of the cache's sequence), and the tensor-parallel
-groups a step ran gathered where
-their dim does not divide the model axis (``tp`` counts of the record); a
-cell that raised shows its error's type and its first words. ``--base
-DIR`` prints instead, for each record of ``--dir``, its figures beside
-those of the same cell and mesh in ``DIR`` (an older tree's sweep): the
-argument and peak GB a rank, the FLOPs a rank, the wire GB a rank per axis
-and the bound, before and after.
+bounds the step, how many sub-layers ran on their model-axis shard, on
+their padded head slots and gathered whole (and how many attention
+sub-layers of a decode step ran over the rank's piece of the cache's
+sequence), and the tensor-parallel groups a step ran padded or gathered
+where their dim does not divide the model axis (``tp`` counts of the
+record); a cell that raised shows its error's type and its first words.
+``--base DIR`` prints instead, for each record of ``--dir``, its figures
+beside those of the same cell and mesh in ``DIR`` (an older tree's sweep):
+the argument and peak GB a rank, the FLOPs a rank, the wire GB a rank per
+axis, the bound and the local / padded / gathered counts, before and
+after.
 """
 from __future__ import annotations
 
@@ -40,18 +41,28 @@ def cell_text(rec: dict) -> str:
     peak = m["peak_bytes"] / 1e9
     wire = ", ".join(f"{k} {v / 1e9:.2f}" for k, v in sorted(col["wire_bytes_by_axis"].items()))
     tp = rec.get("tp", {})
-    gathered = sorted({k.split(":")[0] for k in tp if k.endswith(":gathered")})
     seq = sum(n for k, n in tp.items() if k.endswith(":seq_local"))
-    counts = (f", tp {tp.get('tp_local', 0)} local / {tp.get('tp_gathered', 0)} gathered"
-              + (f" / {seq} seq-local" if seq else "") if tp else "")
+    counts = (f", tp {_tp_counts(tp)}" + (f" / {seq} seq-local" if seq else "") if tp else "")
+    names = "".join(f", {state}: {' '.join(_groups(tp, state))}"
+                    for state in ("padded", "gathered") if _groups(tp, state))
     return (f"{m['argument_bytes'] / 1e9:.2f} / {peak:.2f}{'' if m['fits'] else '*'} GB, "
             f"{rec['cost']['hlo_flops_per_device'] / 1e12:.3g} TF, wire GB {wire or 'none'}, "
-            f"{TERMS[rf['bottleneck']]}{counts}"
-            + (f", gathered: {' '.join(gathered)}" if gathered else ""))
+            f"{TERMS[rf['bottleneck']]}{counts}{names}")
+
+
+def _tp_counts(tp: dict) -> str:
+    """The sub-layers a step ran local, padded and gathered."""
+    return " / ".join(f"{tp.get(f'tp_{s}', 0)} {s}" for s in ("local", "padded", "gathered"))
+
+
+def _groups(tp: dict, state: str) -> list:
+    """The tensor-parallel groups a step ran in ``state``."""
+    return sorted({k.split(":")[0] for k in tp if k.endswith(f":{state}")})
 
 
 def _short(rec: dict) -> str:
-    """A record's argument / peak GB, TFLOP, wire GB per axis and bound."""
+    """A record's argument / peak GB, TFLOP, wire GB per axis, bound and
+    tensor-parallel counts."""
     if rec is None:
         return "not run"
     if rec.get("status") != "ok":
@@ -59,9 +70,10 @@ def _short(rec: dict) -> str:
     m, rf = rec["memory"], rec["roofline"]
     wire = ", ".join(f"{k} {v / 1e9:.2f}"
                      for k, v in sorted(rec["collectives"]["wire_bytes_by_axis"].items()))
+    tp = rec.get("tp", {})
     return (f"{m['argument_bytes'] / 1e9:.2f} / {m['peak_bytes'] / 1e9:.2f}"
             f"{'' if m['fits'] else '*'} GB, {rec['cost']['hlo_flops_per_device'] / 1e12:.3g} "
-            f"TF, {wire}, {TERMS[rf['bottleneck']]}")
+            f"TF, {wire}, {TERMS[rf['bottleneck']]}" + (f", tp {_tp_counts(tp)}" if tp else ""))
 
 
 def _load(path: str) -> dict:

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Tensor parallelism emulated on ONE card: two threads, each one rank of a
-model axis of 2, against the same config run whole.
+"""Tensor parallelism emulated on ONE card: ``N`` threads (2 by default),
+each one rank of a model axis of ``N``, against the same config run whole.
 
-    python3 tools/tp_emulate.py [--device cpu] [--train | --decode | --whisper]
+    python3 tools/tp_emulate.py [--device cpu] [--tp N]
+                                [--train | --decode | --whisper | --padded]
 
 Each thread holds its rank's cut of the seeded weights as plain tensors
 (the model-axis dim of every group `lm.tp_groups` runs local, and the
-vocab), and runs the model's own code; the collectives of a
-tensor-parallel step (`sharding.ctx.tp`, `tp_sum`, `tp_gather`,
-`tp_reduce_scatter`, `tp_max`, which the autograd rules of a train step
-call too) are exchanged between the two threads at a barrier, in rank
-order, as an all-reduce, an all-gather and a reduce-scatter over two ranks
-compute them. What runs on the card is every line of the tensor-parallel
-model code; what does not is NCCL and the FSDP gathers
-(`tools/engine_ranks.py` and `tools/train_ranks.py` run those on four
-cards).
+vocab; the leaves of padded attention heads stay whole, and the model cuts
+each layer's to the rank's head slots, `sharding.ctx.slot_cut`), and runs
+the model's own code; the collectives of a tensor-parallel step
+(`sharding.ctx.tp`, `tp_sum`, `tp_gather`, `tp_reduce_scatter`, `tp_max`,
+which the autograd rules of a train step call too) are exchanged between
+the threads at a barrier, in rank order, as an all-reduce, an all-gather
+and a reduce-scatter over ``N`` ranks compute them. What runs on the card
+is every line of the tensor-parallel model code; what does not is NCCL and
+the FSDP gathers (`tools/engine_ranks.py` and `tools/train_ranks.py` run
+those on four cards).
 
 Serving (the default) runs the prefill and three greedy decode steps with
 the card's kernels, and prints, per case, each step's logits against the
@@ -58,6 +60,18 @@ decode from the same cache: each step's logits within `DEC_REL` of its
 largest, picks equal. Then again with the cache in ``float8_e4m3fn``
 (both sides start from the same fp8 bytes), against the whole model's fp8
 decode on the CPU. ``chip_smoke.py`` runs the same check.
+
+``--padded`` runs attention heads that do not divide the model axis
+(`padded_case`), on ``--tp`` threads (16 by default, the one extent on
+which the shipped configs pad): fp32 Minitron-4B (24 q heads over 8 K/V
+heads: 2 slots a rank, ranks 12-15 padding alone) and MiniCPM3-4B (40 MLA
+heads: 3 slots a rank, the last rank's last 8 padding) at full width and
+2 layers, a prefill (flash on each thread's slots, each slot reading its
+K/V head by index) and `DEC_NEW` greedy decode steps against the whole
+model, each step's logits within `DEC_REL` of its largest, picks equal,
+every attention counted padded; then Minitron's train step (`train_case`,
+sequence-parallel, B=2 x S=1024), a padded leaf's gradient the sum of the
+threads' (each thread's is its own slots' part).
 """
 from __future__ import annotations
 
@@ -81,7 +95,7 @@ CASES = (("qwen2_moe_a2_7b", None, "bfloat16"), ("qwen2_moe_a2_7b", 12, "float32
 #: dispatch group of 1024 a row), the loss in chunks of 256, the card's LR
 TRAIN_ARCHS = ("minitron_4b", "qwen2_moe_a2_7b", "whisper_large_v3")
 TRAIN_LAYERS, TRAIN_B, TRAIN_S, TRAIN_LOSS_CHUNK, TRAIN_LR = 2, 2, 1024, 256, 1e-4
-N = 2                   # ranks of the emulated model axis
+N = 2                   # ranks of the emulated model axis (`ranks`)
 B, S, NEW = 4, 64, 3
 #: the sequence-sharded decode: (arch, layers, heads on their shards), fp32
 #: at full width; a prompt of DEC_S in a cache of DEC_S_MAX positions, so
@@ -95,10 +109,29 @@ DEC_REL = 1e-5
 #: prompts of WHISPER_S tokens over the config's 1500 frames, WHISPER_NEW
 #: greedy decode steps (the reduced config on the CPU: prompts of 8)
 WHISPER_LAYERS, WHISPER_B, WHISPER_S, WHISPER_NEW = 2, 2, 128, 8
+#: the padded heads (`padded_case`): fp32 at full width and PADDED_LAYERS
+#: layers on PADDED_TP threads, PADDED_B prompts of PADDED_S tokens, then
+#: DEC_NEW greedy decode steps (the reduced configs on the CPU: 4 heads on
+#: 16 threads, 1 slot a rank)
+PADDED_ARCHS = ("minitron_4b", "minicpm3_4b")
+PADDED_TP, PADDED_LAYERS, PADDED_B, PADDED_S = 16, 2, 2, 128
 
 _TL = threading.local()
 _BAR = threading.Barrier(N)
 _SLOTS: list = [None] * N
+
+
+@contextlib.contextmanager
+def ranks(n: int):
+    """The emulated model axis at ``n`` ranks (threads) for the block, the
+    previous extent restored after."""
+    global N, _BAR, _SLOTS
+    saved = N, _BAR, _SLOTS
+    N, _BAR, _SLOTS = n, threading.Barrier(n), [None] * n
+    try:
+        yield
+    finally:
+        N, _BAR, _SLOTS = saved
 
 
 def _exchange(x):
@@ -126,7 +159,7 @@ def _seq_on() -> bool:
 
 
 def _install(ctx) -> None:
-    """The model axis's collectives over the two threads (outside an
+    """The model axis's collectives over the `N` threads (outside an
     emulated rank's thread, a step of one rank); in a thread of
     `decode_case`, the model axis cuts the cache's sequence too."""
     import torch
@@ -189,30 +222,37 @@ def _run_ranks(fn) -> list:
     return res
 
 
-def _local_leaves(cfg) -> frozenset:
-    """Every leaf path of the parameter tree (``layers/mixer/wq``,
-    ``dec_layers/cross_attn/wk``, ``embed`` ...) that the step keeps as
-    this rank's shard: the local groups' leaves of each layer stack, and the
-    embedding and LM head where the vocab runs local. Inside the step's
-    context."""
+def _tp_leaves(cfg):
+    """``(local, padded)``: the leaf paths of the parameter tree
+    (``layers/mixer/wq``, ``dec_layers/cross_attn/wk``, ``embed`` ...) that
+    the step keeps as this rank's shard (the local groups' leaves of each
+    layer stack, and the embedding and LM head where the vocab runs local),
+    and those of padded head groups, which the model cuts to the rank's
+    head slots itself. Inside the step's context."""
     from repro_torch.models import lm
+    from repro_torch.sharding import ctx
     groups = lm.tp_groups(cfg)
     if cfg.encdec is not None:
-        stacks = {s: lm.encdec_local_paths(s, groups) for s in lm.ENCDEC_SUBLAYERS}
+        stacks = {s: lm.encdec_cut(cfg, s, groups) for s in lm.ENCDEC_SUBLAYERS}
     else:
-        stacks = {"layers": lm._local_paths(cfg, groups)}
-    out = {f"{s}/{p}" for s, paths in stacks.items() for p in paths}
-    return frozenset(out | ({"embed", "lm_head"} if groups["vocab"] else set()))
+        stacks = {"layers": lm.tp_cut(cfg, groups)}
+    local = {f"{s}/{p}" for s, cut in stacks.items() for p in cut.local}
+    if groups["vocab"] == ctx.LOCAL:
+        local |= {"embed", "lm_head"}
+    padded = {f"{s}/{p}" for s, cut in stacks.items() for p in cut.padded}
+    return frozenset(local), frozenset(padded)
 
 
 def cut_params(cfg, params, plan, r):
     """Emulated rank ``r``'s tree: the leaves of the groups that run local
     (and the vocab) cut to its shard of their model-axis dim, as plain
-    tensors (`_local_leaves`); every other leaf as it is. Inside the step's
-    context."""
+    tensors (`_tp_leaves`); every other leaf as it is (a padded leaf too:
+    the model cuts each layer's to the rank's head slots). Returns the tree,
+    the cut leaves' ``(name, dim)`` and the padded leaves' names. Inside
+    the step's context."""
     from repro_torch import tree as tree_util
     from repro_torch.sharding.plan import param_specs
-    local = _local_leaves(cfg)
+    local, padded = _tp_leaves(cfg)
     specs = dict(tree_util.items(param_specs(cfg, plan)))
     leaves, cut = [], set()
     for name, x in tree_util.items(params):
@@ -223,7 +263,7 @@ def cut_params(cfg, params, plan, r):
             x = x.narrow(d, r * w, w).contiguous()
             cut.add((name, d))
         leaves.append(x)
-    return tree_util.like(params, leaves), cut
+    return tree_util.like(params, leaves), cut, padded
 
 
 def _fp32_layers(arch, reduced: bool, layers: int):
@@ -289,23 +329,32 @@ def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
 
     def rank(r):
         with ctx.activation_sharding(mesh, plan, tensor_parallel=True):
-            params, cut = cut_params(cfg, model.params, plan, r)
+            params, cut, padded = cut_params(cfg, model.params, plan, r)
             ctx.reset_tp_counts()
             loss, _, grads = steps._loss_and_grads(model, params, batch)
-            return float(loss), grads, cut, ctx.tp_counts()
+            return float(loss), grads, cut, ctx.tp_counts(), padded
 
     with installed(ctx):
         res = _run_ranks(rank)
     tp_s = time.perf_counter() - t0
     names = [name for name, _ in tree_util.items(model.params)]
-    cut = dict(res[0][2])
-    # the global norm: a cut leaf's squares on both ranks, a replicated one's once
-    sq = sum(float(sum(res[r][1][i].double().square().sum() for r in range(N))
-                   if name in cut else res[0][1][i].double().square().sum())
-             for i, name in enumerate(names))
+    cut, padded = dict(res[0][2]), res[0][4]
+
+    def whole_grad(i, name):
+        """Leaf ``i``'s gradient as the whole step holds it: a cut leaf's
+        shards put together, a padded leaf's parts (each rank's own head
+        slots) summed, a replicated leaf's as rank 0 holds it."""
+        if name in cut:
+            return torch.cat([res[r][1][i] for r in range(N)], cut[name])
+        if name in padded:
+            return functools.reduce(operator.add, [res[r][1][i] for r in range(N)])
+        return res[0][1][i]
+
+    grads = [whole_grad(i, name).double() for i, name in enumerate(names)]
+    sq = sum(float(g.square().sum()) for g in grads)
     scale = min(1.0, opt.clip_norm / (sq ** 0.5 + 1e-9))
-    same = all(torch.equal(res[0][1][i], res[1][1][i])
-               for i, name in enumerate(names) if name not in cut)
+    same = all(torch.equal(res[0][1][i], res[r][1][i]) for r in range(1, N)
+               for i, name in enumerate(names) if name not in cut and name not in padded)
     state = opt.init(model.params)
     t0 = time.perf_counter()
     _, state, whole_loss, _ = steps.make_train_step(model, opt)(model.params, state, batch)
@@ -313,11 +362,7 @@ def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
     bad = total = 0
     worst = 0.0
     for i, (name, m) in enumerate(tree_util.items(state["m"])):
-        if name in cut:
-            got = torch.cat([res[r][1][i] for r in range(N)], cut[name])
-        else:
-            got = res[0][1][i]
-        got = got.double() * scale * (1 - opt.b1)
+        got = grads[i] * scale * (1 - opt.b1)
         want = m.double()
         bad += int((~torch.isclose(got, want, atol=1e-7, rtol=1e-4)).sum())
         total += want.numel()
@@ -327,11 +372,12 @@ def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
            "replicated_grads_equal": same, "counts": res[0][3], "tp_s": tp_s,
            "whole_s": whole_s}
     print(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.param_dtype} B={B} x S={S} "
+          f"on {N} threads, "
           f"{'sequence-parallel' if plan.sequence_parallel else 'whole sequence'}: loss "
           f"{out['loss']:.6f} (rank 1 {out['loss_rank1']:.6f}), whole {out['whole_loss']:.6f}; "
           f"m outside atol 1e-7 + rtol 1e-4 at {bad} of {total}, largest |diff| "
-          f"{worst:.3e} of a leaf's largest |m|; replicated leaves' gradients equal on both "
-          f"ranks {same}; {out['counts']}; {tp_s:.2f} s two ranks, {whole_s:.2f} s whole  "
+          f"{worst:.3e} of a leaf's largest |m|; replicated leaves' gradients equal on every "
+          f"rank {same}; {out['counts']}; {tp_s:.2f} s {N} ranks, {whole_s:.2f} s whole  "
           f"[{card}]", flush=True)
     del model, state, res
     return out
@@ -437,7 +483,7 @@ def run_case(dev, reduced, routing, arch, layers, dtype, card):
     def rank(r):
         routing.start()
         with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True):
-            params, _ = cut_params(cfg, model.params, plan, r)
+            params, _, _ = cut_params(cfg, model.params, plan, r)
             groups = lm.tp_groups(cfg)
             ctx.reset_tp_counts()
             steps = serve(params, lm.tp_cache_local(cfg, groups), r)
@@ -506,7 +552,7 @@ def whisper_case(dev, reduced, card, tag="[tp emulate whisper]") -> dict:
 
     def rank(r):
         with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True):
-            params, _ = cut_params(cfg, model.params, plan, r)
+            params, _, _ = cut_params(cfg, model.params, plan, r)
             ctx.reset_tp_counts()
             return serve(params), ctx.tp_counts()
 
@@ -529,6 +575,83 @@ def whisper_case(dev, reduced, card, tag="[tp emulate whisper]") -> dict:
               f"equal {row['picks_equal']}  [{card}]", flush=True)
     print(f"{name}: threads agree {out['ranks_agree']}; launches on the two threads "
           f"{out['launches']}; {counts}; {secs:.2f} s two threads  [{card}]", flush=True)
+    del model
+    return out
+
+
+def padded_case(dev, arch, reduced, card, tag="[tp emulate padded]") -> dict:
+    """``arch`` (fp32, `PADDED_LAYERS` layers) served on `N` emulated ranks
+    under `default_plan()`, its attention heads padded over the axis
+    (module notes), against the whole model: a prefill of `PADDED_B`
+    prompts of `PADDED_S` tokens (8 on the CPU), then `DEC_NEW` greedy
+    decode steps, each side fed its own picks. Returns per step the max
+    |diff|, the step's largest logit and whether the picks are equal;
+    whether every thread's logits equal rank 0's; rank 0's counts; the
+    kernel launches of all the threads, counted from 0."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import Model
+    from repro_torch.models.lm import is_positional
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.plan import Mesh, default_plan
+    cfg = _fp32_layers(arch, reduced, PADDED_LAYERS)
+    model = Model(cfg, device=dev, seed=0)
+    plan = default_plan()
+    devs = np.empty((1, 1, N), dtype=object)
+    devs[...] = dev
+    mesh = Mesh(devs)
+    rng = np.random.default_rng(13)
+    S = 8 if reduced else PADDED_S
+    tokens = torch.as_tensor(rng.integers(2, cfg.vocab_size, size=(PADDED_B, S)), device=dev)
+    V, s_max = cfg.vocab_size, S + DEC_NEW + 1
+
+    def serve(params):
+        logits, pre = model.prefill({"tokens": tokens}, params=params)
+        cache = model.init_cache(PADDED_B, s_max, dtype=torch.float32)
+        for k, v in pre.items():
+            if is_positional(k):
+                cache[k][:, :, :v.shape[2]] = v
+            else:
+                cache[k].copy_(v)
+        del pre
+        steps = [ctx.tp_gather(logits, 1).float().cpu()]
+        for i in range(DEC_NEW):
+            t = steps[-1][:, :V].argmax(-1).to(torch.int32).to(dev)
+            logits, cache = model.decode_step(t[:, None], cache, torch.tensor(S + i, device=dev),
+                                              params=params)
+            steps.append(ctx.tp_gather(logits, 1).float().cpu())
+        return steps
+
+    with torch.no_grad():
+        whole = serve(model.params)
+
+    def rank(r):
+        with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True):
+            params, _, _ = cut_params(cfg, model.params, plan, r)
+            ctx.reset_tp_counts()
+            return serve(params), ctx.tp_counts()
+
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    with installed(ctx):
+        res = _run_ranks(rank)
+    secs = time.perf_counter() - t0
+    got, counts = res[0]
+    out = {"steps": [], "counts": counts, "seconds": secs, "launches": dict(ops.LAUNCHES),
+           "ranks_agree": all(torch.equal(a, b) for r in range(1, N)
+                              for a, b in zip(got, res[r][0]))}
+    name = f"{tag} {cfg.name} {cfg.num_layers} layers fp32, {cfg.num_heads} heads on {N} ranks"
+    for i, (a, b) in enumerate(zip(got, whole)):
+        row = {"max_diff": float((a - b).abs().max()), "largest": float(b.abs().max()),
+               "picks_equal": bool(torch.equal(a[:, :V].argmax(-1), b[:, :V].argmax(-1)))}
+        out["steps"].append(row)
+        print(f"{name} {'prefill' if i == 0 else f'decode {i}'}: max|diff| "
+              f"{row['max_diff']:.4g} of {row['largest']:.4g} against the whole model, picks "
+              f"equal {row['picks_equal']}  [{card}]", flush=True)
+    print(f"{name}, B={PADDED_B} prompts of {S}: threads agree {out['ranks_agree']}; launches "
+          f"on the {N} threads {out['launches']}; {counts}; {secs:.2f} s {N} threads  [{card}]",
+          flush=True)
     del model
     return out
 
@@ -591,7 +714,7 @@ def decode_case(dev, arch, layers, heads_local, reduced, card, *,
         _TL.seq = True
         with torch.no_grad(), ctx.activation_sharding(mesh, plan, tensor_parallel=True,
                                                       seq_local=True):
-            params, _ = cut_params(cfg, model.params, plan, r)
+            params, _, _ = cut_params(cfg, model.params, plan, r)
             cache = {k: v.narrow(2, r * piece, piece).clone() if is_positional(k) else v.clone()
                      for k, v in full.items()}
             ctx.reset_tp_counts()
@@ -643,7 +766,17 @@ def main(argv=None) -> None:
                     help="decode over a sequence-sharded cache instead of serving")
     ap.add_argument("--whisper", action="store_true",
                     help="Whisper-large-v3's prefill and decode instead of serving")
+    ap.add_argument("--padded", action="store_true",
+                    help="attention heads that do not divide the model axis, served and "
+                         "trained")
+    ap.add_argument("--tp", type=int, default=None,
+                    help=f"ranks of the emulated model axis (2; {PADDED_TP} with --padded)")
     args = ap.parse_args(argv)
+    with ranks(args.tp or (PADDED_TP if args.padded else 2)):
+        _main(args)
+
+
+def _main(args) -> None:
     import torch
 
     from repro_torch.sharding import ctx
@@ -658,6 +791,15 @@ def main(argv=None) -> None:
                                "--format=csv,noheader", "-i", "0"], capture_output=True,
                               text=True, check=True).stdout.strip()
     dev = torch.device(args.device)
+    if args.padded:
+        for arch in PADDED_ARCHS:
+            padded_case(dev, arch, reduced, card)
+            if not reduced:
+                torch.cuda.empty_cache()
+        cfg, batch = train_config("minitron_4b", dev, reduced)
+        train_case(dev, cfg, batch, TRAIN_LR, card, "[tp emulate padded train]",
+                   loss_chunk=None if reduced else TRAIN_LOSS_CHUNK)
+        return
     if args.whisper:
         whisper_case(dev, reduced, card)
         return
