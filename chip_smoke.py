@@ -169,10 +169,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              of 2 emulated by two threads (`tools/tp_emulate.py`, the axis's
              collectives exchanged between them): fp32 Minitron-4B,
              Qwen1.5-MoE and Whisper-large-v3 at full width and 2 layers
-             (Whisper 2 + 2; B=2 x S=1024, sequence-parallel), the loss and
-             the first moments against the whole step's, the replicated
-             leaves' gradients equal on both threads, every group on its
-             shard; then Whisper served on the same two threads
+             (Whisper 2 + 2; B=2 x S=1024, sequence-parallel as the
+             reference lays it out: each norm on the thread's piece of the
+             sequence, the normed piece gathered into the shards with a
+             reduce-scatter backward), the loss and the first moments
+             against the whole step's, the replicated leaves' gradients
+             equal on both threads, every group on its shard, and the
+             model-axis collectives each step issued (by kind, with their
+             ring-model wire bytes a rank, printed before the last line);
+             then Whisper served on the same two threads
              (`tp_emulate.py`'s `whisper_case`: fp32, 2 + 2 layers, a prefill
              of 128 tokens over 1500 frames, flash on each thread's 10 heads
              once per decoder layer, and 8 greedy decode steps against the
@@ -193,8 +198,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              prefill (flash on each thread's slots) and 8 greedy decode
              steps against the whole model (logits within 1e-5 of the
              step's largest, picks equal), and Minitron's train step (B=2
-             x S=1024, sequence-parallel) against the whole step; every
-             attention counted padded.
+             x S=1024, sequence-parallel, its collectives printed as the
+             two-thread cases') against the whole step; every attention
+             counted padded.
 15. dryrun — in a child process (the fake world and the sharded phase's NCCL
              group must not meet in one process): the dry run
              (`launch.dryrun`) of four steps on a fake world of one rank,
@@ -3554,6 +3560,24 @@ def _tp_padded_emulated(card):
     return out
 
 
+def _sp_train_collectives(sharded) -> list:
+    """One line for each emulated sequence-parallel train step of the
+    sharded phase: the model-axis collectives rank 0's step issued, by
+    kind, counted as the step ran (`tools/tp_emulate.py`'s tally), with
+    their ring-model wire bytes a rank."""
+    cases = [(arch, 2, r) for arch, r in sharded["tp_train"].items()]
+    cases.append(("minitron_4b padded", 16, sharded["tp_padded"]["train"]))
+    lines = []
+    for name, n, r in cases:
+        kinds = r["collectives"]
+        total = sum(k["wire_bytes"] for k in kinds.values())
+        parts = ", ".join(f"{kind}: {k['n']} x, operands {k['operand_bytes']} B, wire "
+                          f"{k['wire_bytes']:.0f} B" for kind, k in sorted(kinds.items()))
+        lines.append(f"[sp train collectives] {name} on {n} emulated ranks, one step, rank 0: "
+                     f"{parts}; wire {total:.0f} B a rank")
+    return lines
+
+
 def phase_sharded(card):
     """The sharded builders on a one-rank NCCL mesh of the card, the
     tensor-parallel steps on two emulated ranks and padded heads on 16 (see
@@ -4038,6 +4062,8 @@ def main() -> int:
          "sharded": sharded, "engine_ranks": engine_ranks, "dryrun": dryrun,
          "phase_s": phase_s},
         indent=1))
+    for line in _sp_train_collectives(sharded):
+        say(line)
     say(f"[time] chip_smoke.py ran {time.perf_counter() - t_start:.1f} s, the kernels' "
         f"build included; by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
         + f" s  [{card}]")

@@ -33,7 +33,11 @@ cache stays whole over that axis, as the reference's specs keep it: new K/V
 heads computed on their shards are gathered before they are written. In
 train, every replicated tensor that enters a shard's computation (the
 normed input; K/V computed whole; MLA's latent and its query's) crosses
-`ctx.tp_enter`, whose backward sums the shards' parts of its gradient.
+`ctx.tp_enter`, whose backward sums the shards' parts of its gradient. A
+sequence-parallel step gathers the normed input into the shards itself
+(``entered``: `ctx.sp_enter`, whose reduce-scatter backward is that sum),
+and a branch every rank computes whole from it (K/V computed whole) then
+counts its gradient once (`ctx.tp_branch`).
 
 In a decode step that keeps the cache on its sequence shards
 (`ctx.seq_axes`: the plan's ``seq_axis``), each rank holds the K/V (or the
@@ -273,15 +277,17 @@ def gqa_attention(
     causal: bool = True,
     cache: Optional[Cache] = None,
     pos: Optional[torch.Tensor] = None,  # decode write position: scalar or (B,)
+    entered: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """``entered``: ``x`` has entered the shards already (module notes)."""
     B, S, d = x.shape
     hd = cfg.resolved_head_dim
     # this rank's q and K/V heads: all of them, or its shard (`lm.tp_groups`)
     hq, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
-    # the replicated x enters the shards' projections (`ctx.tp_enter`)
-    xs = ctx.tp_enter(x) if hq < cfg.num_heads else x
+    # the replicated x enters the shards' projections (`ctx.tp_branch`)
+    xs = ctx.tp_branch(x, hq < cfg.num_heads, entered)
     q = (xs @ p["wq"]).reshape(B, S, hq, hd)
-    xkv = xs if hkv < cfg.num_kv_heads else x
+    xkv = xs if hkv < cfg.num_kv_heads else ctx.tp_branch(x, False, entered)
     k = (xkv @ p["wk"]).reshape(B, S, hkv, hd)
     v = (xkv @ p["wv"]).reshape(B, S, hkv, hd)
 
@@ -392,6 +398,8 @@ def cross_attention(
     enc_out: Optional[torch.Tensor] = None,     # (B, S_enc, d): train, prefill
     cache: Optional[Cache] = None,              # decode: the encoder's K/V
     mode: str = "prefill",                      # train | prefill | decode
+    entered: bool = False,
+    enc_entered: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Cache]]:
     """Bidirectional attention of the decoder over the encoder output, in
     plain `sdpa`. Without ``cache`` it projects ``enc_out`` to K/V and
@@ -406,6 +414,8 @@ def cross_attention(
     ``wo`` product. The cache stays whole over the heads, as the
     reference's specs keep it: prefill gathers the new K/V heads for it,
     and decode reads the heads the rank's slots read (`_kv_heads_read`).
+    ``entered`` / ``enc_entered``: ``x`` / ``enc_out`` has entered the
+    shards already (a sequence-parallel train step; `ctx.tp_branch`).
 
     Raises:
         ValueError: neither ``enc_out`` nor ``cache`` is given.
@@ -413,14 +423,14 @@ def cross_attention(
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     hq, hkv = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd
-    xs = ctx.tp_enter(x) if hq < cfg.num_heads else x
+    xs = ctx.tp_branch(x, hq < cfg.num_heads, entered)
     q = (xs @ p["wq"]).reshape(B, S, hq, hd)
     kv_index = _kv_heads_read(cfg, hq)
     if cache is None:
         if enc_out is None:
             raise ValueError("cross-attention needs the encoder output or its cache")
         F_enc = enc_out.shape[1]
-        es = ctx.tp_enter(enc_out) if hkv < cfg.num_kv_heads else enc_out
+        es = ctx.tp_branch(enc_out, hkv < cfg.num_kv_heads, enc_entered)
         k = (es @ p["wk"]).reshape(B, F_enc, hkv, hd)
         v = (es @ p["wv"]).reshape(B, F_enc, hkv, hd)
         if hkv < cfg.num_kv_heads:

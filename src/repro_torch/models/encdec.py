@@ -35,7 +35,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import lm
 from repro_torch.models import mlp as ffn
 from repro_torch.models.common import (
-    apply_norm,
     dtype_of,
     norm_shapes,
     padded_vocab,
@@ -130,12 +129,6 @@ def _run_stack(cfg: ModelConfig, layers: Params, stack: str, n: int, x, body, *,
     return x
 
 
-def _whole(x: torch.Tensor, sp: bool) -> torch.Tensor:
-    """The residual stream's whole sequence for a sub-layer's norm: ``x``,
-    or every rank's piece put together under sequence parallelism."""
-    return ctx.sp_gather(x, 1) if sp else x
-
-
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
            remat: bool = True, mode: str = "train") -> torch.Tensor:
     """Stub frame embeddings ``(B, F, d)`` -> encoder output ``(B, F, d)``;
@@ -143,7 +136,17 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     backward when ``remat``) or "prefill". A sequence-parallel train step
     cuts the residual stream over the frames only where they divide the
     tensor axis (`ctx.sp_on`): else the encoder's stream stays whole while
-    the decoder's is cut."""
+    the decoder's is cut. Each norm of a cut stream runs on the rank's
+    piece (`lm._norm`), the output made whole here (`ctx.sp_gather`;
+    `train_loss` instead gathers it into the cross-attentions' shards,
+    `_encoder_entry`)."""
+    x, sp = _encoder(cfg, params, frames, remat=remat, mode=mode)
+    return ctx.sp_gather(x, 1) if sp else x
+
+
+def _encoder(cfg, params, frames, *, remat, mode) -> Tuple[torch.Tensor, bool]:
+    """`encode`'s work: returns (the output after ``enc_norm``, whether the
+    stream is cut: the output then this rank's piece of the frames)."""
     B, F_enc, d = frames.shape
     x = frames.to(dtype_of(cfg))
     x = x + sinusoidal_positions(F_enc, d, device=x.device).to(x.dtype)[None]
@@ -151,36 +154,56 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,
     sp = mode == "train" and ctx.sp_on(F_enc)
 
     def body(lp, x, partial, i):
-        h = apply_norm(cfg, lp["attn_norm"], _whole(x, sp))
+        h = lm._enter(lm._norm(cfg, lp["attn_norm"], x, sp), sp, partial[0])
         out, _ = attn.gqa_attention(cfg, lp["attn"], h, positions=positions,
-                                    mode="train", causal=False)
+                                    mode="train", causal=False, entered=sp and partial[0])
         x = x + lm._exit(out, partial[0], sp)
-        h = apply_norm(cfg, lp["mlp_norm"], _whole(x, sp))
-        return constrain(x + lm._exit(ffn.mlp(cfg, lp["mlp"], h), partial[1], sp),
-                         "batch", "sp", None)
+        h = lm._enter(lm._norm(cfg, lp["mlp_norm"], x, sp), sp, partial[1])
+        out = ffn.mlp(cfg, lp["mlp"], h, entered=sp and partial[1])
+        return constrain(x + lm._exit(out, partial[1], sp), "batch", "sp", None)
 
     if sp:
         x = ctx.sp_cut(x, 1)
     x = _run_stack(cfg, params["enc_layers"], "enc_layers", cfg.encdec.num_encoder_layers, x,
                    body, mode=mode, remat=remat)
-    return apply_norm(cfg, params["enc_norm"], _whole(x, sp))
+    return lm._norm(cfg, params["enc_norm"], x, sp), sp
+
+
+def _encoder_entry(enc_out: torch.Tensor, enc_sp: bool, enter: bool) -> torch.Tensor:
+    """The encoder's output as every decoder layer's cross-attention reads
+    it: whole. ``enc_sp``: it is this rank's piece of the frames;
+    ``enter``: a sequence-parallel decoder whose cross-attention computes
+    its K/V on their shards. The output then enters those shards here, once
+    for every layer (`ctx.sp_enter` from the piece, `ctx.tp_enter` where
+    the frames stay whole), and no layer enters it again; otherwise the
+    piece is gathered (`ctx.sp_gather`) and each layer that reads it on
+    its shards enters it itself (K/V computed whole read it as it is)."""
+    if enter:
+        return ctx.sp_enter(enc_out, 1) if enc_sp else ctx.tp_enter(enc_out)
+    return ctx.sp_gather(enc_out, 1) if enc_sp else enc_out
 
 
 def _dec_layer(cfg, lp, x, *, positions, mode, self_cache, cross_cache, enc_out, pos,
-               partial=(False, False, False), sp=False):
+               partial=(False, False, False), sp=False, enc_entered=False):
     """One decoder layer: returns (x, the new self cache, the new cross
     cache). ``partial`` and ``sp`` as `lm._run_layer` takes them, for the
-    self-attention, the cross-attention and the MLP."""
-    h = apply_norm(cfg, lp["self_norm"], _whole(x, sp))
+    self-attention, the cross-attention and the MLP: a sub-layer whose
+    output is a partial sum reads its normed input on its shards
+    (`lm._enter`). ``enc_entered``: ``enc_out`` has entered the shards
+    (`_encoder_entry`)."""
+    h = lm._enter(lm._norm(cfg, lp["self_norm"], x, sp), sp, partial[0])
     out, new_self = attn.gqa_attention(cfg, lp["self_attn"], h, positions=positions,
-                                       mode=mode, cache=self_cache, pos=pos)
+                                       mode=mode, cache=self_cache, pos=pos,
+                                       entered=sp and partial[0])
     x = x + lm._exit(out, partial[0], sp)
-    h = apply_norm(cfg, lp["cross_norm"], _whole(x, sp))
+    h = lm._enter(lm._norm(cfg, lp["cross_norm"], x, sp), sp, partial[1])
     out, new_cross = attn.cross_attention(cfg, lp["cross_attn"], h, enc_out=enc_out,
-                                          cache=cross_cache, mode=mode)
+                                          cache=cross_cache, mode=mode,
+                                          entered=sp and partial[1], enc_entered=enc_entered)
     x = x + lm._exit(out, partial[1], sp)
-    h = apply_norm(cfg, lp["mlp_norm"], _whole(x, sp))
-    return x + lm._exit(ffn.mlp(cfg, lp["mlp"], h), partial[2], sp), new_self, new_cross
+    h = lm._enter(lm._norm(cfg, lp["mlp_norm"], x, sp), sp, partial[2])
+    out = ffn.mlp(cfg, lp["mlp"], h, entered=sp and partial[2])
+    return x + lm._exit(out, partial[2], sp), new_self, new_cross
 
 
 def decode_stack(
@@ -203,16 +226,32 @@ def decode_stack(
     In a tensor-parallel step (`ctx.tp`) the embedding may be this rank's
     vocab shard (the masked lookup, `lm._embed_lookup`; ``pos_embed`` stays
     whole), and each layer's groups run on their shards (`_run_stack`), each
-    partial output summed once at its residual add (`lm._exit`).
+    partial output summed once at its residual add (`lm._exit`). A
+    sequence-parallel train step norms the rank's piece of the sequence
+    and makes the hidden whole here (`ctx.sp_gather`; `train_loss` instead
+    gathers it into the LM head's shard, `lm._head_input`).
 
     Raises:
         ValueError: an unknown ``mode``.
     """
+    x, cache, sp = _decoder(cfg, params, tokens, mode=mode, enc_out=enc_out, cache=cache,
+                            pos=pos, remat=remat)
+    return (ctx.sp_gather(x, 1) if sp else x), cache
+
+
+def _decoder(cfg, params, tokens, *, mode, enc_out, cache, pos, remat, enc_sp=False
+             ) -> Tuple[torch.Tensor, Optional[Cache], bool]:
+    """`decode_stack`'s work: returns (the hidden after ``dec_norm``, the
+    cache, whether the decoder ran sequence-parallel: the hidden then this
+    rank's piece of the sequence). ``enc_sp``: ``enc_out`` is this rank's
+    piece of the frames (`_encoder`)."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r} (train | prefill | decode)")
     B, S = tokens.shape
-    ctx.note_tp("vocab", lm.tp_groups(cfg)["vocab"])
-    x = lm._embed_lookup(params, tokens, padded_vocab(cfg.vocab_size)).to(dtype_of(cfg))
+    groups = lm.tp_groups(cfg)
+    ctx.note_tp("vocab", groups["vocab"])
+    sp = mode == "train" and ctx.sp_on(S)
+    x = lm._embed_lookup(params, tokens, padded_vocab(cfg.vocab_size), sp).to(dtype_of(cfg))
     if mode == "decode":
         p = torch.as_tensor(pos, device=x.device).long()
         if p.dim() == 0:
@@ -223,9 +262,12 @@ def decode_stack(
             positions = p[:, None]
         x = x + pe.to(x.dtype)
     else:
-        x = x + params["pos_embed"][:S][None].to(x.dtype)
+        pe = params["pos_embed"][:S][None]
+        x = x + (ctx.sp_cut(pe, 1) if sp else pe).to(x.dtype)
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    sp = mode == "train" and ctx.sp_on(S)
+    enc_entered = sp and groups["attn_kv"] == ctx.LOCAL
+    if enc_out is not None:
+        enc_out = _encoder_entry(enc_out, enc_sp, enc_entered)
     per_layer = []
 
     def body(lp, x, partial, i):
@@ -235,20 +277,18 @@ def decode_stack(
             cc = {k: cache[f"cross/{k}"][i] for k in "kv"}
         x, new_self, new_cross = _dec_layer(
             cfg, lp, x, positions=positions, mode=mode, self_cache=sc, cross_cache=cc,
-            enc_out=enc_out, pos=pos, partial=partial, sp=sp)
+            enc_out=enc_out, pos=pos, partial=partial, sp=sp, enc_entered=enc_entered)
         if mode == "prefill":
             per_layer.append({**{f"self/{k}": v for k, v in new_self.items()},
                               **{f"cross/{k}": v for k, v in new_cross.items()}})
         return constrain(x, "batch", "sp" if mode == "train" else None, None)
 
-    if sp:
-        x = ctx.sp_cut(x, 1)
     x = _run_stack(cfg, params["dec_layers"], "dec_layers", cfg.num_layers, x, body,
                    mode=mode, remat=remat)
-    x = apply_norm(cfg, params["dec_norm"], _whole(x, sp))
+    x = lm._norm(cfg, params["dec_norm"], x, sp)
     if mode == "prefill":
         cache = {k: torch.stack([c[k] for c in per_layer]) for k in per_layer[0]}
-    return x, None if mode == "train" else cache
+    return x, None if mode == "train" else cache, sp
 
 
 def cache_shape(cfg: ModelConfig, batch: int, s_max: int, enc_len: int
@@ -279,11 +319,12 @@ def train_loss(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     """``batch``: ``frames (B, F, d)``, ``tokens (B, S + 1)``, optionally
     ``loss_mask (B, S)``. Returns (ce, ``{"ce", "moe_aux"}``), the aux loss
     a zero scalar."""
-    enc_out = encode(cfg, params, batch["frames"])
+    enc_out, enc_sp = _encoder(cfg, params, batch["frames"], remat=True, mode="train")
     tokens = batch["tokens"]
-    hidden, _ = decode_stack(cfg, params, tokens[:, :-1], mode="train", enc_out=enc_out)
-    ce = lm.cross_entropy(cfg, params, hidden, tokens[:, 1:], mask=batch.get("loss_mask"),
-                          chunk=loss_chunk)
+    hidden, _, sp = _decoder(cfg, params, tokens[:, :-1], mode="train", enc_out=enc_out,
+                             cache=None, pos=None, remat=True, enc_sp=enc_sp)
+    ce = lm.cross_entropy(cfg, params, lm._head_input(cfg, params, hidden, sp), tokens[:, 1:],
+                          mask=batch.get("loss_mask"), chunk=loss_chunk, entered=sp)
     return ce, {"ce": ce, "moe_aux": torch.zeros((), dtype=torch.float32, device=ce.device)}
 
 

@@ -452,20 +452,24 @@ def _note_layer(cfg: ModelConfig, kind, groups: Dict[str, str]) -> Tuple[bool, b
     return partial, False
 
 
-def _embed_lookup(params: Params, tokens: torch.Tensor, v_pad: int) -> torch.Tensor:
+def _embed_lookup(params: Params, tokens: torch.Tensor, v_pad: int,
+                  sp: bool = False) -> torch.Tensor:
     """The embedding rows of ``tokens``. An embedding whose vocab rows this
     rank holds a shard of (fewer rows than ``v_pad``) looks up the tokens
     in its range, zero elsewhere, and sums over the tensor axis: each
     token's row comes from the one rank that holds it, exactly (the sum
-    feeds the replicated residual stream: `ctx.tp_reduce`)."""
+    feeds the replicated residual stream: `ctx.tp_reduce`). ``sp``: the
+    rows are this rank's piece of the sequence (dim 1), the sum
+    reduce-scattered into it (`ctx.sp_scatter`), or the whole lookup cut
+    to it (`ctx.sp_cut`)."""
     emb = params["embed"]
     n_local = emb.shape[0]
     if n_local == v_pad:
-        return emb[tokens]
+        return ctx.sp_cut(emb[tokens], 1) if sp else emb[tokens]
     idx = tokens.long() - ctx.tp()[1] * n_local
     inside = (idx >= 0) & (idx < n_local)
     rows = emb[idx.clamp(0, n_local - 1)] * inside[..., None].to(emb.dtype)
-    return ctx.tp_reduce(rows)
+    return ctx.sp_scatter(rows, 1) if sp else ctx.tp_reduce(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -522,6 +526,44 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *,
 # ---------------------------------------------------------------------------
 
 
+def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor, sp: bool) -> torch.Tensor:
+    """``x`` normed by the norm ``p``. ``sp``: ``x`` is this rank's piece
+    of the sequence, normed there, as the reference norms it; the norm's
+    replicated params then enter the piece's computation (`ctx.tp_enter`:
+    each rank's gradient is its piece's part, summed over the axis)."""
+    if sp:
+        p = {k: ctx.tp_enter(v) for k, v in p.items()}
+    return apply_norm(cfg, p, x)
+
+
+def _enter(h: torch.Tensor, sp: bool, shard: bool) -> torch.Tensor:
+    """A normed input as its sub-layer reads it: ``h`` itself, or under
+    sequence parallelism (``sp``) every rank's piece put together, through
+    `ctx.sp_enter` where the sub-layer reads it on its shards (``shard``:
+    the reduce-scatter backward sums their parts), else `ctx.sp_gather`
+    (every rank computes on it whole and alike)."""
+    if not sp:
+        return h
+    return ctx.sp_enter(h, 1) if shard else ctx.sp_gather(h, 1)
+
+
+def _shard_inputs(cfg: ModelConfig, kind, groups: Dict[str, str]) -> Tuple[bool, bool]:
+    """Whether a sub-layer's mixer and its ffn read their normed input on
+    a shard of the tensor axis (`_enter`): attention on its q heads or
+    padded slots, an MLP on its ``d_ff`` columns, an MoE on its experts or
+    its shared expert's columns. MLA's shards read its latents, which enter
+    them on their own, and an SSM enters its input itself: both read it
+    whole."""
+    mixer, f = kind
+    m = mixer == "attn" and groups["attn"] != ctx.GATHERED
+    if f == "mlp":
+        return m, groups["mlp"] == ctx.LOCAL
+    if f == "moe":
+        return m, groups["experts"] == ctx.LOCAL or (
+            bool(cfg.moe.num_shared_experts) and groups["shared"] == ctx.LOCAL)
+    return m, False
+
+
 def _exit(out: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
     """A sub-layer's output as its residual add takes it: a partial sum over
     the tensor axis summed (`ctx.tp_reduce`; under sequence parallelism
@@ -533,17 +575,19 @@ def _exit(out: torch.Tensor, partial: bool, sp: bool) -> torch.Tensor:
 
 
 def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, False),
-               sp=False):
+               sp=False, entered=(False, False)):
     """One sub-layer: returns (x, its new cache (None in train mode), its
     MoE aux loss (None unless a train-mode MoE layer)). ``partial``: whether
     the mixer's and the ffn's outputs are this rank's partial sums over the
     tensor axis (`tp_groups`); each is then summed over the axis once, at
     its residual add. ``sp``: ``x`` is this rank's piece of the sequence (a
-    sequence-parallel train step); each sub-layer then runs on the whole
-    sequence, gathered before its norm, and its output is reduce-scattered
-    (or cut) back into the piece (`_exit`)."""
+    sequence-parallel train step); each norm then runs on the piece, each
+    sub-layer on the whole sequence, the normed piece gathered into it
+    (`_enter`; ``entered``: whether the mixer's and the ffn's normed input
+    enters their shards, `_shard_inputs`), and its output is
+    reduce-scattered (or cut) back into the piece (`_exit`)."""
     mixer, f = kind
-    h = apply_norm(cfg, p["mixer_norm"], ctx.sp_gather(x, 1) if sp else x)
+    h = _enter(_norm(cfg, p["mixer_norm"], x, sp), sp, entered[0])
     if mixer == "ssm":
         out, new_cache = ssd.ssm_block(cfg, p["mixer"], h, mode=mode, state=cache)
     elif mixer == "mla":
@@ -551,20 +595,21 @@ def _run_layer(cfg, p, kind, x, *, positions, mode, cache, pos, partial=(False, 
             cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
     else:
         out, new_cache = attn.gqa_attention(
-            cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos)
+            cfg, p["mixer"], h, positions=positions, mode=mode, cache=cache, pos=pos,
+            entered=entered[0])
     x = x + constrain(_exit(out, partial[0], sp), "batch", "sp" if mode == "train" else None,
                       None)
     if f == "none":
         return x, new_cache, None
     # TRAP, SP and the MoE groups: the MoE runs on the whole sequence, so
     # its dispatch groups and capacity are the reference's
-    h = apply_norm(cfg, p["ffn_norm"], ctx.sp_gather(x, 1) if sp else x)
+    h = _enter(_norm(cfg, p["ffn_norm"], x, sp), sp, entered[1])
     aux = None
     if f == "moe":
         out, aux = ffn.moe_ffn(cfg, p["ffn"], h, kernel=(mode == "prefill"),
-                               want_aux=(mode == "train"))
+                               want_aux=(mode == "train"), entered=entered[1])
     else:
-        out = ffn.mlp(cfg, p["ffn"], h)
+        out = ffn.mlp(cfg, p["ffn"], h, entered=entered[1])
     return (x + constrain(_exit(out, partial[1], sp), "batch",
                           "sp" if mode == "train" else None, None), new_cache, aux)
 
@@ -637,13 +682,15 @@ def _train_layers(cfg, layers, x, positions, *, remat, remat_policy, groups, sp)
     context_fn = _remat_context(remat_policy)
     cut = tp_cut(cfg, groups)
 
+    entered = [_shard_inputs(cfg, kind, groups) if sp else (False, False) for kind in kinds]
+
     def step(x, lp, gather, partial):
         lp = gather(lp)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for pre, kind, part in zip(prefixes, kinds, partial):
+        for pre, kind, part, ent in zip(prefixes, kinds, partial, entered):
             x, _, a = _run_layer(cfg, lp[pre[:-1]] if pre else lp, kind, x,
                                  positions=positions, mode="train", cache=None, pos=None,
-                                 partial=part, sp=sp)
+                                 partial=part, sp=sp, entered=ent)
             x = constrain(x, "batch", "sp", None)
             if a is not None:
                 aux = aux + a
@@ -693,14 +740,27 @@ def forward(
     (`tp_cache_local`). A train step gathers and cuts each layer inside its
     checkpointed scan step (`train_steps`) and, where the plan says
     ``sequence_parallel``, carries its residual stream as this rank's piece
-    of the sequence between the sub-layers."""
+    of the sequence between the sub-layers, each norm on the piece; the
+    hidden is then made whole here (`ctx.sp_gather`; `train_loss` instead
+    gathers it into the LM head's shard, `_head_input`)."""
+    x, new_cache, aux, sp = _forward(cfg, params, tokens, mode=mode, positions=positions,
+                                     cache=cache, pos=pos, remat=remat,
+                                     remat_policy=remat_policy)
+    return (ctx.sp_gather(x, 1) if sp else x), new_cache, aux
+
+
+def _forward(cfg, params, tokens, *, mode, positions, cache, pos, remat, remat_policy):
+    """`forward`'s work: returns (hidden after the final norm, cache, aux,
+    whether the step ran sequence-parallel, the hidden then this rank's
+    piece of the sequence)."""
     B, S = tokens.shape
     kinds = layer_kinds(cfg)
     prefixes = sub_prefixes(cfg)
     groups = tp_groups(cfg)
     if ctx.tp()[0] > 1:
         ctx.note_tp("vocab", groups["vocab"])
-    x = _embed_lookup(params, tokens, padded_vocab(cfg.vocab_size)).to(dtype_of(cfg))
+    sp = mode == "train" and ctx.sp_on(S)
+    x = _embed_lookup(params, tokens, padded_vocab(cfg.vocab_size), sp).to(dtype_of(cfg))
     x = constrain(x, "batch", "sp" if mode == "train" else None, None)
     if positions is None:
         if mode == "decode":
@@ -712,14 +772,9 @@ def forward(
             positions = positions.expand(3, B, S)
 
     if mode == "train":
-        sp = ctx.sp_on(S)
-        if sp:
-            x = ctx.sp_cut(x, 1)
         x, aux = _train_layers(cfg, params["layers"], x, positions, remat=remat,
                                remat_policy=remat_policy, groups=groups, sp=sp)
-        if sp:
-            x = ctx.sp_gather(x, 1)
-        return apply_norm(cfg, params["final_norm"], x), None, aux
+        return _norm(cfg, params["final_norm"], x, sp), None, aux, sp
 
     cut = tp_cut(cfg, groups)
     axis = ctx.tp_axis()
@@ -741,7 +796,7 @@ def forward(
     new_cache = cache if mode == "decode" else {
         k: torch.stack([lc[k] for lc in per_step]) for k in per_step[0]}
     x = apply_norm(cfg, params["final_norm"], x)
-    return x, new_cache, None
+    return x, new_cache, None, False
 
 
 def tp_cache_local(cfg: ModelConfig, groups: Dict[str, bool]) -> frozenset:
@@ -761,11 +816,23 @@ def _head_cols(cfg: ModelConfig, params: Params) -> int:
     return params["embed"].shape[0] if cfg.tie_embeddings else params["lm_head"].shape[1]
 
 
-def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
+def _head_input(cfg: ModelConfig, params: Params, hidden: torch.Tensor, sp: bool
+                ) -> torch.Tensor:
+    """The hidden a train step's LM head reads: ``hidden`` itself, or
+    under sequence parallelism (``sp``: it is this rank's normed piece)
+    every rank's piece put together, through `ctx.sp_enter` where the head
+    is this rank's vocab shard (`cross_entropy` with ``entered``), else
+    `ctx.sp_gather`."""
+    return _enter(hidden, sp, _head_cols(cfg, params) < padded_vocab(cfg.vocab_size))
+
+
+def logits_fn(cfg: ModelConfig, params: Params, hidden: torch.Tensor, *,
+              entered: bool = False) -> torch.Tensor:
     """``hidden`` through the LM head (the tied embedding's transpose):
     this rank's vocab columns where the head is its shard (`tp_groups`),
-    the replicated ``hidden`` entering the shard's product (`ctx.tp_enter`)."""
-    if _head_cols(cfg, params) < padded_vocab(cfg.vocab_size):
+    the replicated ``hidden`` entering the shard's product (`ctx.tp_enter`)
+    unless it has ``entered`` already (`_head_input`)."""
+    if not entered and _head_cols(cfg, params) < padded_vocab(cfg.vocab_size):
         hidden = ctx.tp_enter(hidden)
     if cfg.tie_embeddings:
         return hidden @ params["embed"].T
@@ -784,10 +851,13 @@ def cross_entropy(
     targets: torch.Tensor,    # (B, S) int
     mask: Optional[torch.Tensor] = None,
     chunk: Optional[int] = None,
+    entered: bool = False,
 ) -> torch.Tensor:
     """Token-mean next-token CE with an fp32 log-softmax over the real vocab
     (the padded ids masked). ``chunk`` cuts the sequence into chunks, each
     recomputed in backward, so the ``(B, S, V)`` logits never exist at once.
+    ``entered``: ``hidden`` has entered the LM head's shard already
+    (`_head_input`).
 
     Where the LM head is this rank's vocab shard (`tp_groups`), the loss is
     vocab-parallel: the row maximum is all-reduced with MAX (outside
@@ -808,7 +878,7 @@ def cross_entropy(
              if v_pad != cfg.vocab_size else None)
 
     def chunk_loss(h, t, m):
-        logits = logits_fn(cfg, params, h).float()
+        logits = logits_fn(cfg, params, h, entered=entered).float()
         if vmask is not None:
             logits = logits + vmask
         if cols == v_pad:
@@ -855,10 +925,10 @@ def train_loss(
     inp, tgt = tokens[:, :-1], tokens[:, 1:]
     if positions is not None:
         positions = positions[..., :-1]
-    hidden, _, aux = forward(cfg, params, inp, mode="train", positions=positions,
-                             remat_policy=remat_policy)
-    ce = cross_entropy(cfg, params, hidden, tgt, mask=batch.get("loss_mask"),
-                       chunk=loss_chunk)
+    hidden, _, aux, sp = _forward(cfg, params, inp, mode="train", positions=positions,
+                                  cache=None, pos=None, remat=True, remat_policy=remat_policy)
+    ce = cross_entropy(cfg, params, _head_input(cfg, params, hidden, sp), tgt,
+                       mask=batch.get("loss_mask"), chunk=loss_chunk, entered=sp)
     return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 

@@ -11,7 +11,10 @@ columns and rows are this rank's shard, and an MoE whose experts and shared
 expert are, return this rank's partial output, which the layer sums over
 the tensor axis once (`lm.tp_groups`). The router stays replicated:
 routing, capacity and drops are the global ones. The replicated input and
-routing weights enter the shards' computation through `ctx.tp_enter`.
+routing weights enter the shards' computation through `ctx.tp_enter`. In a
+sequence-parallel train step the input has entered already (``entered``:
+`ctx.sp_enter`), and the branches every rank computes whole from it (the
+router, a part gathered whole) count its gradient once (`ctx.tp_branch`).
 """
 from __future__ import annotations
 
@@ -46,13 +49,13 @@ def mlp_shapes(cfg: ModelConfig, d_ff: Optional[int] = None, lead: Tuple[int, ..
     return shapes
 
 
-def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, width: Optional[int] = None
-        ) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p: dict, x: torch.Tensor, width: Optional[int] = None, *,
+        entered: bool = False) -> torch.Tensor:
     """The MLP of ``x`` (``width`` columns, ``d_ff`` by default): this
     rank's partial output where ``p`` holds its shard of the columns (the
-    replicated ``x`` then enters it, `ctx.tp_enter`)."""
-    if p["w_up"].shape[-1] < (width or cfg.d_ff):
-        x = ctx.tp_enter(x)
+    replicated ``x`` then enters it, `ctx.tp_branch`; ``entered``: it has
+    entered already)."""
+    x = ctx.tp_branch(x, p["w_up"].shape[-1] < (width or cfg.d_ff), entered)
     act = act_fn(cfg.mlp_act)
     if cfg.mlp_act == "silu":
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
@@ -141,7 +144,8 @@ def _check_grouping(B: int, S: int) -> None:
 
 
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
-            want_aux: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+            want_aux: bool = False, entered: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Grouped capacity-bucketed dense-dispatch MoE over ``x (B, S, d)``.
     Returns (out, aux_loss), the aux loss only if ``want_aux`` (training;
     serving never reads it), else None. ``kernel`` routes through
@@ -153,7 +157,8 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     theirs, and the output is this rank's partial sum, as is the shared
     expert's part where it is its shard. Where only one of the two parts is
     a shard, that part is summed over the axis here and the output is
-    whole (`lm._note_layer`)."""
+    whole (`lm._note_layer`). ``entered``: ``x`` has entered the shards
+    already (module notes)."""
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
@@ -171,7 +176,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     G = T_pad // g
     xg = xt.reshape(G, g, d)
 
-    logits = (xg.float() @ p["router"]).reshape(G * g, E)
+    logits = (ctx.tp_branch(xg, False, entered).float() @ p["router"]).reshape(G * g, E)
     if kernel:
         weights, idx = kops.moe_topk(logits, k, norm_topk=m.norm_topk_prob)
         aux = switch_aux(torch.softmax(logits.float(), dim=-1), idx) if want_aux else None
@@ -201,13 +206,13 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
     wsum = (e_one.to(weights.dtype) * weights[..., None]).sum(dim=2)
     n_local = p["w_up"].shape[0]
     experts_local = n_local < E_pad
+    # the replicated tokens and routing weights enter the experts' shard
+    # (`ctx.tp_branch`; the router takes every rank's part of its
+    # gradient), before the rank's slice of the experts
+    xg = ctx.tp_branch(xg, experts_local, entered)
     if experts_local:               # this rank's experts [e0, e0 + n_local)
         e0 = ctx.tp()[1] * n_local
         disp = disp[:, :, e0:e0 + n_local]
-        # the replicated tokens and routing weights enter the experts'
-        # shard (`ctx.tp_enter`: the router takes every rank's part of its
-        # gradient), before the rank's slice of the experts
-        xg = ctx.tp_enter(xg)
         wsum = ctx.tp_enter(wsum)[:, :, e0:e0 + n_local]
     x_e = torch.einsum("gsec,gsd->gecd", disp, xg)            # (G, E_pad, cap, d)
     x_e = constrain(x_e, "batch", "ep", None, None)            # expert parallel
@@ -226,7 +231,7 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, *, kernel: bool,
 
     out = out.reshape(T_pad, d)[:T]
     if m.num_shared_experts:
-        shared = mlp(cfg, p["shared"], xt[:T], width=m.d_shared)
+        shared = mlp(cfg, p["shared"], xt[:T], width=m.d_shared, entered=entered)
         shared_local = p["shared"]["w_up"].shape[-1] < m.d_shared
         # TRAP, replicated leaves: where one part runs on its shard and the
         # other whole, the shard's part is summed here, and the layer adds

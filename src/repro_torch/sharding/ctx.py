@@ -36,9 +36,14 @@ axis holds alike ("replicated") crosses into a shard's computation through
 output leaves through `tp_reduce` (all-reduce forward, identity backward);
 a sum that each rank's own shard reads back (the SSM gated norm's
 variance) is `tp_sum_shard` (all-reduce both ways). Under sequence
-parallelism the residual stream holds this rank's piece of the sequence:
-`sp_gather` makes it whole for a sub-layer, `sp_scatter` sums a partial
-output into the piece, `sp_cut` cuts a replicated tensor to it. The FSDP
+parallelism the residual stream holds this rank's piece of the sequence,
+and a sub-layer's norm runs on it: `sp_enter` makes the normed piece whole
+for a sub-layer that reads it on its shards (all-gather forward,
+reduce-scatter backward), `sp_gather` for one every rank computes whole and
+alike, `sp_scatter` sums a partial output into the piece, `sp_cut` cuts a
+replicated tensor to it. Inside a sub-layer whose input has entered so, a
+branch every rank computes whole from it takes its gradient once
+(`tp_once`; `tp_branch` picks each branch's rule). The FSDP
 axes are gathered a layer at a time by `gather_shard` (all-gather forward;
 backward a reduce-scatter over the axes that split the rows, or an
 all-reduce then a cut without ``shard_grads``, a cut over the others).
@@ -479,6 +484,40 @@ class _SPGather(torch.autograd.Function):
         return _piece(g, fctx.dim), None
 
 
+class _SPEnter(torch.autograd.Function):
+    """A normed piece of the sequence made whole as the input of a
+    sub-layer's shards: all-gather forward. Each rank's shard reads the
+    whole sequence and holds its own partial gradient of it, so the
+    backward sums the partials into this rank's piece (reduce-scatter):
+    `_SPGather`'s forward and `_Enter`'s sum in one collective, at half an
+    all-reduce's wire bytes."""
+
+    @staticmethod
+    def forward(fctx, x, dim):
+        fctx.dim = dim
+        return tp_gather(x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return tp_reduce_scatter(g, fctx.dim), None
+
+
+class _Once(torch.autograd.Function):
+    """A tensor that has entered the shards (`_SPEnter`, `_Enter`) read by
+    a branch every rank computes whole and alike: identity forward. Every
+    rank then holds the branch's whole gradient, which the entry's sum
+    would count once a rank, so the backward keeps it on the axis's first
+    rank and gives zero on the others (exact: the sum adds zeros)."""
+
+    @staticmethod
+    def forward(fctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g if tp()[1] == 0 else torch.zeros_like(g)
+
+
 class _SPScatter(torch.autograd.Function):
     """A shard's partial output summed into this rank's piece of the
     sequence: reduce-scatter forward, all-gather backward."""
@@ -540,8 +579,38 @@ def sp_on(seq_len: int) -> bool:
 
 def sp_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """Every rank's piece of the sequence (dim ``dim``) put together for a
-    sub-layer (`_SPGather`)."""
+    sub-layer every rank computes whole and alike (`_SPGather`)."""
     return _SPGather.apply(x, dim)
+
+
+def sp_enter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every rank's normed piece of the sequence (dim ``dim``) put together
+    as the input of a sub-layer's shards, its gradient the shards' parts
+    summed into the piece (`_SPEnter`). The sub-layer then enters it no
+    more (`tp_branch`)."""
+    return _SPEnter.apply(x, dim)
+
+
+def tp_once(x: torch.Tensor) -> torch.Tensor:
+    """``x``, which has entered the tensor axis's shards already, as the
+    input of a branch every rank computes whole (`_Once`: its gradient
+    counted on the axis's first rank alone); ``x`` itself where no tensor
+    axis splits the step."""
+    return x if tp()[0] == 1 else _Once.apply(x)
+
+
+def tp_branch(x: torch.Tensor, shard: bool, entered: bool) -> torch.Tensor:
+    """``x``, replicated over the tensor axis, as one branch of a
+    sub-layer reads it: a branch on this rank's shard (``shard``) takes
+    its partial gradient, one every rank computes whole takes the whole.
+    Where ``x`` has not entered the shards, a shard's branch enters it here
+    (`tp_enter`) and a whole branch reads it as it is; where it has
+    (``entered``: `sp_enter` sums its gradient after), a shard's branch
+    reads it as it is and a whole branch counts its gradient once
+    (`tp_once`)."""
+    if entered:
+        return x if shard else tp_once(x)
+    return tp_enter(x) if shard else x
 
 
 def sp_scatter(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -120,12 +120,14 @@ def mesh2x2(_cells):
 
 
 def train2x2(_cells):
-    """The train step of reduced Minitron-4B and Qwen1.5-MoE (B=2, S=16, the
-    plan `plan_for_cell` gives a train cell: sequence-parallel) over a 2 x 2
-    ``("data", "model")`` fake mesh: rank 0's argument and peak bytes, every
-    all-gather's result bytes, its tensor-parallel counts, and the bytes of
-    the whole parameter tree, of one layer, of the largest leaf of one
-    layer and of the largest leaf outside the layers."""
+    """The train step of reduced Minitron-4B, Qwen1.5-MoE and MiniCPM3-4B
+    (B=2, S=16, the plan `plan_for_cell` gives a train cell:
+    sequence-parallel) over a 2 x 2 ``("data", "model")`` fake mesh: rank
+    0's argument and peak bytes, every all-gather's result bytes, its
+    tensor-parallel counts, every model-axis collective (kind, operand and
+    result bytes, wire bytes), and the bytes of the whole parameter tree,
+    of one layer, of the largest leaf of one layer and of the largest leaf
+    outside the layers."""
     import torch
 
     from repro_torch import tree as tree_util
@@ -137,7 +139,7 @@ def train2x2(_cells):
     from repro_torch.sharding import ctx
     from torch._subclasses.fake_tensor import FakeTensorMode
     out = {}
-    for arch in ("minitron_4b", "qwen2_moe_a2_7b"):
+    for arch in ("minitron_4b", "qwen2_moe_a2_7b", "minicpm3_4b"):
         cfg = get_reduced_config(arch)
         cell = ShapeCell("train_16", "train", 16, 2)
         mesh = mesh_lib.fake_mesh((2, 2), ("data", "model"), device="cpu")
@@ -166,7 +168,10 @@ def train2x2(_cells):
             "peak_bytes": summary["argument_bytes"] + summary["peak_transient"],
             "all_gathers": [c["result_bytes"] for c in cost.collectives
                             if c["kind"] == "all-gather"],
-            "by_kind": summary["collectives"]["by_kind"], "tp": ctx.tp_counts()}
+            "by_kind": summary["collectives"]["by_kind"], "tp": ctx.tp_counts(),
+            "model": [{k: c[k] for k in ("kind", "operand_bytes", "result_bytes", "wire_bytes")}
+                      for c in cost.collectives if c["axis"] == "model"],
+            "wire_model": summary["collectives"]["wire_bytes_by_axis"].get("model", 0.0)}
     return out
 
 

@@ -9,7 +9,8 @@ one spawned process per rank. Nothing here imports JAX.
     `default_plan(multi_pod=True)`, beside the one-device port's step on
     the same batch: the loss and metrics, every parameter and moment put
     together (rank 0), the moments of the leaves the model axis replicates
-    as each rank holds them, and the tensor-parallel counts (`ctx.tp_counts`);
+    as each rank holds them, the tensor-parallel counts (`ctx.tp_counts`)
+    and the sequence lengths the sharded step's norms saw (``norm_rows``);
   * ``step`` of ``odd_minitron_4b`` and ``odd_whisper_large_v3``: the
     configs cut to 3 heads (`_torch_tp_jobs.odd_config`), which do not
     divide the model axis of 2: attention runs on each rank's padded head
@@ -20,9 +21,11 @@ one spawned process per rank. Nothing here imports JAX.
     decoder's is cut (each stack's `ctx.sp_on` verdict recorded);
   * ``ops``: each autograd collective of `sharding.ctx` (forward and
     backward) on the model axis of 2 against the same function on one
-    device, and the wrong backward of each all-reduce beside it; a padded
-    leaf's cut (`ctx.slot_cut`) and the sum of its gradient over the axis,
-    against the cut backward.
+    device, and the wrong backward of each all-reduce beside it; the
+    reference's SP layout (a norm on the piece, `ctx.sp_enter`), and a
+    replicated branch read through `ctx.tp_once` against the same branch
+    without it; a padded leaf's cut (`ctx.slot_cut`) and the sum of its
+    gradient over the axis, against the cut backward.
 
 To debug a part alone: ``DIST_JOB_TRACE=1`` prints each part as a rank
 enters it, and ``TP_TRAIN_PARTS=step:minitron_4b:1x2x2:sp:1:fp32,ops`` picks
@@ -30,6 +33,7 @@ the parts.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -184,7 +188,8 @@ def _step_part(arch, mname, sp, accum, dtype, meshes, cfg=None):
                           grad_reduce_dtype=reduce_dtype)
     placed = ctx.place_tree(batch, named(mesh, batch_specs(cfg, plan, cell)))
     ctx.reset_tp_counts()
-    params, state, loss, metrics = step(params, state, placed)
+    with _norm_rows() as rows:
+        params, state, loss, metrics = step(params, state, placed)
     counts = ctx.tp_counts()
     model_dim = mesh.axis_names.index("model")
     replicated = {name: ctx.local_shard(m).numpy().copy()
@@ -200,11 +205,33 @@ def _step_part(arch, mname, sp, accum, dtype, meshes, cfg=None):
         "m_check": _train_check(state["m"], one_state["m"], moments=True),
         "v_check": _train_check(state["v"], one_state["v"], moments=True),
         "m_bf16_excess": _bf16_excess(state, one_state) if reduce_dtype else None,
-        "sequence_parallel": plan.sequence_parallel,
+        "sequence_parallel": plan.sequence_parallel, "norm_rows": sorted(set(rows)),
         "counts": counts, "replicated_m": replicated}
     if dist.get_rank() == 0:
         out["trees"] = full
     return out
+
+
+@contextlib.contextmanager
+def _norm_rows():
+    """The sequence length (dim 1) of every input a sub-layer's or a
+    final norm sees in a tensor-parallel step inside the block (`lm._norm`
+    and the serving path call `lm.apply_norm`; Whisper's stacks go through
+    `lm._norm`), forward and recompute alike."""
+    from repro_torch.models import lm
+    from repro_torch.sharding import ctx
+    rows, apply_norm = [], lm.apply_norm
+
+    def recorded(cfg, p, x):
+        if ctx.tp()[0] > 1:
+            rows.append(x.shape[1])
+        return apply_norm(cfg, p, x)
+
+    lm.apply_norm = recorded
+    try:
+        yield rows
+    finally:
+        lm.apply_norm = apply_norm
 
 
 #: a moment of a step whose gradients were reduced in bf16 is held within
@@ -331,6 +358,27 @@ def _ops_part(mesh, plan):
         out["sp"] = [_err(y2, y1), _err(gx2, gx1), _err(ctx.tp_gather(gw12, 1), gw11),
                      _err(ctx.tp_gather(gw22, 0), gw21)]
 
+        # the reference's SP layout: the norm on the piece (its gain
+        # entering it), the normed piece gathered into the shards with a
+        # reduce-scatter backward
+        gain = torch.randn((6,), generator=g, dtype=torch.float64)
+
+        def gain_one(x, w1, w2, gain):
+            return x + mlp_one(torch.nn.functional.layer_norm(x, (6,), weight=gain), w1, w2)
+
+        def gain_sp(x, w1c, w2r, gain):
+            xp = ctx.sp_cut(x, 1)
+            h = torch.nn.functional.layer_norm(xp, (6,), weight=ctx.tp_enter(gain))
+            h = ctx.sp_enter(h, 1)
+            xp = xp + ctx.sp_scatter(torch.tanh(h @ w1c) @ w2r, 1)
+            return ctx.sp_gather(xp, 1)
+
+        y1, (gx1, gw11, gw21, gg1) = _grads(gain_one, x, w1, w2, gain)
+        y2, (gx2, gw12, gw22, gg2) = _grads(gain_sp, x, w1[:, cols], w2[cols], gain)
+        out["sp_enter"] = [_err(y2, y1), _err(gx2, gx1), _err(ctx.tp_gather(gw12, 1), gw11),
+                           _err(ctx.tp_gather(gw22, 0), gw21), _err(gg2, gg1)]
+        out.update(_once_part(x, w1, w2, cols, g))
+
         # tp_max: the elementwise maximum over the axis, no gradient
         m = ctx.tp_max(piece(x, 2).amax(dim=-1))
         out["max"] = _err(m, x.amax(dim=-1))
@@ -359,6 +407,43 @@ def _ops_part(mesh, plan):
     out["gather_shard"] = res
     out["padded"] = _padded_part(mesh, plan)
     return out
+
+
+def _once_part(x, w1, w2, cols, g):
+    """A replicated branch inside a sub-layer whose normed input entered
+    through `ctx.sp_enter`: ``k = h @ wr`` computed whole on every rank,
+    entering the shard's product (`ctx.tp_enter`), each rank reading its
+    columns. ``once``: errors of the forward and of each input's gradient
+    against one device, the branch's input read through `ctx.tp_once`;
+    ``once_wrong``: the input's gradient error with the branch read as it
+    is (the reduce-scatter then sums its whole gradient from every rank);
+    ``once_excess``: how far that wrong gradient's excess is from ``n - 1``
+    times the branch's own part of the gradient (the gradient without the
+    branch's path, ``h`` detached there, taken away)."""
+    from repro_torch.sharding import ctx
+    n, _ = ctx.tp()
+    wr = torch.randn((6, 10), generator=g, dtype=torch.float64)
+
+    def one(x, w1, w2, wr):
+        h = torch.nn.functional.layer_norm(x, (6,))
+        return x + torch.tanh(h @ w1 + h @ wr) @ w2
+
+    def sp(x, w1c, w2r, wr, read=ctx.tp_once):
+        xp = ctx.sp_cut(x, 1)
+        h = ctx.sp_enter(torch.nn.functional.layer_norm(xp, (6,)), 1)
+        k = ctx.tp_enter(read(h) @ wr)
+        xp = xp + ctx.sp_scatter(torch.tanh(h @ w1c + k[..., cols]) @ w2r, 1)
+        return ctx.sp_gather(xp, 1)
+
+    y1, (gx1, gw11, gw21, gr1) = _grads(one, x, w1, w2, wr)
+    y2, (gx2, gw12, gw22, gr2) = _grads(sp, x, w1[:, cols], w2[cols], wr)
+    _, (gx3, _, _, _) = _grads(lambda *a: sp(*a, read=lambda t: t), x, w1[:, cols], w2[cols], wr)
+    _, (gx4, _, _, _) = _grads(lambda *a: sp(*a, read=lambda t: t.detach()),
+                               x, w1[:, cols], w2[cols], wr)
+    return {"once": [_err(y2, y1), _err(gx2, gx1), _err(ctx.tp_gather(gw12, 1), gw11),
+                     _err(ctx.tp_gather(gw22, 0), gw21), _err(gr2, gr1)],
+            "once_wrong": _err(gx3, gx1),
+            "once_excess": _err(gx3 - gx2, (n - 1) * (gx2 - gx4))}
 
 
 def _padded_part(mesh, plan):

@@ -20,7 +20,10 @@
     ``decode_32k`` on the fake world with its tensor-parallel counts, its
     attention over each rank's piece of the cache's sequence;
     reduced Minitron's and Qwen1.5-MoE's train step, which never holds the
-    whole parameter tree.
+    whole parameter tree; the model-axis collectives of reduced Minitron's,
+    Qwen1.5-MoE's and MiniCPM3's sequence-parallel train step against a
+    reckoning by hand (the norms on the rank's piece, each normed piece
+    gathered into the shards with a reduce-scatter backward).
 
 The processes run at once, from one module fixture (~25 s).
 """
@@ -40,6 +43,7 @@ from repro.models import build_model as jax_build_model
 from repro_torch import tree as tree_util
 from repro_torch.configs import (
     ARCH_IDS,
+    ShapeCell,
     all_configs,
     applicable_cells,
     get_config,
@@ -264,3 +268,84 @@ def test_train_step_never_gathers_the_whole_tree(jobs, arch):
     assert r["all_gathers"] and max(r["all_gathers"]) <= r["one_layer"]
     assert max(r["all_gathers"]) <= max(r["largest_layer_leaf"], r["largest_other"])
     assert r["tp"]["tp_local"] > 0 and "tp_gathered" not in r["tp"]
+
+
+def _sp_train_model_axis(cfg) -> dict:
+    """The model-axis collectives of reduced ``cfg``'s train step on the
+    2 x 2 fake mesh (B = 2, S = 16: one row a rank; sequence-parallel, every
+    group and the vocab on its shard), by hand: ``{kind: [(operand bytes,
+    count)]}``. ``A``, a rank's ``(1, 16, d)`` activation; the layers run
+    under `torch.utils.checkpoint`, whose recompute stops at the last
+    tensor the backward needs (a layer's last residual sum is not
+    recomputed).
+
+      * all-gather of ``A / 2`` (the piece) into ``A``: each sub-layer's
+        entry (`ctx.sp_enter`, or MLA's `ctx.sp_gather`) in the forward and
+        the recompute, the LM head's entry once; the backward of each
+        sub-layer's exit (`ctx.sp_scatter`) and of the embedding's;
+      * reduce-scatter of ``A``: the embedding's masked lookup, each exit
+        in the forward, the mixer's exit again in the recompute; the
+        backward of each `ctx.sp_enter` (the attention and the MLP or the
+        MoE, not MLA) and of the head's;
+      * all-reduce, never of an activation: each norm leaf's gradient (the
+        norm runs on the piece, `ctx.tp_enter` of its params), the loss's
+        three ``(1, 16)`` fp32 sums, the MoE's routing weights entering the
+        experts, MLA's query latent and ``ckv`` / ``kpe`` entering the
+        heads, and AdamW's sums of squares (one fp32 a model-sharded leaf,
+        a vector for each set of mesh axes that shards them)."""
+    from repro_torch.models.common import norm_shapes
+    L, d, S = cfg.num_layers, cfg.d_model, 16
+    a = torch_dtype(cfg.activ_dtype).itemsize
+    pb = torch_dtype(cfg.param_dtype).itemsize
+    A = S * d * a
+    mla = cfg.attn_type == "mla"
+    enters = 1 if mla else 2                    # the sub-layers a layer enters by `sp_enter`
+    gathers = (2 * L + 1) + 2 * L + 2 * L + 1
+    scatters = 1 + 2 * L + L + enters * L + 1
+    reduces = [(d * pb, len(norm_shapes(cfg, d)) * (2 * L + 1)), (S * 4, 3)]
+    if cfg.moe is not None:
+        from repro_torch.models.mlp import padded_experts
+        reduces.append((S * padded_experts(cfg.moe.num_experts) * 4, L))
+    if mla:
+        m = cfg.mla
+        reduces += [(S * r * a, L) for r in (m.q_lora_rank, m.kv_lora_rank, m.qk_rope_head_dim)]
+    plan = dryrun.plan_for_cell(cfg, ShapeCell("train_16", "train", 16, 2), False)
+    sets: dict = {}
+    for _, spec in tree_util.items(param_specs(cfg, plan)):
+        axes = frozenset(x for dim in range(len(spec)) for x in spec.axes(dim))
+        if axes:
+            sets[axes] = sets.get(axes, 0) + 1
+    reduces += [(4 * k, 1) for axes, k in sets.items() if "model" in axes]
+    return {"all-gather": [(A // 2, gathers)], "reduce-scatter": [(A, scatters)],
+            "all-reduce": reduces}, A
+
+
+@pytest.mark.parametrize("arch", ["minitron_4b", "qwen2_moe_a2_7b", "minicpm3_4b"])
+def test_sp_train_step_reduce_scatters_the_normed_input(jobs, arch):
+    """The sequence-parallel train step of reduced Minitron-4B (GQA),
+    Qwen1.5-MoE (experts and shared expert on their shards) and MiniCPM3
+    (MLA) on the 2 x 2 fake mesh, laid out as the reference lays it out:
+    no model-axis all-reduce is as large as a rank's ``(rows, S, d)``
+    activation or its gradient (the normed input enters the shards by an
+    all-gather whose backward is a reduce-scatter, the embedding's sum is a
+    reduce-scatter), and the model-axis collectives, their count, bytes and
+    wire bytes, are the reckoning by hand (`_sp_train_model_axis`)."""
+    cfg = get_reduced_config(arch)
+    r = jobs["train2x2"][arch]
+    want, A = _sp_train_model_axis(cfg)
+    got: dict = {}
+    for c in r["model"]:
+        got.setdefault(c["kind"], {}).setdefault(c["operand_bytes"], 0)
+        got[c["kind"]][c["operand_bytes"]] += 1
+    assert all(c["operand_bytes"] < A for c in r["model"] if c["kind"] == "all-reduce")
+    tally: dict = {}
+    for kind, terms in want.items():
+        for nbytes, count in terms:
+            tally.setdefault(kind, {}).setdefault(nbytes, 0)
+            tally[kind][nbytes] += count
+    assert got == tally
+    # a ring of two: an all-reduce moves its operand once, an all-gather
+    # half its result (its operand), a reduce-scatter half its operand
+    wire = sum(count * (nbytes / 2 if kind == "reduce-scatter" else nbytes)
+               for kind, terms in want.items() for nbytes, count in terms)
+    assert r["wire_model"] == wire

@@ -301,7 +301,7 @@ def test_sp_keeps_frames_that_do_not_divide_whole(jobs):
 TOL = 1e-12
 
 
-@pytest.mark.parametrize("op", ["enter_reduce", "sum_shard", "sp", "max"])
+@pytest.mark.parametrize("op", ["enter_reduce", "sum_shard", "sp", "sp_enter", "once", "max"])
 def test_autograd_collective_matches_one_device(jobs, op):
     """Each autograd collective in float64 on the model axis of 2 against
     the same function on one device: the forward and every input's gradient
@@ -310,7 +310,11 @@ def test_autograd_collective_matches_one_device(jobs, op):
     row-split product out through `ctx.tp_reduce`; ``sum_shard``: a gated
     norm's variance over split channels through `ctx.tp_sum_shard`; ``sp``:
     a residual stream on sequence pieces (`ctx.sp_cut`, `ctx.sp_gather`,
-    `ctx.sp_scatter`); ``max``: `ctx.tp_max`."""
+    `ctx.sp_scatter`); ``sp_enter``: the same stream as the reference lays
+    it out, the norm on the piece (its gain entering it, `ctx.tp_enter`)
+    and the normed piece gathered into the shards by `ctx.sp_enter`;
+    ``once``: that layout with a branch every rank computes whole from the
+    normed input, read through `ctx.tp_once`; ``max``: `ctx.tp_max`."""
     for out in jobs["ranks"]:
         got = _ok(out["ops"])[op]
         assert max(got if isinstance(got, list) else [got]) <= TOL, got
@@ -324,6 +328,45 @@ def test_each_all_reduce_needs_its_own_backward(jobs):
     for out in jobs["ranks"]:
         r = _ok(out["ops"])
         assert r["reduce_wrong"] > 1.0 and r["sum_shard_wrong"] > 0.1
+
+
+def test_replicated_branch_counts_once(jobs):
+    """The trap of a replicated branch behind `ctx.sp_enter`: every rank
+    computes the branch whole from the normed input, and its reduce-scatter
+    backward sums every rank's whole gradient of it. Read as it is, the
+    branch's part of the input's gradient comes out ``n`` times (its excess
+    over the right gradient is ``n - 1`` times that part, to rounding), far
+    off; read through `ctx.tp_once` it agrees to rounding (the ``once`` op
+    case)."""
+    for out in jobs["ranks"]:
+        r = _ok(out["ops"])
+        assert r["once_wrong"] > 0.1 and r["once_excess"] <= TOL, r
+        assert max(r["once"]) <= TOL, r["once"]
+
+
+def _norm_rows_wanted(case):
+    """The sequence lengths a case's norms see on the model axis of 2:
+    each stack's piece where it runs sequence-parallel, else its whole
+    sequence."""
+    arch, _, sp, _, _ = case.split(":")
+    cfg = arch_config(arch)
+    seqs = [S] + ([cfg.encdec.encoder_seq_len] if cfg.encdec is not None else [])
+    on = sp == "sp" and cfg.family in ("dense", "moe", "vlm", "encdec")
+    return sorted({n // 2 if on and n % 2 == 0 else n for n in seqs})
+
+
+@pytest.mark.parametrize("case", [c for c in NAMES if ":1x2x2:" in c])
+def test_norms_run_on_the_rank_piece(jobs, case):
+    """Under sequence parallelism every sub-layer norm and every final
+    norm (Whisper's encoder and decoder too) runs on the rank's ``S / 2``
+    rows of its stack's sequence, as the reference norms it, in the forward
+    and its recompute alike; a step without it (SSM, hybrid, the forced
+    ``nosp`` case) norms the whole sequence. Whisper fed `ODD_FRAMES`
+    frames norms its encoder's whole stream and its decoder's piece."""
+    want = _norm_rows_wanted(case)
+    for out in jobs["ranks"]:
+        assert _ok(out[case])["norm_rows"] == want
+        assert _ok(out["frames"])["norm_rows"] == [S // 2, ODD_FRAMES]
 
 
 def test_padded_leaf_gradient_sums_over_the_axis(jobs):

@@ -43,7 +43,8 @@ its 1500 frames) at full width and 2 layers, against the whole
 model's `make_train_step`: the loss, each first AdamW moment (the clipped
 gradient times 1 - beta1, the clip scale from the global norm over both
 threads' shards), and the replicated leaves' gradients equal on both
-threads. ``chip_smoke.py`` runs the same check.
+threads; and the model-axis collectives rank 0's step issued, by kind, with
+their ring-model wire bytes a rank. ``chip_smoke.py`` runs the same check.
 
 ``--decode`` runs the decode step over a sequence-sharded cache instead
 (`decode_case`): the model axis of 2 cuts both the heads (q heads and the
@@ -158,6 +159,21 @@ def _seq_on() -> bool:
     return _on() and getattr(_TL, "seq", False)
 
 
+def _tallied(kind, fn):
+    """``fn``, a model-axis collective of the emulated ranks, each call
+    noted in this thread's tally (`train_case`) as ``(kind, operand bytes,
+    result bytes)``."""
+
+    def call(x, *args):
+        out = fn(x, *args)
+        tally = getattr(_TL, "tally", None)
+        if tally is not None and _on():
+            tally.append((kind, x.numel() * x.element_size(), out.numel() * out.element_size()))
+        return out
+
+    return call
+
+
 def _install(ctx) -> None:
     """The model axis's collectives over the `N` threads (outside an
     emulated rank's thread, a step of one rank); in a thread of
@@ -165,12 +181,14 @@ def _install(ctx) -> None:
     import torch
     ctx.tp = lambda: (N, _TL.r) if _on() else (1, 0)
     ctx.tp_axis = lambda: "model" if _on() else None
-    ctx.tp_sum = lambda x: functools.reduce(operator.add, _exchange(x)) if _on() else x
-    ctx.tp_gather = lambda x, dim: torch.cat(_exchange(x), dim) if _on() else x
-    ctx.tp_reduce_scatter = lambda x, dim: (
-        functools.reduce(operator.add, _exchange(x)).chunk(N, dim)[_TL.r] if _on() else x)
-    ctx.tp_max = lambda x: (functools.reduce(torch.maximum, _exchange(x.detach()))
-                            if _on() else x)
+    ctx.tp_sum = _tallied("all-reduce", lambda x: functools.reduce(
+        operator.add, _exchange(x)) if _on() else x)
+    ctx.tp_gather = _tallied("all-gather", lambda x, dim: torch.cat(_exchange(x), dim)
+                             if _on() else x)
+    ctx.tp_reduce_scatter = _tallied("reduce-scatter", lambda x, dim: (
+        functools.reduce(operator.add, _exchange(x)).chunk(N, dim)[_TL.r] if _on() else x))
+    ctx.tp_max = _tallied("all-reduce", lambda x: functools.reduce(
+        torch.maximum, _exchange(x.detach())) if _on() else x)
     ctx.seq_axes = lambda: ("model",) if _seq_on() else ()
     ctx.seq_piece = lambda: (N, _TL.r) if _seq_on() else (1, 0)
     ctx.seq_max = lambda x: functools.reduce(torch.maximum, _exchange(x)) if _seq_on() else x
@@ -331,8 +349,12 @@ def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
         with ctx.activation_sharding(mesh, plan, tensor_parallel=True):
             params, cut, padded = cut_params(cfg, model.params, plan, r)
             ctx.reset_tp_counts()
-            loss, _, grads = steps._loss_and_grads(model, params, batch)
-            return float(loss), grads, cut, ctx.tp_counts(), padded
+            _TL.tally = []
+            try:
+                loss, _, grads = steps._loss_and_grads(model, params, batch)
+            finally:
+                tally, _TL.tally = _TL.tally, None
+            return float(loss), grads, cut, ctx.tp_counts(), padded, tally
 
     with installed(ctx):
         res = _run_ranks(rank)
@@ -370,7 +392,7 @@ def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
     out = {"loss": res[0][0], "loss_rank1": res[1][0], "whole_loss": float(whole_loss),
            "m_outside": bad, "m_total": total, "m_worst_share": worst,
            "replicated_grads_equal": same, "counts": res[0][3], "tp_s": tp_s,
-           "whole_s": whole_s}
+           "whole_s": whole_s, "collectives": collectives_by_kind(res[0][5], N)}
     print(f"{tag} {cfg.name} {cfg.num_layers} layers {cfg.param_dtype} B={B} x S={S} "
           f"on {N} threads, "
           f"{'sequence-parallel' if plan.sequence_parallel else 'whole sequence'}: loss "
@@ -379,8 +401,34 @@ def train_case(dev, cfg, batch, lr, card, tag, *, loss_chunk=None) -> dict:
           f"{worst:.3e} of a leaf's largest |m|; replicated leaves' gradients equal on every "
           f"rank {same}; {out['counts']}; {tp_s:.2f} s {N} ranks, {whole_s:.2f} s whole  "
           f"[{card}]", flush=True)
+    print(f"{tag} {cfg.name} {collectives_text(out['collectives'])}", flush=True)
     del model, state, res
     return out
+
+
+def collectives_by_kind(tally, n: int) -> dict:
+    """A thread's tally of model-axis collectives (`_tallied`) by kind:
+    how many, their operand bytes, and the bytes each rank of a ring of
+    ``n`` moves for them (`launch.cost.wire_bytes`, the reference's ring
+    model)."""
+    from repro_torch.launch.cost import wire_bytes
+    out: dict = {}
+    for kind, operand, result in tally:
+        k = out.setdefault(kind, {"n": 0, "operand_bytes": 0, "wire_bytes": 0.0})
+        k["n"] += 1
+        k["operand_bytes"] += operand
+        k["wire_bytes"] += wire_bytes(kind, operand, result, n)
+    return out
+
+
+def collectives_text(by_kind: dict) -> str:
+    """`collectives_by_kind` as one line: each kind's count and wire bytes
+    a rank, and their total."""
+    total = sum(k["wire_bytes"] for k in by_kind.values())
+    parts = ", ".join(f"{kind} {k['n']} x, {k['wire_bytes'] / 1e6:.3f} MB"
+                      for kind, k in sorted(by_kind.items()))
+    return (f"model-axis collectives of one step, rank 0: {parts or 'none'}; "
+            f"wire {total / 1e6:.3f} MB a rank")
 
 
 class _Routing:
