@@ -36,6 +36,26 @@ Phases; any failure ends the run with a non-zero exit and no result line:
              goes, and the empty kernel's device duration in the same trace;
              a fourth holds every replayed step to the eager step over a
              clone of its state and inputs (logits, and the streams).
+4b. prefill graphs — on the same Qwen model, before it is freed: an
+             eager engine beside one whose PREPARE captured a prefill CUDA
+             graph (`PrefillExecutable`) at four of the serve lengths and at
+             every bucket of the ladder 8 ... 512, all in one memory pool,
+             installed by the swap. The other four prompts take the smallest
+             bucket that holds them, as the reference's ``_admit`` picks. Every
+             replay is held to an eager ``model.prefill`` of its batch:
+             logits, cache and greedy pick equal bit for bit, and the
+             launches it adds equal one prefill's. A run with the counters
+             zeroed replays every prefill and launches flash and MoE top-k
+             once per layer per prefill. Warm TTFT eager against replayed
+             (runs in turns; median and range), the capture seconds, the
+             pool's bytes and each path's busy share of a profiled warm
+             run. A second swap, whose PREPARE installs one length and no
+             bucket, leaves no bucket behind: an unseen length prefills
+             eagerly. Then the same for Mamba2-370m cut to 24 of its 48
+             layers on its slot pool (exact lengths only: the SSD scan
+             inside a graph), and `launch.serve_intents` over the Qwen
+             model: two waves and the intent's swap, wave 2 admitted
+             through the graphs PREPARE captured.
 5. paths   — every serve prompt's full-width prefill, kernel path against
              the plain path on the card, in fp32 and in bf16: router logits
              within tolerance up to the first layer whose MoE routing
@@ -957,7 +977,7 @@ def launches_per_prefill(cfg, n):
 
 
 def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged,
-                tag=None, layers=None, **engine_kw):
+                tag=None, layers=None, after=None, **engine_kw):
     """``ServingEngine`` over full-width ``arch`` (bf16, random weights from
     seed 0; cut to ``layers`` when given) on the paged or the slot-granular
     pool (``paged``): run 1 with the launch counters zeroed just before it
@@ -967,8 +987,10 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged,
     (``path_fn``), whose kernel-path argmax must be the engine's first
     token, a profiled run 3 (when ``profile_kernels`` is not None), the host
     ops of one graph step against one eager ``decode_step``, and run 4, each
-    graph step held to the eager (plain) decode step (`_graph_vs_eager`).
-    Returns (launches of run 1, metrics, the per-prompt path outputs)."""
+    graph step held to the eager (plain) decode step (`_graph_vs_eager`);
+    then ``after(model)``, a phase over the same model, when given (its
+    result under ``"after"``). Returns (launches of run 1, metrics, the
+    per-prompt path outputs)."""
     import dataclasses
 
     import torch
@@ -1061,12 +1083,18 @@ def phase_serve(card, arch, prompt_lens, path_fn, profile_kernels, *, paged,
                                         tag, card)
     _check_graph_steps(tag, engine)
     part("graph vs eager")
+    done = None
+    if after is not None:
+        del engine
+        free_device()
+        done = after(model)
+        part("after")
     part_s = {name: t - parts[i][1] for i, (name, t) in enumerate(parts[1:])}
     say(f"{tag} phase parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items())
         + f"  [{card}]")
     return launches, {"run1": m1, "run2": m2, "wall1_s": wall, "wall2_s": wall2,
                       "tokens": n_tok, "peak_gb": peak_gb, "profile": profile,
-                      "graph": graph, "parts_s": part_s}, paths
+                      "graph": graph, "parts_s": part_s, "after": done}, paths
 
 
 def _check_graph_steps(tag, engine):
@@ -1292,6 +1320,247 @@ def _profile_run(engine, prompts, Request, streams, card, kernels, top=12):
         f"{floor_us:.2f} us each on the device (same trace)")
     return {"wall_s": wall, "device_busy_s": busy_s, "launch_floor_us": floor_us,
             "top": [{"device_ms": d / 1e3, "calls": c, "name": k} for d, c, k in rows[:top]]}
+
+
+# the prefill graphs phase (`serving/executable.py::PrefillExecutable`):
+# PREPARE is given the first four serve lengths, so those prompts replay
+# their exact-length graphs, and the other four the smallest bucket that
+# holds them (64 itself, 256, 256, 512; the ladder 8 ... 512)
+PG_EXACT_LENS = (17, 100, 256, 384)
+PG_RUNS = 3                     # warm runs a path, eager and replayed in turns
+# Mamba2's slot pool pads nothing: exact lengths only, at half depth (the
+# scan inside a graph needs no more layers to show; the capture and the
+# checks take half the time)
+PG_SSM_LAYERS = 24
+PG_SSM_LENS = (17, 255, 256, 1000)
+
+
+@contextlib.contextmanager
+def _replays_held_to_eager(engine, records):
+    """While inside, every installed prefill executable's replay is held to
+    an eager ``model.prefill`` of the same batch, run just after it over the
+    executable's buffers: logits, ``cache1`` and ``next_tok`` equal bit for
+    bit, and the launches the replay added equal one prefill's
+    (`launches_per_prefill`). One record per replay in ``records``."""
+    import torch
+
+    from repro_torch.kernels import ops
+    model = engine.model
+    vocab = model.cfg.vocab_size
+    want = launches_per_prefill(model.cfg, 1)
+    exact, buckets = engine.prefill_executables
+    exes = [e for e in list(exact.values()) + list(buckets.values()) if e is not None]
+    check(exes and all(e.graph is not None for e in exes),
+          f"{model.cfg.name}: an installed prefill executable holds no graph")
+
+    def held(exe, run):
+        def go():
+            before = dict(ops.LAUNCHES)
+            run()
+            torch.cuda.synchronize()
+            got = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            logits, cache = model.prefill(exe.batch())
+            pick = int(torch.argmax(logits[0, :vocab]))
+            torch.cuda.synchronize()
+            records.append({
+                "length": exe.length, "padded": exe.padded,
+                "true_len": int(exe.true_len) if exe.padded else exe.length,
+                "launches_ok": got == want,
+                "logits_equal": bool(torch.equal(exe.logits, logits)),
+                "cache_equal": all(torch.equal(exe.cache1[k], v) for k, v in cache.items()),
+                "next_tok_equal": int(exe.next_tok[0]) == pick})
+        return go
+
+    for e in exes:
+        e.run = held(e, e.run)
+    try:
+        yield records
+    finally:
+        for e in exes:
+            del e.run
+
+
+def _busy_run(engine, prompts, Request):
+    """One profiled run: (its requests, wall seconds, device-busy seconds:
+    the device events' own time summed)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        reqs, wall = _serve_once(engine, prompts, Request)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    return reqs, wall, busy
+
+
+def _stats_delta(engine, before):
+    return {k: engine.prefill_stats[k] - before[k] for k in ("exact", "bucket", "eager",
+                                                            "replays")}
+
+
+def _prefill_graph_cell(card, tag, model, prompts, lengths, buckets, engine_kw):
+    """One model's prefill graphs (module docstring, phase 4b): an eager
+    engine and one whose PREPARE captured a graph at each of ``lengths``
+    (and each bucket when ``buckets``), both over ``model``, warmed; one
+    run with every replay held to the eager prefill of its batch; one run
+    with the launch counters zeroed just before and read just after (every
+    prefill a replay, the counts a prefill's each); `PG_RUNS` warm runs a
+    path in turns (TTFT, the streams of each path equal run to run, and an
+    exact-length prompt's stream equal on both paths); a profiled warm run
+    each. Returns the figures."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Request, ServingEngine, compute_metrics
+    cfg = model.cfg
+    place = {"params": model.device, "cache": model.device}
+    eager = ServingEngine(model, **engine_kw)
+    graphs = ServingEngine(model, **engine_kw)
+    e_reqs, _ = _serve_once(eager, prompts, Request)          # cold: decode capture
+    _serve_once(graphs, prompts, Request)
+    t0 = time.perf_counter()
+    execs, n = graphs.prepare_executables(place, prefill_lengths=lengths,
+                                          prefill_buckets=buckets)
+    prepare_s = time.perf_counter() - t0
+    exes = list(execs["prefill"].values()) + list(execs["prefill_buckets"].values())
+    pool = exes[0].pool_bytes()
+    check(n == 1 + len(exes) and len({tuple(e.graph.pool()) for e in exes}) == 1,
+          f"{tag} PREPARE: {n} executables, pools {[e.graph.pool() for e in exes]}")
+    graphs.pause()
+    graphs.swap_plan(placement=place, executables=execs)
+    graphs.resume()
+    del execs, exes
+    records = []
+    before = dict(graphs.prefill_stats)
+    with _replays_held_to_eager(graphs, records):
+        _serve_once(graphs, prompts, Request)
+    held = _stats_delta(graphs, before)
+    bad = [r for r in records if not (r["launches_ok"] and r["logits_equal"]
+                                      and r["cache_equal"] and r["next_tok_equal"])]
+    check(len(records) == len(prompts) and held["replays"] == len(prompts) and not bad,
+          f"{tag}: replays held to eager prefill: {held}, failing {bad}")
+    say(f"{tag} {len(records)} replays, each held to an eager model.prefill of its batch: "
+        f"logits, cache1 and next_tok equal bit for bit, launches "
+        f"{launches_per_prefill(cfg, 1)} each; picks {held}  [{card}]")
+
+    before = dict(graphs.prefill_stats)
+    (g_reqs, _), launches = _zeroed_launches(lambda: _serve_once(graphs, prompts, Request))
+    want = launches_per_prefill(cfg, len(prompts))
+    counted = _stats_delta(graphs, before)
+    check(launches == want and counted["replays"] == len(prompts),
+          f"{tag}: launches {launches} (want {want}), prefills {counted}")
+    say(f"{tag} counted run: launches {launches} (want {want}), prefills {counted}")
+
+    ttft = {"eager": [], "replayed": []}
+    streams = {"eager": [], "replayed": []}
+    for _ in range(PG_RUNS):
+        for name, eng in (("eager", eager), ("replayed", graphs)):
+            reqs, _ = _serve_once(eng, prompts, Request)
+            ttft[name].append(compute_metrics(reqs)["ttft_mean_s"])
+            streams[name].append([r.tokens_out for r in reqs])
+    for name, runs in streams.items():
+        check(all(s == runs[0] for s in runs), f"{tag}: the {name} runs' streams differ")
+    same = [i for i, p in enumerate(prompts) if len(p) in lengths]
+    check(all(streams["eager"][0][i] == streams["replayed"][0][i] for i in same),
+          f"{tag}: an exact-length prompt's stream differs between the paths")
+    parted = [i for i in range(len(prompts)) if streams["eager"][0][i] != streams["replayed"][0][i]]
+    _check_graph_steps(f"{tag} eager engine", eager)
+    _check_graph_steps(f"{tag} graph engine", graphs)
+    _, e_wall, e_busy = _busy_run(eager, prompts, Request)
+    _, g_wall, g_busy = _busy_run(graphs, prompts, Request)
+    s = graphs.prefill_stats
+    out = {"prepare_s": prepare_s, "executables": n, "captures": s["captures"],
+           "capture_s": s["capture_s"], "pool_bytes": pool, "launches": launches,
+           "records": len(records), "ttft_s": ttft, "busy": {
+               "eager": {"wall_s": e_wall, "busy_s": e_busy},
+               "replayed": {"wall_s": g_wall, "busy_s": g_busy}},
+           "bucket_streams_parted": parted, "prefill_stats": dict(s)}
+    say(f"{tag} PREPARE {prepare_s:.3f} s: {n} executables, {s['captures']} prefill graphs "
+        f"captured in {s['capture_s']:.3f} s, one pool of {pool} B "
+        f"({pool / 2**20:.1f} MiB)  [{card}]")
+    for name in ("eager", "replayed"):
+        ms = [1e3 * t for t in ttft[name]]
+        say(f"{tag} warm TTFT mean, {name} prefill: median {np.median(ms):.2f} ms, range "
+            f"{min(ms):.2f}-{max(ms):.2f} ms over {PG_RUNS} runs in turns  [{card}]")
+    for name, (w, b) in (("eager", (e_wall, e_busy)), ("replayed", (g_wall, g_busy))):
+        say(f"[profile] {tag} warm {name} run: wall {w:.3f} s, device busy {b:.3f} s "
+            f"({100 * b / w:.1f} %)  [{card}]")
+    say(f"{tag} bucket prompts whose stream parts from the eager path's (a padded "
+        f"prefill is another shape): {parted}")
+    return out, graphs
+
+
+def phase_prefill_graphs(card, model):
+    """Phase 4b (module docstring): the Qwen serve model's prefill graphs
+    (`_prefill_graph_cell`), then a swap whose PREPARE installs one length
+    and no bucket (an unseen length then prefills eagerly), then Mamba2 at
+    `PG_SSM_LAYERS` layers on its slot pool (exact lengths: the SSD scan
+    inside a graph), then `launch.serve_intents` over the same Qwen."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve_intents
+    from repro_torch.models import Model
+    from repro_torch.serving import Request
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, model.cfg.vocab_size, size=n).astype(np.int32)
+               for n in SERVE_PROMPT_LENS]
+    out, graphs = {}, None
+    out["qwen"], graphs = _prefill_graph_cell(
+        card, "[prefill graphs]", model, prompts, PG_EXACT_LENS, True,
+        {"n_slots": 8, "s_max": 512, "page_size": 16})
+    check(graphs.prefill_stats["bucket"] > 0, "[prefill graphs] no bucket was replayed")
+
+    place = {"params": model.device, "cache": model.device}
+    execs, n = graphs.prepare_executables(place, prefill_lengths=PG_EXACT_LENS[:1])
+    graphs.pause()
+    graphs.swap_plan(placement=place, executables=execs)
+    graphs.resume()
+    exact, buckets = graphs.prefill_executables
+    check(sorted(exact) == [PG_EXACT_LENS[0]] and buckets == {} and graphs._bucket_lengths == [],
+          f"[prefill graphs] after the second swap: {sorted(exact)}, buckets {sorted(buckets)}")
+    before = dict(graphs.prefill_stats)
+    pick = [prompts[SERVE_PROMPT_LENS.index(PG_EXACT_LENS[0])], prompts[1]]   # 17, then 64
+    _serve_once(graphs, pick, Request)
+    moved = _stats_delta(graphs, before)
+    check((moved["exact"], moved["bucket"], moved["eager"], moved["replays"]) == (1, 0, 1, 1),
+          f"[prefill graphs] after a swap without buckets: {moved}")
+    say(f"[prefill graphs] second swap ({n} executables, no bucket): a 17 replays its "
+        f"graph, a 64 prefills eagerly: {moved}")
+    del graphs, execs
+    free_device()
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=PG_SSM_LAYERS)
+    ssm = Model(cfg, device="cuda", seed=0)
+    ssm_prompts = [rng.integers(2, cfg.vocab_size, size=n).astype(np.int32)
+                   for n in PG_SSM_LENS]
+    out["mamba2"], eng = _prefill_graph_cell(
+        card, "[ssm prefill graphs]", ssm, ssm_prompts, PG_SSM_LENS, True,
+        {"n_slots": 4, "s_max": 1024})
+    check(eng.prefill_stats["bucket"] == 0 and eng._bucket_lengths == [],
+          "[ssm prefill graphs] the slot pool took a bucket")
+    del eng, ssm
+    free_device()
+
+    intents = serve_intents.main(["--device", "cuda"], model=model)
+    report = intents["report"]
+    stats = intents["prefill_stats"]
+    check(stats["replays"] == len(intents["wave2"]) == stats["exact"]
+          and all(len(t) == 8 for t in intents["wave2"].values()),
+          f"[serve intents] wave 2 did not replay its prefill graphs: {stats}")
+    say(f"[serve intents] {report.summary()}; aot x{report.compiled_in_prepare}, downtime "
+        f"{report.downtime_s * 1e3:.2f} ms, wave 2 prefills {stats}  [{card}]")
+    out["serve_intents"] = {"summary": report.summary(), "downtime_s": report.downtime_s,
+                            "prepare_s": report.prepare_s,
+                            "n_compiled": report.compiled_in_prepare,
+                            "prefill_stats": stats, "decode_stats": intents["decode_stats"]}
+    free_device()
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[prefill graphs] phase {out['seconds']:.1f} s  [{card}]")
+    return out
 
 
 def phase_paths(card, bf16):
@@ -2034,25 +2303,34 @@ SCALE_SLO_INTENT = "Keep TTFT under 2 seconds for phi traffic."
 SCALE_TTFT_TARGET_S = 2.0      # what SCALE_SLO_INTENT compiles to
 
 
-def held_bytes():
+def held_bytes(engines=()):
     """`torch.cuda.memory_allocated` with cuBLAS's workspaces left out, read
     where nothing runs: cuBLAS keeps one per (thread's handle, stream) for
     the process (made anew at next use), and a run's first spawn is the
     first cuBLAS work of its PREPARE worker thread. torch's own leak check
-    does the same. Returns (held, allocated before the workspaces went, the
-    held blocks counted by (size, memory pool))."""
+    does the same. The pools of the prefill graphs installed on ``engines``
+    (live engines, which hold what their last PREPARE built for as long as
+    they serve: an engine that retires frees them) are left out too and
+    counted apart. Returns (held, allocated before the workspaces went, the
+    held blocks counted by (size, memory pool), the bytes of the installed
+    prefill pools)."""
     import torch
+    pools = {str(tuple(exe.graph.pool())) for eng in engines
+             for table in eng.prefill_executables for exe in table.values()
+             if exe is not None and exe.graph is not None}
     gc.collect()
     torch.cuda.synchronize()
     raw = torch.cuda.memory_allocated()
     torch._C._cuda_clearCublasWorkspaces()
-    blocks = {}
+    blocks, installed = {}, 0
     for seg in torch.cuda.memory_snapshot():
+        pool = str(tuple(seg.get("segment_pool_id", ())))
         for b in seg["blocks"]:
             if b["state"] == "active_allocated":
-                key = (b["size"], str(tuple(seg.get("segment_pool_id", ()))))
+                key = (b["size"], pool)
                 blocks[key] = blocks.get(key, 0) + 1
-    return torch.cuda.memory_allocated(), raw, blocks
+                installed += b["size"] if pool in pools else 0
+    return torch.cuda.memory_allocated() - installed, raw - installed, blocks, installed
 
 
 def _scale_trace(vocab):
@@ -2131,6 +2409,17 @@ def _scale_run(mode, model, trace, prompts, card, profile=None):
             by_tick.setdefault(int(r.t), []).append(req)
         log = {"ticks": [], "drain_s": {}, "retire_mode": {}, "stats": {}, "mem": None}
         calib, windows = ResidualCalibration(), []
+        # each spawn's counts from the moment it joins (its commit verifies
+        # its collectives first): a spawn can join and be retired inside one
+        # scaler tick, between two samples
+        verify = cluster.verify_engine_collectives
+
+        def verified(name, *args, **kwargs):
+            out = verify(name, *args, **kwargs)
+            log["stats"][name] = cluster.engine(name).decode_stats
+            return out
+
+        cluster.verify_engine_collectives = verified
 
         def drive():
             torch.cuda.synchronize()
@@ -2172,7 +2461,8 @@ def _scale_run(mode, model, trace, prompts, card, profile=None):
                             len(cluster.engines_for_label(v)) == 1 for v in SCALE_LABELS):
                         break
                 if not any(d.kind == "spawn" for t in log["ticks"] for d in t["decisions"]):
-                    log["mem"] = held_bytes()         # before the first spawn
+                    log["mem"] = held_bytes(            # before the first spawn
+                        [cluster.engine(n) for n in cluster.engines()])
                 decisions = scaler.tick(dt=1.0)
                 now = time.perf_counter()
                 for d in decisions:
@@ -2207,7 +2497,7 @@ def _scale_run(mode, model, trace, prompts, card, profile=None):
         drive()
         wall = time.perf_counter() - t_run
         launches = dict(ops.LAUNCHES)
-        mem_end = held_bytes()
+        mem_end = held_bytes([cluster.engine(n) for n in cluster.engines()])
         history = list(cluster.history)
         pred = (planner.predicted_for("phi", LabelDemand(rate=0.0), calibrated=False)
                 if planner is not None else None)
@@ -2256,8 +2546,9 @@ def _scale_run(mode, model, trace, prompts, card, profile=None):
         mem_delta = mem_end[0] - log["mem"][0]
         check(abs(mem_delta) <= page_bytes,
               f"{tag} memory held {mem_end} after the last retire, {log['mem']} before the "
-              f"first spawn (without, with cuBLAS's workspaces): {mem_delta:+d} bytes, more "
-              f"than a page ({page_bytes})")
+              f"first spawn (without, with cuBLAS's workspaces; blocks; the live engines' "
+              f"installed prefill pools, left out): {mem_delta:+d} bytes, more than a page "
+              f"({page_bytes})")
 
         # -- results (printed, not checked) -------------------------------------
         say(f"{tag} reports still open after the scale-down, closed by the final retire of "
@@ -2281,6 +2572,7 @@ def _scale_run(mode, model, trace, prompts, card, profile=None):
                            "downtime_s": r.downtime_s} for r in spawns],
                "drain_s": log["drain_s"], "mem_delta": mem_delta,
                "mem_workspaces": [log["mem"][1] - log["mem"][0], mem_end[1] - mem_end[0]],
+               "mem_installed_prefill": [log["mem"][3], mem_end[3]],
                "page_bytes": page_bytes, "by_label": {}}
         for v in SCALE_LABELS:
             m = compute_metrics([r for r in reqs if r.labels["data-type"] == v])
@@ -2296,8 +2588,9 @@ def _scale_run(mode, model, trace, prompts, card, profile=None):
             f"of requests; {out['engine_ticks']} engine-ticks (logical seconds), "
             f"{out['engine_s']:.2f} engine-seconds of wall time; launches {launches}; memory "
             f"held after the last retire {mem_delta:+d} bytes against before the first spawn "
-            f"(a page is {page_bytes}; cuBLAS's workspaces {out['mem_workspaces']} bytes then "
-            f"and there, not counted)  [{card}]")
+            f"(a page is {page_bytes}; cuBLAS's workspaces {out['mem_workspaces']} bytes and "
+            f"the live engines' installed prefill graph pools {out['mem_installed_prefill']} "
+            f"bytes then and there, not counted)  [{card}]")
         gone = {k: v for k, v in log["mem"][2].items() if mem_end[2].get(k, 0) < v}
         new = {k: v for k, v in mem_end[2].items() if log["mem"][2].get(k, 0) < v}
         if gone or new:
@@ -3998,6 +4291,7 @@ def main() -> int:
     launches, serve, bf16 = phase_serve(
         card, SERVE_ARCH, SERVE_PROMPT_LENS, _path_logits,
         ("flash_fwd_kernel", "moe_topk_kernel"), paged=True,
+        after=lambda model: phase_prefill_graphs(card, model),
         n_slots=8, s_max=512, page_size=16)
     free_device()                   # the bf16 model is gone; make room for fp32
     mark("serve")
@@ -4042,7 +4336,10 @@ def main() -> int:
     phase_s = {name: t - marks[i][1] for i, (name, t) in enumerate(marks[1:])}
     # each kernel's launches on the first serve path that runs it (Qwen's for
     # flash and MoE top-k, Mamba2's for the scan), and on every serve path
+    graphs = serve["after"]
     by_path = {"qwen serve": launches, "mamba2 serve": ssm_launches,
+               "qwen prefill graphs (replays)": graphs["qwen"]["launches"],
+               "mamba2 prefill graphs (replays, 24 layers)": graphs["mamba2"]["launches"],
                **{f"{name} serve": f["launches"] for name, f in families.items()},
                "whisper prefill": train[WHISPER_ARCH]["prefill_launches"],
                "whisper tp prefill (two emulated ranks)": sharded["tp_whisper"]["launches"],

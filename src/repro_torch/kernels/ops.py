@@ -32,12 +32,16 @@ launched on an empty tensor.
 `LAUNCHES` counts, per kernel, the launches of its CUDA implementation
 alone, so a run can show that its path went through the kernels; a fake
 call never raises it. A PREPARE worker thread launches kernels while the
-serving thread does, so a count is raised under a lock.
+serving thread does, so a count is raised under a lock. A launch made while
+a CUDA graph is captured is recorded, not run: inside `captured_launches`
+the calling thread's launches go to the graph's own tally instead, and
+each replay of the graph adds that tally to `LAUNCHES` (`add_launches`).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -50,6 +54,8 @@ from repro_torch.sharding.ctx import is_dtensor
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "moe_topk": 0, "ssd_scan": 0}
 _LAUNCHES_LOCK = threading.Lock()
+# the tally of the graph this thread is capturing, if any
+_CAPTURING = threading.local()
 
 
 def reset_launches() -> None:
@@ -58,7 +64,32 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to `LAUNCHES`: a replayed graph's captured launches."""
+    with _LAUNCHES_LOCK:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Count the calling thread's launches into the yielded dict, not into
+    `LAUNCHES`, while a CUDA graph is captured (another thread's launches
+    still count where they run)."""
+    tally = {name: 0 for name in LAUNCHES}
+    outer = getattr(_CAPTURING, "tally", None)
+    _CAPTURING.tally = tally
+    try:
+        yield tally
+    finally:
+        _CAPTURING.tally = outer
+
+
 def _count(name: str) -> None:
+    tally = getattr(_CAPTURING, "tally", None)
+    if tally is not None:
+        tally[name] += 1
+        return
     with _LAUNCHES_LOCK:
         LAUNCHES[name] += 1
 

@@ -936,10 +936,13 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
             ) -> Tuple[torch.Tensor, Cache]:
     """Returns (last-token logits (B, V_pad), populated cache).
 
-    ``batch`` may carry ``true_len``: the prompt is then right-padded to the
-    token buffer's length and the logits are read at ``true_len - 1``;
-    causal attention keeps every position below it blind to the padding (an
-    SSM state would fold the padding in: its engine never pads).
+    ``batch`` may carry ``true_len`` (an int, or a 0-d int64 tensor on the
+    model's device): the prompt is then right-padded to the token buffer's
+    length and the logits are read at ``true_len - 1``; causal attention
+    keeps every position below it blind to the padding (an SSM state would
+    fold the padding in: its engine never pads). The position is selected
+    on the device, never read back to the host, so a CUDA graph captured
+    over a ``true_len`` tensor reads each replay's value.
     """
     tokens = batch["tokens"]
     hidden, cache, _ = forward(cfg, params, tokens, mode="prefill",
@@ -948,8 +951,8 @@ def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, Any]
     if true_len is None:
         last = hidden[:, -1:, :]
     else:
-        t = int(true_len)
-        last = hidden[:, t - 1:t, :]
+        at = torch.as_tensor(true_len, dtype=torch.long, device=hidden.device).reshape(1) - 1
+        last = hidden.index_select(1, at)
     return logits_fn(cfg, params, last)[:, 0, :], cache
 
 

@@ -11,8 +11,8 @@ reference's `repro.serving.cluster`, over the port's engines).
 
       PREPARE (serving continues): place the plan on the mesh
           (`plan_to_placement`), build the decode executable over the live
-          pool (a CUDA graph on the card) and warm prefill on scratch state
-          (`ServingEngine.prepare_executables`);
+          pool and a prefill executable at each prompt length and bucket
+          (CUDA graphs on the card; `ServingEngine.prepare_executables`);
       SWAP (the downtime window):  pause -> drain -> place params + KV
           pool -> install what PREPARE built;
       RESUME.
@@ -117,8 +117,9 @@ class DowntimeReport:
             post-event completions (or at reap time for a retirement).
         engine: name of the affected engine.
         compiled_in_prepare: executables PREPARE made ready ahead of the
-            swap (the decode executable + the prefill lengths and buckets
-            warmed, the reference's count of executables compiled ahead).
+            swap (the decode executable + the prefill executables of the
+            lengths and buckets, the reference's count of executables
+            compiled ahead).
         event: "reconfigure" | "spawn" | "retire" | "rebalance".
         migrations: per-request `MigrationRecord`s for migrate-mode
             retirements / explicit `migrate_requests` events — each
@@ -1042,7 +1043,7 @@ class ServingCluster:
                          placement: Optional[Dict[str, Any]] = None,
                          warm: Optional[Any] = None):
         """THE PREPARE body (one copy for reconfigure and spawn): run the
-        optional extra warmer, warm prefill and decode on the plan's layout
+        optional extra warmer, build prefill and decode on the plan's layout
         — returns the payload dict `_commit_ticket` installs. Over a rank
         mesh the layout is made on the calling thread (`_layout`), so its
         process groups are created at the same point on every rank, never

@@ -31,9 +31,19 @@ graph of the whole step: PREPARE (`prepare_executables`) captures it beside
 serving, the swap installs it, and `step` replays it; an engine with none
 installed runs its first decode eagerly and captures for the steps after it
 (the reference's JIT at first call). On the CPU the same executable runs the
-step eagerly over the same buffers. PREPARE also warms prefill at each live
-prompt length and bucket on scratch state (prefill stays eager: PyTorch has
-no ahead-of-time compile for it). Live migration moves one
+step eagerly over the same buffers.
+
+Prefill runs as the reference's does. PREPARE builds a `PrefillExecutable`
+for each prompt length it is given and, on request, for each padded bucket
+(`bucket_lengths`): on the card a CUDA graph of ``model.prefill`` over the
+executable's own token (and ``true_len``) buffers, the graphs of one
+PREPARE in one memory pool. The swap installs them, and `_admit` picks as
+the reference's `_admit` does: the exact length's executable, else the
+smallest bucket that holds the prompt, else an eager prefill (the
+reference's JIT), counted in `prefill_stats`. The request's cache is then
+written into its pages or slot eagerly, outside the graph. Only attention
+models pad (`supports_padded_prefill`); the slot pools of SSM and hybrid
+models get exact lengths only. Live migration moves one
 request's state between engines (`export_slot` / `import_slot`); each ends
 in a device synchronisation, so a pause it stamps is the device's time.
 Cluster knobs (``labels``, ``role``, ``plan``) only steer the cluster.
@@ -57,12 +67,15 @@ name (`kvpool.gather_named_pages`), writing each new entry on the rank
 that holds its page. Token values live on the engine's ranks only
 (a rank outside them records -1 for each, and keeps every count); a swap
 onto ranks that did not hold the engine sends them the resident requests'
-tokens with their state. Such an engine decodes eagerly, BY DESIGN (counted
-in ``decode_stats["multi_rank_eager"]``): a paged step's exchange has sizes
-that follow the page tables, and its layer gathers are DTensor collectives,
-so no static graph is captured across ranks. PREPARE builds its scratch
-state over process groups of its own (`sharding.PREPARE_TAG`), so a worker
-thread's collectives never share a group with serving's.
+tokens with their state. Such an engine decodes and prefills eagerly, BY
+DESIGN (counted in ``decode_stats["multi_rank_eager"]``): a paged step's
+exchange has sizes that follow the page tables, and its layer gathers are
+DTensor collectives, so no static graph is captured across ranks. Its
+PREPARE warms each length and bucket on scratch state and installs the
+reference's tables without executables, so admission still picks the
+exact length, a bucket or neither as the reference does. PREPARE builds
+its scratch state over process groups of its own (`sharding.PREPARE_TAG`),
+so a worker thread's collectives never share a group with serving's.
 
 Greedy sampling takes the first index on ties, as the reference's
 ``np.argmax`` does (decode picks with ``torch.argmax`` on the device). The
@@ -87,7 +100,7 @@ from repro_torch.models.lm import is_positional
 from repro_torch.obs import events as obs_events
 from repro_torch.serving import kvpool, migration
 from repro_torch.serving.clock import SYSTEM_CLOCK
-from repro_torch.serving.executable import DecodeExecutable
+from repro_torch.serving.executable import DecodeExecutable, PrefillExecutable
 from repro_torch.serving.migration import MigrationError, SlotSnapshot, sync
 from repro_torch.sharding import ctx
 from repro_torch.sharding.plan import (
@@ -195,9 +208,9 @@ class ServingEngine:
             spend it; paged only).
         prefill_buckets: pad each prompt to the smallest power-of-two bucket
             (`bucket_lengths`) and read its logits at ``true_len - 1``,
-            instead of a prefill of the exact length. A model that cannot
-            be padded (`supports_padded_prefill`) has no buckets. A swap
-            that installs PREPARE's buckets turns this on too.
+            instead of a prefill of the exact length, eagerly. A model that
+            cannot be padded (`supports_padded_prefill`) has no buckets. A
+            swap installs PREPARE's bucket executables in their place.
         mesh: start laid out across ranks: the engine's layout under
             ``plan`` on this mesh of process ranks (`plan_layout`); its
             params and pool are placed there (a model whose params are
@@ -266,6 +279,12 @@ class ServingEngine:
         else:
             self.pool = None
             self.cache = model.init_cache(n_slots, s_max)
+        # the reference's prefill tables: {length: executable} for exact
+        # lengths and for buckets, and the bucket lengths in order. An entry
+        # without an executable (None) runs eagerly at its shape: the
+        # constructor's buckets, and every entry of an engine across ranks
+        self._prefill_exec: Dict[int, Optional[PrefillExecutable]] = {}
+        self._bucket_exec: Dict[int, Optional[PrefillExecutable]] = {}
         self._bucket_lengths = self.bucket_lengths() if prefill_buckets else []
 
         self.slot_req: List[Optional[Request]] = [None] * n_slots
@@ -279,7 +298,7 @@ class ServingEngine:
         self._batch_axes: Optional[Dict[str, int]] = None
         self._migration_warm = False
         self._collectives: Optional[List[Collective]] = None
-        # guards the bucket ladder and the installed decode executable
+        # guards the prefill tables and the installed decode executable
         # against a swap committed from a control thread while
         # step()/_admit() pick their path
         self._exec_lock = threading.Lock()
@@ -288,7 +307,7 @@ class ServingEngine:
         self._tables_dirty = True
         # executables replaced by a swap, freed at the next step: outside
         # the swap window, after the device is done with them
-        self._retired: List[DecodeExecutable] = []
+        self._retired: List[Union[DecodeExecutable, PrefillExecutable]] = []
         #: decode-path counts: steps run eagerly (every step on the CPU, the
         #: first on the card) and graph replays; captures (the first step's
         #: and PREPARE's) and their seconds; PREPARE executables a swap
@@ -302,6 +321,12 @@ class ServingEngine:
                              "capture_s": 0.0, "installs": 0, "discards": 0,
                              "multi_rank_eager": 0, "tp_local": 0, "tp_padded": 0,
                              "tp_gathered": 0}
+        #: prefill-path counts: admissions through an exact length's
+        #: entry, a bucket's, or neither (eager at the prompt's length, the
+        #: reference's JIT); graph replays among them; PREPARE's prefill
+        #: captures and their seconds
+        self.prefill_stats = {"exact": 0, "bucket": 0, "eager": 0, "replays": 0,
+                              "captures": 0, "capture_s": 0.0}
         #: when set, `step` keeps the step's logits ``(n_slots, V_pad)`` in
         #: ``last_logits`` (on every rank of a multi-rank engine's mesh) and
         #: the ``(lane, rid)`` pairs it decoded in ``last_lanes``, for checks
@@ -378,17 +403,19 @@ class ServingEngine:
                 old layout is freed, and ranks that join the engine get
                 the resident requests' tokens. Every rank of the world
                 calls this at the same point.
-            executables: ``{"decode": DecodeExecutable, "prefill": prompt
-                lengths warmed, "prefill_buckets": bucket lengths,
-                "collectives": the decode step's}`` from
+            executables: ``{"decode": DecodeExecutable, "prefill":
+                {length: PrefillExecutable}, "prefill_buckets": {bucket:
+                PrefillExecutable}, "collectives": the decode step's}`` from
                 `prepare_executables`; the decode executable is installed
                 when it is bound to the pool as it stands after the
                 placement, else discarded (counted in `decode_stats`) and
-                the next step captures anew; a non-empty bucket list turns
-                on padded prefill over those buckets, and the collectives
-                become `decode_collectives`. Nothing is captured or
-                compiled here: on one device the window stays a pointer
-                swap.
+                the next step captures anew; a ``"prefill"`` dict replaces
+                the exact-length table and a ``"prefill_buckets"`` dict the
+                bucket table (empty: no buckets), as the reference's swap
+                does; the collectives become `decode_collectives`. A swap
+                that places the state drops both tables first (they were
+                built for the old layout). Nothing is captured or compiled
+                here: on one device the window stays a pointer swap.
 
         Returns:
             The bytes the layout covers — params + cache (DTensors by their
@@ -420,16 +447,16 @@ class ServingEngine:
             sync(self.device)
             self._migration_warm = False
             self._collectives = None
+            self._install_prefill({}, {})
         # an executable over a pool that is no longer the engine's is
         # stale: the next step captures anew
         if self._decode_exec is not None and (
                 self.layout is not None or not self._decode_exec.bound_to(self.cache)):
             self._install(None)
         if executables:
-            with self._exec_lock:
-                buckets = executables.get("prefill_buckets")
-                if buckets:
-                    self._bucket_lengths = sorted(buckets)
+            exact, buckets = executables.get("prefill"), executables.get("prefill_buckets")
+            self._install_prefill(exact if isinstance(exact, dict) else None,
+                                  buckets if isinstance(buckets, dict) else None)
             decode = executables.get("decode")
             if decode is not None and self.layout is None and decode.bound_to(self.cache):
                 self._install(decode)
@@ -452,6 +479,31 @@ class ServingEngine:
         """The installed decode executable that `step` runs, if any."""
         with self._exec_lock:
             return self._decode_exec
+
+    def _install_prefill(self, exact: Optional[Dict[int, Optional[PrefillExecutable]]],
+                         buckets: Optional[Dict[int, Optional[PrefillExecutable]]]) -> None:
+        """Replace the exact-length table with ``exact`` and the bucket
+        table (and the bucket ladder) with ``buckets``; None keeps a table.
+        The executables no table holds any longer are freed at the next
+        step."""
+        with self._exec_lock:
+            old = list(self._prefill_exec.values()) + list(self._bucket_exec.values())
+            if exact is not None:
+                self._prefill_exec = dict(exact)
+            if buckets is not None:
+                self._bucket_exec = dict(buckets)
+                self._bucket_lengths = sorted(buckets)
+            kept = {id(e) for e in list(self._prefill_exec.values())
+                    + list(self._bucket_exec.values())}
+        self._retired.extend(e for e in old if e is not None and id(e) not in kept)
+
+    @property
+    def prefill_executables(self) -> Tuple[Dict[int, Optional[PrefillExecutable]],
+                                           Dict[int, Optional[PrefillExecutable]]]:
+        """The installed prefill tables: ``({length: executable}, {bucket:
+        executable})``, None where an entry runs eagerly."""
+        with self._exec_lock:
+            return dict(self._prefill_exec), dict(self._bucket_exec)
 
     def _install(self, exe: Optional[DecodeExecutable]) -> None:
         """Make ``exe`` the executable `step` runs; the one it replaces is
@@ -708,22 +760,23 @@ class ServingEngine:
         """The PREPARE phase (the reference's ``aot_executables``): one
         decode step at the live batch shape on scratch state, then the
         decode executable (`DecodeExecutable`) built over the live pool, on
-        the card captured as a CUDA graph without running it; then prefill
-        warmed at each prompt length (and each bucket) on scratch inputs,
-        and a synchronisation. Runs beside serving: the live pool is never
-        written. Prefill stays eager, so its warm-up only builds the
-        kernels' library at first use and grows the allocator and library
-        handles before the swap window.
+        the card captured as a CUDA graph without running it; then a
+        `PrefillExecutable` for each prompt length (and each bucket), on
+        the card run once on its own buffers and captured, every graph of
+        this call in one fresh memory pool; and a synchronisation. Runs
+        beside serving: the live pool is never written, and no graph holds
+        its addresses but the decode graph's.
 
         A layout across ranks (``placement`` a `plan_layout` of a rank
         mesh) is prepared on scratch state of its own (`_scratch_state`):
         zero params and pool at the target layout over PREPARE's process
         groups, one decode step on it, traced for its collectives (on the
         ranks of the target mesh; the swap shares them with every rank),
-        then prefill at each length and bucket. No decode graph: such an
-        engine decodes eagerly by design (module doc). Every rank of the
-        world calls this for the same layouts in the same order, on one
-        thread (the cluster's PREPARE worker).
+        then prefill warmed at each length and bucket. No graph: such an
+        engine decodes and prefills eagerly by design (module doc); its
+        tables name the same lengths and buckets without executables.
+        Every rank of the world calls this for the same layouts in the
+        same order, on one thread (the cluster's PREPARE worker).
 
         Args:
             placement: the target ``{"params": ..., "cache": ...}``: a
@@ -734,14 +787,16 @@ class ServingEngine:
                 (`bucket_lengths`), which the swap then installs.
 
         Returns:
-            ``(executables, n_compiled)`` in the shape `swap_plan` takes;
-            ``n_compiled`` counts as the reference does: 1 (decode) + the
-            lengths + the buckets.
+            ``(executables, n_compiled)`` in the shape `swap_plan` takes:
+            ``"prefill"`` and ``"prefill_buckets"`` map each length to its
+            executable, as the reference's do; ``n_compiled`` counts as the
+            reference does: 1 (decode) + the lengths + the buckets.
 
         Raises:
             ValueError: the placement is not this engine's device; a layout
                 across ranks the reference would refuse (`_check_layout`).
-            RuntimeError: the decode step could not be captured.
+            RuntimeError: the decode step or a prefill could not be
+                captured.
         """
         lengths = (sorted(set(prefill_lengths)) if prefill_lengths
                    else list(self.recent_prompt_lengths()))
@@ -764,16 +819,26 @@ class ServingEngine:
         # from a layout across ranks the swap makes a new pool, which no
         # graph captured now could be bound to: the first step captures
         decode = self._capture(DecodeExecutable(self)) if self.layout is None else None
-        for S in lengths:
-            self.model.prefill({"tokens": torch.zeros(
-                (1, S), dtype=torch.long, device=self.device)})
-        for S in buckets:
-            self.model.prefill({"tokens": torch.zeros(
-                (1, S), dtype=torch.long, device=self.device), "true_len": 1})
+        pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        prefill = {S: self._capture_prefill(S, False, pool) for S in lengths}
+        bucket = {S: self._capture_prefill(S, True, pool) for S in buckets}
         sync(self.device)
-        return ({"decode": decode, "prefill": tuple(lengths),
-                 "prefill_buckets": tuple(buckets), "collectives": tuple(collectives)},
+        return ({"decode": decode, "prefill": prefill, "prefill_buckets": bucket,
+                 "collectives": tuple(collectives)},
                 1 + len(lengths) + len(buckets))
+
+    def _capture_prefill(self, length: int, padded: bool, pool) -> PrefillExecutable:
+        """One `PrefillExecutable`, captured in ``pool`` on the card and
+        counted in `prefill_stats` (timed on `SYSTEM_CLOCK`, as `_capture`
+        is)."""
+        exe = PrefillExecutable(self.model, length, padded=padded, device=self.device)
+        t0 = SYSTEM_CLOCK.perf_counter()
+        if exe.capture(pool):
+            dt = SYSTEM_CLOCK.perf_counter() - t0
+            with self._exec_lock:
+                self.prefill_stats["captures"] += 1
+                self.prefill_stats["capture_s"] += dt
+        return exe
 
     def _prepare_sharded(self, layout: Dict[str, Any], lengths: Sequence[int],
                          buckets: Sequence[int]) -> Dict[str, Any]:
@@ -798,8 +863,8 @@ class ServingEngine:
                     (1, S), dtype=torch.long, device=self.device), "true_len": 1})
             del params, cache
             sync(self.device)
-        return {"decode": None, "prefill": tuple(lengths), "prefill_buckets": tuple(buckets),
-                "collectives": tuple(collectives)}
+        return {"decode": None, "prefill": dict.fromkeys(lengths),
+                "prefill_buckets": dict.fromkeys(buckets), "collectives": tuple(collectives)}
 
     def _capture(self, exe: DecodeExecutable) -> DecodeExecutable:
         """Capture ``exe``'s graph (on the card), counted in `decode_stats`.
@@ -991,26 +1056,37 @@ class ServingEngine:
                     return    # fail closed: stays queued, FIFO order kept
             req = self.queue.pop(0)
             S = len(req.prompt)
-            prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                     device=self.device)[None, :]
-            # no positions: the model's default is the token positions (on
-            # all three streams for M-RoPE), the text-only positions the
-            # reference's engine passes
-            batch: Dict[str, Any] = {"tokens": prompt}
+            # the reference's pick: the exact length's executable, else the
+            # smallest bucket that holds the prompt, else eager (its JIT);
+            # under the lock, so a swap is never seen half-installed
             with self._exec_lock:
-                bucket = next((b for b in self._bucket_lengths if b >= S), None)
-            if bucket is not None:
-                batch = {"tokens": torch.nn.functional.pad(prompt, (0, bucket - S)),
-                         "true_len": S}
+                way, exe, bucket = "eager", None, None
+                if S in self._prefill_exec:
+                    way, exe = "exact", self._prefill_exec[S]
+                else:
+                    bucket = next((b for b in self._bucket_lengths if b >= S), None)
+                    if bucket is not None:
+                        way, exe = "bucket", self._bucket_exec.get(bucket)
+            self.prefill_stats[way] += 1
             t_pre0 = obs_events.now() if rec is not None else 0.0
-            if self.layout is None:
-                logits, cache1 = self.model.prefill(batch)
-                tok = int(np.argmax(logits[0, : self.vocab].float().cpu().numpy()))
-            elif self._is_member():
-                pick, logits, cache1 = self._sharded_prefill(self.params, self.layout, batch)
-                tok = int(pick[0])
-            else:       # outside the engine's ranks: counts, no values
-                logits, cache1, tok = None, None, -1
+            if self.layout is None and exe is not None:
+                exe.load(req.prompt)
+                exe.run()
+                if exe.graph is not None:
+                    self.prefill_stats["replays"] += 1
+                logits, cache1 = exe.logits, exe.cache1
+                tok = int(exe.next_tok[0])
+            else:
+                batch = self._prefill_batch(req.prompt, bucket)
+                if self.layout is None:
+                    logits, cache1 = self.model.prefill(batch)
+                    tok = int(torch.argmax(logits[0, : self.vocab]))
+                elif self._is_member():
+                    pick, logits, cache1 = self._sharded_prefill(self.params, self.layout,
+                                                                 batch)
+                    tok = int(pick[0])
+                else:       # outside the engine's ranks: counts, no values
+                    logits, cache1, tok = None, None, -1
             if self.record_logits and logits is not None:
                 self.prefill_logits[req.rid] = logits[0].clone()
             t_pre1 = obs_events.now() if rec is not None else 0.0
@@ -1040,6 +1116,18 @@ class ServingEngine:
                 _write_slot_sharded(self.cache, cache1, slot)
             self.slot_req[slot] = req
             self.slot_pos[slot] = S
+
+    def _prefill_batch(self, prompt: np.ndarray, bucket: Optional[int]) -> Dict[str, Any]:
+        """An eager prefill's batch: the prompt on the device, right-padded
+        to ``bucket`` with its length as ``true_len`` when one is given. No
+        positions: the model's default is the token positions (on all
+        three streams for M-RoPE), the text-only positions the reference's
+        engine passes."""
+        tokens = torch.as_tensor(np.asarray(prompt, np.int64), device=self.device)[None, :]
+        if bucket is None:
+            return {"tokens": tokens}
+        return {"tokens": torch.nn.functional.pad(tokens, (0, bucket - len(prompt))),
+                "true_len": len(prompt)}
 
     def _release_lane(self, slot: int) -> None:
         """Clear a lane; a paged lane's pages go back to the pool at once (a

@@ -3,12 +3,13 @@ copy of `repro.serving.prepare`'s ticket state machine and worker).
 
 In the reference, PREPARE compiles the target plan's executables ahead of
 the swap. The port's PREPARE (`ServingEngine.prepare_executables`) builds
-the decode executable at the live batch shape, on the card a CUDA graph
-captured over the live pool (`serving/executable.py`), and warms prefill at
-each live prompt length and bucket on scratch state (prefill stays eager),
-so the graph, the kernels' library, the allocator's blocks and the library
-handles exist before the swap, and the blocking SWAP window (pause, drain,
-install, resume) pays none of them.
+the decode executable at the live batch shape and a prefill executable at
+each live prompt length and bucket, on the card CUDA graphs
+(`serving/executable.py`: the decode graph captured over the live pool,
+the prefill graphs over buffers of their own), so the graphs, the kernels'
+library, the allocator's blocks and the library handles exist before the
+swap, and the blocking SWAP window (pause, drain, install, resume) pays
+none of them.
 
     PrepareTicket   the per-request handle of the pending-swap state
                     machine:

@@ -255,7 +255,7 @@ def test_swap_plan_and_prepare_on_the_card(gen):
     assert place == {"params": eng.device, "cache": eng.device}
     before = ops.LAUNCHES["flash_attention"]
     execs, n = eng.prepare_executables(place, prefill_lengths=(5, 33))
-    assert n == 3 and execs["prefill"] == (5, 33)
+    assert n == 3 and sorted(execs["prefill"]) == [5, 33]
     assert ops.LAUNCHES["flash_attention"] - before == 2 * model.cfg.num_layers
     assert all(torch.equal(live[k], eng.cache[k]) for k in live)
     with pytest.raises(EngineStateError):
@@ -466,6 +466,80 @@ def test_a_failed_capture_raises(gen):
         with pytest.raises(RuntimeError, match="capture failed"):
             eng.step()
     assert eng.decode_executable is None and len(req.tokens_out) == 2
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2_7b", "mamba2_370m", "qwen2_vl_2b"],
+                         ids=["moe_paged", "ssd_slot", "mrope_paged"])
+def test_prefill_graphs_equal_eager_prefill(gen, arch):
+    """PREPARE captures a prefill graph at each length and, where the model
+    pads, each bucket, all in one pool; every replay equals an eager
+    prefill of the same batch bit for bit (logits, cache, greedy pick) and
+    adds to the launch counts what that eager prefill adds."""
+    import numpy as np
+
+    from repro_torch.serving import ServingEngine
+    model = _card_model(arch)
+    eng = ServingEngine(model, n_slots=3, s_max=64)
+    execs, n = eng.prepare_executables({"params": eng.device, "cache": eng.device},
+                                       prefill_lengths=(5, 9), prefill_buckets=True)
+    exes = list(execs["prefill"].values()) + list(execs["prefill_buckets"].values())
+    assert n == 1 + len(exes) and len(exes) == (2 if arch == "mamba2_370m" else 2 + 4)
+    assert all(e.graph is not None for e in exes)
+    assert len({tuple(e.graph.pool()) for e in exes}) == 1 and exes[0].pool_bytes() > 0
+    assert eng.prefill_stats["captures"] == len(exes)
+    rng = np.random.default_rng(0)
+    for e in exes:
+        for S in ((3, e.length) if e.padded else (e.length,)):
+            e.load(rng.integers(2, model.cfg.vocab_size, size=S).astype(np.int32))
+            before = dict(ops.LAUNCHES)
+            e.run()
+            torch.cuda.synchronize()
+            replayed = {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+            before = dict(ops.LAUNCHES)
+            logits, cache = model.prefill(e.batch())
+            torch.cuda.synchronize()
+            assert replayed == {k: v - before[k] for k, v in ops.LAUNCHES.items()}
+            assert torch.equal(e.logits, logits)
+            assert all(torch.equal(e.cache1[k], v) for k, v in cache.items())
+            assert int(e.next_tok[0]) == int(torch.argmax(logits[0, :model.cfg.vocab_size]))
+
+
+def test_admissions_replay_prefill_graphs(gen):
+    """After the swap installs PREPARE's prefill graphs, each admission
+    replays the exact length's or a bucket's graph, as the reference's
+    tables pick; the streams equal an engine's whose every step is eager."""
+    from repro_torch.serving import ServingEngine
+    model = _card_model("qwen2_moe_a2_7b")
+    prompts = _card_prompts(model.cfg, sizes=(5, 9, 17, 12, 3, 7))
+    kw = {"n_slots": 3, "s_max": 64}
+    want = _eager_streams(model, prompts, **kw)
+    eng = ServingEngine(model, **kw)
+    place = {"params": eng.device, "cache": eng.device}
+    execs, _ = eng.prepare_executables(place, prefill_lengths=(5, 9), prefill_buckets=True)
+    eng.pause()
+    eng.swap_plan(placement=place, executables=execs)
+    eng.resume()
+    assert _serve_card(eng, prompts) == want
+    s = eng.prefill_stats
+    assert (s["exact"], s["bucket"], s["eager"], s["replays"]) == (2, 4, 0, 6)
+
+
+def test_a_failed_prefill_capture_raises(gen):
+    """A prefill capture that fails raises; an executable without a graph
+    refuses to run on the card rather than run the eager prefill."""
+    from repro_torch.serving.executable import PrefillExecutable
+    model = _card_model("minitron_4b")
+    exe = PrefillExecutable(model, 8, padded=True, device=torch.device("cuda"))
+
+    def failing():
+        raise RuntimeError("capture failed")
+
+    exe.forward = failing
+    with pytest.raises(RuntimeError, match="capture failed"):
+        exe.capture()
+    assert exe.graph is None
+    with pytest.raises(RuntimeError, match="no CUDA graph"):
+        exe.run()
 
 
 def test_argmax_on_the_card_breaks_ties_at_the_first_index(gen):

@@ -9,7 +9,8 @@ paged ``ServingEngine`` as ``chip_smoke.py``'s cluster phase does
 (`CLUSTER_ENGINE`), then times, ``--repeats`` times, each part of
 ``prepare_executables`` at the lengths that phase's phi engine warms (each
 part ending in a device synchronisation): the decode warm-up step on scratch
-state, the decode graph's capture, each warm prefill, and the whole call. Prints the card's name and
+state, the decode graph's capture, each prefill executable's warm-up and
+capture (in one fresh pool), and the whole call. Prints the card's name and
 power limit, one line per repeat and a JSON line of every time, and writes
 it to ``prepare_breakdown.json`` in ``chip_smoke.py``'s output directory.
 """
@@ -39,7 +40,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import Model
     from repro_torch.serving import ServingEngine
-    from repro_torch.serving.executable import DecodeExecutable
+    from repro_torch.serving.executable import DecodeExecutable, PrefillExecutable
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
@@ -60,14 +61,20 @@ def main() -> int:
     for k in range(args.repeats):
         decode_s = timed(eng._scratch_decode_inputs())
         capture_s = timed(lambda: DecodeExecutable(eng).capture(eng._scratch_decode_inputs()))
-        prefill_s = [timed(lambda n=n: model.prefill(
-            {"tokens": torch.zeros((1, n), dtype=torch.long, device=eng.device)}))
-            for n in WARM_LENGTHS]
+        pool = torch.cuda.graph_pool_handle()
+        kept = []          # the pool lives while one of its graphs does
+
+        def capture(n):
+            kept.append(PrefillExecutable(model, n, device=eng.device))
+            kept[-1].capture(pool)
+
+        prefill_s = [timed(lambda n=n: capture(n)) for n in WARM_LENGTHS]
+        del kept
         total_s = timed(lambda: eng.prepare_executables(placement, WARM_LENGTHS))
         runs.append({"total_s": total_s, "decode_s": decode_s, "capture_s": capture_s,
                      "prefill_s": prefill_s})
         print(f"[prepare] repeat {k}: PREPARE alone {total_s:.4f} s; decode warm-up step "
-              f"{decode_s:.4f} s; decode graph capture {capture_s:.4f} s; warm prefills at "
+              f"{decode_s:.4f} s; decode graph capture {capture_s:.4f} s; prefill warm-up + capture at "
               f"{WARM_LENGTHS}: "
               + ", ".join(f"{t:.4f}" for t in prefill_s)
               + f" s (sum {sum(prefill_s):.4f})  [{card}]", flush=True)
