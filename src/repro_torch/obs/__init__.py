@@ -6,7 +6,10 @@ Four pieces behind one handle (`Recorder`):
     events.py   structured event bus — typed `Event`s, timestamped on
                 the INSTALLED serving clock (non-advancing reads under
                 a `FakeClock`), bounded ring with drop counters;
-    trace.py    span tracing + Chrome ``trace_event`` exporter;
+    trace.py    span tracing + Chrome ``trace_event`` exporter, and
+                `StepSpan`, the spans inside a serving step (timed
+                into the engine's ``decode_stats``, and named in
+                `torch.profiler`'s trace while it runs);
     metrics.py  counters / gauges / log-bucketed quantile sketches with
                 label sets, plus the `RequestAggregate` that gives
                 `ServingCluster.metrics_by_label` O(1) accounting;
@@ -25,8 +28,10 @@ Plus the Watchtower layer on top:
 
 The engine, migration, PREPARE and cluster modules emit the reference's
 events (``request.*``, ``engine.decode``, ``migration.pause``,
-``ticket.*``, ``cluster.*``). Recording is opt-in and zero-overhead when
-off: every hook guards with ``RECORDER is None``::
+``ticket.*``, ``cluster.*``); the engine's serving step opens
+`StepSpan`s, which time into its ``decode_stats``. Recording is
+opt-in and zero-overhead when off: every hook guards with ``RECORDER is
+None``::
 
     from repro_torch.obs import Recorder, recording
     with recording(Recorder()) as rec:

@@ -19,6 +19,13 @@ Design constraints (the whole point of this module):
   * **Bounded.** The bus is an overwrite-oldest ring with a drop
     counter: a 10^6-request replay cannot OOM the recorder, and the
     drops are themselves observable.
+  * **Lifecycle on the rings, steps beside them.** The rings hold the
+    request, ticket, cluster and migration events and the lifecycle spans
+    lineage and the SLO ledger read. What happens inside a serving step
+    (`repro_torch.obs.trace.StepSpan`: admission, prefill, the decode
+    step) goes to the engine's ``decode_stats`` and, while
+    `torch.profiler` runs, to its trace; of the step, only the strided
+    ``engine.decode`` progress event reaches the bus.
 
 Typical use::
 
@@ -131,6 +138,10 @@ class EventBus:
 
 class Recorder:
     """Event bus + span trace + metrics registry behind one handle.
+
+    Installed, it also turns on the spans and counters inside the serving
+    step (`repro_torch.obs.trace.StepSpan`), which go to the engines'
+    ``decode_stats`` and to the profiler's trace, not to this recorder.
 
     Args:
         capacity: event-bus ring size.

@@ -13,13 +13,24 @@ The export format is the Chrome ``trace_event`` "JSON object format":
 phase-``"X"`` (complete) events with microsecond ``ts``/``dur``, plus
 ``"M"`` metadata events naming each track. Both chrome://tracing and
 https://ui.perfetto.dev load it directly.
+
+`StepSpan` is the other kind: a span inside a serving step, which times
+its body into an engine's stats dict and, while `torch.profiler` runs,
+names it in the profiler's trace, but never enters a `TraceBuffer`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import threading
 from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+
+# `events` imports this module for `Span`; the package imports `events`
+# first, so this import finds it in place
+from repro_torch.obs import events as obs_events
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,3 +182,55 @@ def validate_chrome(doc: Dict[str, Any]) -> int:
             if not isinstance(ev.get("ts"), (int, float)) or ev["ts"] < 0:
                 raise ValueError(f"flow event needs numeric ts: {ev}")
     return n
+
+
+# ---------------------------------------------------------------------------
+# spans inside the serving step
+# ---------------------------------------------------------------------------
+
+#: what a step-span site enters with no recorder installed: the shared
+#: null context, so the site allocates nothing and reads no clock
+NO_SPAN = contextlib.nullcontext()
+
+
+class StepSpan:
+    """One span inside a serving step, entered only where a recorder is
+    installed (sites write ``NO_SPAN if rec is None else StepSpan(...)``).
+
+    It never enters the recorder's span ring: that ring keeps the lifecycle
+    spans (``route``, ``swap.commit``, ``migration.pause``) that lineage and
+    the SLO ledger read, which a span per step would evict. Instead:
+
+    - with ``stats`` given, the body is timed on the recording clock (the
+      non-advancing `events.now`, never the serving modules' advancing
+      ``time.time()``) and its seconds added to ``stats[key + "_s"]``, one
+      to ``stats[key + "_spans"]``;
+    - while `torch.profiler` is on, the body is a ``record_function`` of the
+      same name, so it lies in the device trace on the profiler's own clock
+      and names the device's idle gaps across it.
+    """
+
+    __slots__ = ("name", "stats", "key_s", "key_n", "_rf", "_t0")
+
+    def __init__(self, name: str, stats: Optional[Dict[str, Any]] = None,
+                 key: str = ""):
+        self.name = name
+        self.stats = stats
+        self.key_s, self.key_n = key + "_s", key + "_spans"
+        self._rf = None
+        self._t0 = 0.0
+
+    def __enter__(self) -> "StepSpan":
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
+        if self.stats is not None:
+            self._t0 = obs_events.now()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.stats is not None:
+            self.stats[self.key_s] += max(0.0, obs_events.now() - self._t0)
+            self.stats[self.key_n] += 1
+        if self._rf is not None:
+            self._rf.__exit__(*exc)

@@ -98,6 +98,7 @@ from repro_torch.models import Model
 from repro_torch.models.common import padded_vocab, resolve_device
 from repro_torch.models.lm import is_positional
 from repro_torch.obs import events as obs_events
+from repro_torch.obs.trace import NO_SPAN, StepSpan
 from repro_torch.serving import kvpool, migration
 from repro_torch.serving.clock import SYSTEM_CLOCK
 from repro_torch.serving.executable import DecodeExecutable, PrefillExecutable
@@ -316,11 +317,23 @@ class ServingEngine:
         #: by design (see the module doc); ``tp_local`` / ``tp_padded`` /
         #: ``tp_gathered`` its decode steps' sub-layers that ran on their
         #: tensor-axis shard, on their padded head slots or gathered whole
-        #: (`ctx.note_tp`; none where the axis has one rank)
+        #: (`ctx.note_tp`; none where the axis has one rank). While a
+        #: recorder is installed (`repro_torch.obs`), and only then:
+        #: ``decode_s`` / ``decode_spans`` sum the ``engine.decode`` spans
+        #: (the first input load to the picks on the host, on the recording
+        #: clock) on every path; ``kv_gathered_bytes`` adds the KV bytes a
+        #: step moves to give attention its context (the dense copy
+        #: `kvpool.gather_pages` writes: the executable's `gathered_bytes`)
+        #: and ``kv_live_bytes`` the bytes of the positions attention needs
+        #: (each decoded lane's ``slot_pos + 1`` times
+        #: `kvpool.position_bytes`), both on the paged pool on one device
+        #: only: a slot pool gathers nothing, and a layout across ranks
+        #: counts 0 for both
         self.decode_stats = {"eager": 0, "replays": 0, "captures": 0,
                              "capture_s": 0.0, "installs": 0, "discards": 0,
                              "multi_rank_eager": 0, "tp_local": 0, "tp_padded": 0,
-                             "tp_gathered": 0}
+                             "tp_gathered": 0, "decode_s": 0.0, "decode_spans": 0,
+                             "kv_gathered_bytes": 0, "kv_live_bytes": 0}
         #: prefill-path counts: admissions through an exact length's
         #: entry, a bucket's, or neither (eager at the prompt's length, the
         #: reference's JIT); graph replays among them; PREPARE's prefill
@@ -1068,54 +1081,58 @@ class ServingEngine:
                     if bucket is not None:
                         way, exe = "bucket", self._bucket_exec.get(bucket)
             self.prefill_stats[way] += 1
-            t_pre0 = obs_events.now() if rec is not None else 0.0
-            if self.layout is None and exe is not None:
-                exe.load(req.prompt)
-                exe.run()
-                if exe.graph is not None:
-                    self.prefill_stats["replays"] += 1
-                logits, cache1 = exe.logits, exe.cache1
-                tok = int(exe.next_tok[0])
-            else:
-                batch = self._prefill_batch(req.prompt, bucket)
-                if self.layout is None:
-                    logits, cache1 = self.model.prefill(batch)
-                    tok = int(torch.argmax(logits[0, : self.vocab]))
-                elif self._is_member():
-                    pick, logits, cache1 = self._sharded_prefill(self.params, self.layout,
-                                                                 batch)
-                    tok = int(pick[0])
-                else:       # outside the engine's ranks: counts, no values
-                    logits, cache1, tok = None, None, -1
-            if self.record_logits and logits is not None:
-                self.prefill_logits[req.rid] = logits[0].clone()
-            t_pre1 = obs_events.now() if rec is not None else 0.0
-            req.tokens_out.append(tok)
-            req.t_first = time.time()
-            if rec is not None:
-                rec.emit("request.admit", engine=self.obs_name, rid=req.rid,
-                         label=req.labels.get("data-type", ""),
-                         queue_wait_s=req.t_first - req.t_submit,
-                         admit_s=max(0.0, t_pre0 - t_adm0),
-                         prefill_s=max(0.0, t_pre1 - t_pre0),
-                         role=self.role)
-            if self.paged:
-                # the scratch-padded table tail absorbs bucket slack (never
-                # read: decode masks by position)
-                row = pages + [kvpool.SCRATCH_PAGE] * (self.pages_per_seq - len(pages))
-                if self.layout is None:
-                    kvpool.write_pages(self.cache, cache1, row, self._pax, self._sax)
+            with NO_SPAN if rec is None else StepSpan("engine.admit"):
+                t_pre0 = obs_events.now() if rec is not None else 0.0
+                with NO_SPAN if rec is None else StepSpan("engine.prefill"):
+                    if self.layout is None and exe is not None:
+                        exe.load(req.prompt)
+                        exe.run()
+                        if exe.graph is not None:
+                            self.prefill_stats["replays"] += 1
+                        logits, cache1 = exe.logits, exe.cache1
+                        tok = int(exe.next_tok[0])
+                    else:
+                        batch = self._prefill_batch(req.prompt, bucket)
+                        if self.layout is None:
+                            logits, cache1 = self.model.prefill(batch)
+                            tok = int(torch.argmax(logits[0, : self.vocab]))
+                        elif self._is_member():
+                            pick, logits, cache1 = self._sharded_prefill(
+                                self.params, self.layout, batch)
+                            tok = int(pick[0])
+                        else:       # outside the engine's ranks: counts, no values
+                            logits, cache1, tok = None, None, -1
+                if self.record_logits and logits is not None:
+                    self.prefill_logits[req.rid] = logits[0].clone()
+                t_pre1 = obs_events.now() if rec is not None else 0.0
+                req.tokens_out.append(tok)
+                req.t_first = time.time()
+                if rec is not None:
+                    rec.emit("request.admit", engine=self.obs_name, rid=req.rid,
+                             label=req.labels.get("data-type", ""),
+                             queue_wait_s=req.t_first - req.t_submit,
+                             admit_s=max(0.0, t_pre0 - t_adm0),
+                             prefill_s=max(0.0, t_pre1 - t_pre0),
+                             role=self.role)
+                if self.paged:
+                    # the scratch-padded table tail absorbs bucket slack (never
+                    # read: decode masks by position)
+                    row = pages + [kvpool.SCRATCH_PAGE] * (self.pages_per_seq - len(pages))
+                    with NO_SPAN if rec is None else StepSpan("pool.write"):
+                        if self.layout is None:
+                            kvpool.write_pages(self.cache, cache1, row, self._pax, self._sax)
+                        elif cache1 is not None:
+                            kvpool.write_pages_sharded(self.cache, cache1, row, self._pax,
+                                                       self._sax)
+                    self.page_tables[slot] = row
+                    self.slot_pages[slot] = pages
+                    self._tables_dirty = True
+                elif self.layout is None:
+                    _write_slot(self.cache, cache1, slot)
                 elif cache1 is not None:
-                    kvpool.write_pages_sharded(self.cache, cache1, row, self._pax, self._sax)
-                self.page_tables[slot] = row
-                self.slot_pages[slot] = pages
-                self._tables_dirty = True
-            elif self.layout is None:
-                _write_slot(self.cache, cache1, slot)
-            elif cache1 is not None:
-                _write_slot_sharded(self.cache, cache1, slot)
-            self.slot_req[slot] = req
-            self.slot_pos[slot] = S
+                    _write_slot_sharded(self.cache, cache1, slot)
+                self.slot_req[slot] = req
+                self.slot_pos[slot] = S
 
     def _prefill_batch(self, prompt: np.ndarray, bucket: Optional[int]) -> Dict[str, Any]:
         """An eager prefill's batch: the prompt on the device, right-padded
@@ -1146,18 +1163,20 @@ class ServingEngine:
         order = [i for i, r in enumerate(self.slot_req) if r is not None]
         if order == list(range(len(order))):
             return
-        n = len(order)
-        req = [self.slot_req[i] for i in order]
-        pos = [int(self.slot_pos[i]) for i in order]
-        pages = [self.slot_pages[i] for i in order]
-        tables = self.page_tables[order].copy()
-        self.slot_req = req + [None] * (self.n_slots - n)
-        self.slot_pos[:] = 0
-        self.slot_pos[:n] = pos
-        self.slot_pages = pages + [[] for _ in range(self.n_slots - n)]
-        self.page_tables[:] = kvpool.SCRATCH_PAGE
-        self.page_tables[:n] = tables
-        self._tables_dirty = True
+        rec = obs_events.RECORDER
+        with NO_SPAN if rec is None else StepSpan("pool.compact"):
+            n = len(order)
+            req = [self.slot_req[i] for i in order]
+            pos = [int(self.slot_pos[i]) for i in order]
+            pages = [self.slot_pages[i] for i in order]
+            tables = self.page_tables[order].copy()
+            self.slot_req = req + [None] * (self.n_slots - n)
+            self.slot_pos[:] = 0
+            self.slot_pos[:n] = pos
+            self.slot_pages = pages + [[] for _ in range(self.n_slots - n)]
+            self.page_tables[:] = kvpool.SCRATCH_PAGE
+            self.page_tables[:n] = tables
+            self._tables_dirty = True
 
     # ------------------------------------------------------------------
     # live migration (export / import one request's state)
@@ -1329,6 +1348,14 @@ class ServingEngine:
         the executable is built after it (on the card, its graph
         captured). Returns the number of lanes that decoded.
 
+        With a recorder installed the step's phases are `StepSpan`s
+        (``engine.step`` around the whole; ``engine.admit``,
+        ``engine.prefill``, ``pool.write``, ``pool.compact``,
+        ``engine.decode`` around ``engine.decode.launch``,
+        ``engine.bookkeeping``) and the decode step's counters in
+        `decode_stats` accrue; with none, each site costs one ``is None``
+        test.
+
         Raises:
             EngineStateError: if the engine is paused.
             RuntimeError: the installed executable is bound to a pool that
@@ -1336,82 +1363,105 @@ class ServingEngine:
         """
         if self.paused:
             raise EngineStateError("engine is paused (resume() to serve)")
-        while self._retired:
-            self._retired.pop().release()
-        if self.record_logits:
-            self.last_lanes = []
-        self._admit()
-        if self.paged:
-            self._compact()
-        active = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not active:
-            return 0
-        tokens = np.zeros((self.n_slots, 1), dtype=np.int64)
-        for i in active:
-            tokens[i, 0] = self.slot_req[i].tokens_out[-1]
-        if self.record_logits:
-            self.last_lanes = [(i, self.slot_req[i].rid) for i in active]
-        exe, first = None, False
-        if self.layout is not None:
-            # across ranks: eager by design (module doc); a rank outside the
-            # engine's mesh keeps the counts and records no values
-            before = ctx.tp_counts()
-            picks = (self._sharded_decode(self.params, self.cache, self.layout,
-                                          next(iter(self.cache.values())).device_mesh,
-                                          tokens, self.slot_pos.copy(),
-                                          self.page_tables if self.paged else None)
-                     if self._is_member() else np.full(self.n_slots, -1, dtype=np.int64))
-            after = ctx.tp_counts()
-            for k in ("tp_local", "tp_padded", "tp_gathered"):
-                self.decode_stats[k] += after.get(k, 0) - before.get(k, 0)
-            self.decode_stats["eager"] += 1
-            self.decode_stats["multi_rank_eager"] += 1
-        else:
-            with self._exec_lock:
-                exe = self._decode_exec
-            first = exe is None
-            if first:
-                exe = DecodeExecutable(self)
-            elif not exe.bound_to(self.cache):
-                raise RuntimeError("the installed decode executable is bound to a "
-                                   "pool this engine no longer holds")
-            # inactive lanes sit at position 0 (of the scratch page, or of a
-            # free slot, which its next admission overwrites)
-            exe.load(tokens, self.slot_pos,
-                     self.page_tables if self.paged and (first or self._tables_dirty) else None)
-            self._tables_dirty = False
+        rec = obs_events.RECORDER
+        with NO_SPAN if rec is None else StepSpan("engine.step"):
+            while self._retired:
+                self._retired.pop().release()
+            if self.record_logits:
+                self.last_lanes = []
+            self._admit()
+            if self.paged:
+                self._compact()
+            active = [i for i, r in enumerate(self.slot_req) if r is not None]
+            if not active:
+                return 0
+            tokens = np.zeros((self.n_slots, 1), dtype=np.int64)
+            for i in active:
+                tokens[i, 0] = self.slot_req[i].tokens_out[-1]
+            if self.record_logits:
+                self.last_lanes = [(i, self.slot_req[i].rid) for i in active]
+            exe, first = None, False
+            if self.layout is None:
+                with self._exec_lock:
+                    exe = self._decode_exec
+                first = exe is None
+                if first:
+                    exe = DecodeExecutable(self)
+                elif not exe.bound_to(self.cache):
+                    raise RuntimeError("the installed decode executable is bound to a "
+                                       "pool this engine no longer holds")
+            with NO_SPAN if rec is None else StepSpan("engine.decode", self.decode_stats,
+                                                      "decode"):
+                if exe is None:
+                    picks = self._decode_across_ranks(tokens)
+                else:
+                    picks = self._decode_step(exe, tokens, first, rec)
+            if rec is not None and self.paged and exe is not None:
+                self.decode_stats["kv_gathered_bytes"] += exe.gathered_bytes
+                self.decode_stats["kv_live_bytes"] += kvpool.position_bytes(
+                    self.cache, self._pax, self._sax) * sum(int(self.slot_pos[i]) + 1
+                                                            for i in active)
+            with NO_SPAN if rec is None else StepSpan("engine.bookkeeping"):
+                now = time.time()
+                for i in active:
+                    req = self.slot_req[i]
+                    req.tokens_out.append(int(picks[i]))
+                    self.slot_pos[i] += 1
+                    if (len(req.tokens_out) >= req.max_new_tokens
+                            or self.slot_pos[i] >= self.s_max - 1):
+                        req.t_done = now
+                        self.done.append(req)
+                        self._release_lane(i)
+                        if rec is not None:
+                            rec.emit("request.complete", engine=self.obs_name, rid=req.rid,
+                                     label=req.labels.get("data-type", ""),
+                                     ttft_s=req.ttft, tpot_s=req.tpot,
+                                     tokens_out=len(req.tokens_out), role=self.role)
+                self.steps += 1
+                if rec is not None and self.steps % rec.decode_stride == 0:
+                    rec.emit("engine.decode", engine=self.obs_name, step=self.steps,
+                             active=len(active))
+            if first:       # after the step's bookkeeping: a failed capture loses no token
+                self._install(self._capture(exe))
+            return len(active)
+
+    def _decode_step(self, exe: DecodeExecutable, tokens: np.ndarray, first: bool,
+                     rec) -> np.ndarray:
+        """One decode step through ``exe`` (eager when ``first``, else its
+        replay on the card); returns each lane's pick on the host."""
+        # inactive lanes sit at position 0 (of the scratch page, or of a
+        # free slot, which its next admission overwrites)
+        exe.load(tokens, self.slot_pos,
+                 self.page_tables if self.paged and (first or self._tables_dirty) else None)
+        self._tables_dirty = False
+        with NO_SPAN if rec is None else StepSpan("engine.decode.launch"):
             if first:
                 exe.forward()
                 self.decode_stats["eager"] += 1
             else:
                 exe.run()
                 self.decode_stats["replays" if exe.graph is not None else "eager"] += 1
-            picks = exe.next_tok.cpu().numpy()
-            if self.record_logits:
-                self.last_logits = exe.logits.clone()
-        now = time.time()
-        rec = obs_events.RECORDER
-        for i in active:
-            req = self.slot_req[i]
-            req.tokens_out.append(int(picks[i]))
-            self.slot_pos[i] += 1
-            if (len(req.tokens_out) >= req.max_new_tokens
-                    or self.slot_pos[i] >= self.s_max - 1):
-                req.t_done = now
-                self.done.append(req)
-                self._release_lane(i)
-                if rec is not None:
-                    rec.emit("request.complete", engine=self.obs_name, rid=req.rid,
-                             label=req.labels.get("data-type", ""),
-                             ttft_s=req.ttft, tpot_s=req.tpot,
-                             tokens_out=len(req.tokens_out), role=self.role)
-        self.steps += 1
-        if rec is not None and self.steps % rec.decode_stride == 0:
-            rec.emit("engine.decode", engine=self.obs_name, step=self.steps,
-                     active=len(active))
-        if first:       # after the step's bookkeeping: a failed capture loses no token
-            self._install(self._capture(exe))
-        return len(active)
+        picks = exe.next_tok.cpu().numpy()
+        if self.record_logits:
+            self.last_logits = exe.logits.clone()
+        return picks
+
+    def _decode_across_ranks(self, tokens: np.ndarray) -> np.ndarray:
+        """One decode step of a layout across ranks: eager by design (module
+        doc); a rank outside the engine's mesh keeps the counts and records
+        no values."""
+        before = ctx.tp_counts()
+        picks = (self._sharded_decode(self.params, self.cache, self.layout,
+                                      next(iter(self.cache.values())).device_mesh,
+                                      tokens, self.slot_pos.copy(),
+                                      self.page_tables if self.paged else None)
+                 if self._is_member() else np.full(self.n_slots, -1, dtype=np.int64))
+        after = ctx.tp_counts()
+        for k in ("tp_local", "tp_padded", "tp_gathered"):
+            self.decode_stats[k] += after.get(k, 0) - before.get(k, 0)
+        self.decode_stats["eager"] += 1
+        self.decode_stats["multi_rank_eager"] += 1
+        return picks
 
     def run(self, max_steps: int = 10_000) -> None:
         """Step until the queue and all lanes are empty (or the engine's

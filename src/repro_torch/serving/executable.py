@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.serving import kvpool
 from repro_torch.serving.kvpool import SCRATCH_PAGE
 
 # one capture at a time in the process: a capture reaches into the caching
@@ -103,6 +104,11 @@ class DecodeExecutable:
         self._paged_decode = engine._decode if engine.paged else None
         self.graph = None
         self.launches: Dict[str, int] = {}
+        #: bytes of the dense cache each paged step gathers (Σ ``nbytes`` of
+        #: `kvpool.gather_pages`' outputs over the static tables: an eager
+        #: step and a replay alike). 0 on a slot pool, which gathers nothing
+        self.gathered_bytes = (kvpool.gathered_bytes(self.cache, self.tables, engine._pax)
+                               if engine.paged else 0)
 
     def bound_to(self, cache: Dict[str, torch.Tensor]) -> bool:
         """Whether ``cache`` is the pool this executable was built over

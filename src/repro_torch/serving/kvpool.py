@@ -230,6 +230,21 @@ def write_pages(store: Store, single: Store, pages: Sequence[int],
     return store
 
 
+def position_bytes(store: Store, pax: Axes, sax: Axes) -> int:
+    """KV bytes of one token position: Σ over the store's leaves of a
+    leaf's bytes over its pages times the page size."""
+    return sum(leaf.nbytes // (leaf.shape[pax[name]] * leaf.shape[sax[name]])
+               for name, leaf in store.items())
+
+
+def gathered_bytes(store: Store, tables: torch.Tensor, pax: Axes) -> int:
+    """Bytes of the dense cache `gather_pages` writes for ``tables``: Σ
+    over the store's leaves of one page's bytes, times the pages the
+    tables name."""
+    return tables.numel() * sum(leaf.nbytes // leaf.shape[pax[name]]
+                                for name, leaf in store.items())
+
+
 def make_paged_decode(model, pax: Axes, sax: Axes):
     """The paged decode step: gather the active rows' pages into a dense
     cache, run the model's ``decode_step`` on it, write the one new token
